@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Quickest proof that the PyTorch/CUDA port (``src/repro_torch``) runs on
 an NVIDIA GPU: builds its CUDA kernels from this checkout, holds each
-against its plain PyTorch version, and serves tm-mnist-50 through
-``TMServer`` on both kernel-backed backends.
+against its plain PyTorch version, serves tm-mnist-50 through
+``TMServer`` on both kernel-backed backends, and serves while it learns
+online through the ``fused`` train engine.
 
     python3 chip_smoke.py
 
@@ -19,6 +20,11 @@ package.  Phases, each on its own lines:
    (all-include, no-include, tied class sums); each kernel's median
    device time (CUDA events, launches queued behind a GPU spin so host
    overhead stays out), its plain version's time and its bound;
+   then kernel K2 (``train_deltas_keyed``) the same way on the inputs a
+   ``fused`` train step gives it (feedback masks and row keys from the
+   threefry contract) for B in {1, 32, 37, 64, 512}, at the all-include
+   and no-include states, with ``boost_tpf=False`` and with every mask
+   off, timed at B in {32, 64};
 4. the main path: ``TMServer`` on cuda at tm-mnist-50 width, state at 5%
    include density from a seeded numpy generator through
    ``state_from_numpy``, once with ``backend="mxu_fused"`` (K3) and once
@@ -27,7 +33,16 @@ package.  Phases, each on its own lines:
    response must equal the port's ``oracle`` backend on the CPU, and the
    path's kernel counter (zeroed just before the traffic) must equal the
    number of batches served;
-5. a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
+5. serve and learn: ``TMServer`` on cuda with ``backend="mxu_fused"``,
+   ``train_backend="fused"`` and ``train_seed=0``; the eight predict
+   clients run while a feeder submits 16 teacher-labeled batches of 32
+   rows one after another.  After the traffic the 16 batches replay on
+   the CPU through the ``reference`` engine from the same key chain and
+   every published state must equal its replay bitwise, every predict
+   response must equal the CPU oracle under the state of the version it
+   was pinned to, and the counters (zeroed just before the traffic) must
+   show K2 = K1 = updates and K3 = predict batches;
+6. a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero; without a CUDA device it exits 1
@@ -54,6 +69,14 @@ SEED = 0
 KERNEL_BATCHES = (1, 37, 64, 4096)
 SERVE_BATCH = 64                  # largest serving bucket: the JSON shape
 N_CLIENTS, PER_CLIENT = 8, 40
+# online learning: labeled batches of the JAX launcher's --label-batch
+# default; K2 is checked at these batches and timed at the first two
+LABEL_BATCH, N_UPDATES = 32, 16
+TRAIN_BATCHES = (32, 64, 1, 37, 512)
+# integer operations per Type I word in K2: threefry2x32's 20 rounds
+# (add, funnel-shift rotate, xor), 12 key injections and the output xor
+# (csrc/threefry.cuh), then the shift and two threshold compares
+K2_OPS_PER_WORD = 76
 # H100 SXM published peaks (NVIDIA H100 datasheet, 700 W): HBM bytes/s,
 # dense int8 tensor-core ops/s, float32 FLOP/s outside the tensor cores
 HBM_BPS, INT8_OPS, FP32_FLOPS = 3.35e12, 1979e12, 67e12
@@ -253,6 +276,227 @@ async def serve(torch, rt, backend: str, ta: np.ndarray) -> dict:
     return {"stats": stats, "launches": launches}
 
 
+def k2_inputs(torch, rt, cfg, ta: np.ndarray, b: int, seed: int,
+              masks_on: bool = True) -> tuple:
+    """K2's arguments as a ``fused`` train step builds them on the card:
+    the class sums (plain K1), the feedback masks and per-row keys from
+    the threefry contract (key on the CPU), the polarity routing."""
+    rng = np.random.default_rng(seed)
+    x = torch.as_tensor(rng.integers(0, 2, (b, 2 * F), dtype=np.int8),
+                        device="cuda")
+    y = torch.as_tensor(rng.integers(0, C, (b,)), device="cuda")
+    inc8 = torch.as_tensor((ta > 128).astype(np.int8), device="cuda")
+    votes = rt["swar_fused_votes_plain"](
+        rt["pack_bits"](1 - x), rt["pack_bits"](inc8.reshape(C * M, -1)),
+        rt["make_vote_matrix"](C, M, "cuda"))
+    y_neg, fb_t, fb_n, k1s, k2s = rt["feedback_masks"](
+        cfg, rt["prng"].key(seed), votes, y)
+    pos = (rt["clause_polarity"](M, "cuda") > 0)[None, :]
+    masks = [mk & masks_on for mk in
+             rt["feedback_polarity_masks"](fb_t, fb_n, pos)]
+    return (x, k1s, k2s, inc8, *masks, y, y_neg)
+
+
+def k2_bound(args) -> tuple[float, str]:
+    """Least time (ms) for K2's work on these inputs: each input read
+    once and the (C, M, L) int32 output written once, vs the threefry
+    words this run's masks select (m1_t / m1_n rows × L) at the integer
+    rate.  Type II and the selection are not counted, so the bound
+    stays a lower one."""
+    x, k1s, k2s, inc8, m1_t, m2_t, m1_n, m2_n, y, y_neg = args
+    nbytes = sum(t.numel() * t.element_size() for t in args) + 4 * inc8.numel()
+    words = int(m1_t.sum() + m1_n.sum()) * 2 * F
+    t_ops = words * K2_OPS_PER_WORD / INT32_OPS
+    t_bytes = nbytes / HBM_BPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def check_train_deltas(torch, rt) -> dict:
+    """Phase 3b: kernel K2 bitwise against its plain version on the
+    inputs of real fused steps, then timed → {"max_abs_err", "ms",
+    "plain_ms", "bound_ms", "bound_by"} at LABEL_BATCH."""
+    cfg = rt["TMConfig"](n_classes=C, n_clauses=M, n_features=F, T=T, s=S)
+    rng = np.random.default_rng(SEED + 20)
+    dense = make_ta(rng, DENSITY)
+    cases = [(f"density={DENSITY}", dense, b, True, True)
+             for b in TRAIN_BATCHES]
+    cases += [("all-include", np.full((C, M, 2 * F), 129, np.int32),
+               LABEL_BATCH, True, True),
+              ("no-include", np.full((C, M, 2 * F), 128, np.int32),
+               LABEL_BATCH, True, True),
+              ("boost_tpf=False", dense, LABEL_BATCH, False, True),
+              ("masks off", dense, LABEL_BATCH, True, False)]
+    err, timed = 0, {}
+    for i, (label, ta, b, boost, on) in enumerate(cases):
+        args = k2_inputs(torch, rt, cfg, ta, b, SEED + 30 + i, on)
+        kw = {"n_classes": C, "p_inc": 1.0 if boost else (S - 1) / S,
+              "p_dec": 1 / S}
+        got = rt["train_deltas_keyed"](*args, **kw)
+        want = rt["train_deltas_keyed_plain"](*args, **kw)
+        torch.cuda.synchronize()
+        if got.shape != (C, M, 2 * F) or got.dtype != torch.int32:
+            raise AssertionError(f"train_deltas_keyed returned {got.shape} "
+                                 f"{got.dtype}")
+        e = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+        err = max(err, e)
+        if e != 0:
+            raise AssertionError(f"train_deltas_keyed disagrees with its "
+                                 f"plain version at {label} B={b}: max abs "
+                                 f"err {e}")
+        if bool(got.any()) != on:
+            raise AssertionError(f"train_deltas_keyed at {label} B={b}: "
+                                 f"nonzero={bool(got.any())}")
+        words = int(args[4].sum() + args[6].sum()) * 2 * F
+        print(f"check train_deltas {label:15s} B={b:4d}: bitwise=True  "
+              f"type-I words={words}  |upd|={int(got.abs().sum())}",
+              flush=True)
+        if label.startswith("density") and b in TRAIN_BATCHES[:2]:
+            ms = device_ms(torch, lambda: rt["train_deltas_keyed"](
+                *args, **kw), reps=50)
+            plain_ms = device_ms(torch, lambda: rt[
+                "train_deltas_keyed_plain"](*args, **kw), reps=3)
+            bound_ms, bound_by = k2_bound(args)
+            print(f"time  train_deltas     B={b:5d}: kernel {ms:.6f} ms  "
+                  f"plain {plain_ms:.6f} ms  bound {bound_ms:.6f} ms "
+                  f"({bound_by}, {words} words)", flush=True)
+            timed[b] = {"max_abs_err": 0, "ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": bound_ms, "bound_by": bound_by}
+    out = timed[LABEL_BATCH]
+    out["max_abs_err"] = err
+    return out
+
+
+async def serve_and_learn(torch, rt, ta: np.ndarray) -> dict:
+    """Phase 5: predicts and labeled updates through one TMServer on
+    cuda; every published state checked against the CPU reference replay
+    and every response against the CPU oracle at its pinned version →
+    stats, launch counts and update latencies."""
+    from repro_torch.convert import state_from_numpy
+    from repro_torch.engine import get_engine, get_train_engine
+    from repro_torch.serve import ServePolicy, TMServer
+
+    prng = rt["prng"]
+    cfg = rt["TMConfig"](n_classes=C, n_clauses=M, n_features=F, T=T, s=S)
+    rng = np.random.default_rng(SEED + 3)
+    feed = rng.integers(0, 2, (N_UPDATES, LABEL_BATCH, 2 * F), dtype=np.int8)
+    teacher = get_engine("oracle", cfg, state_from_numpy(
+        make_ta(np.random.default_rng(SEED + 2), DENSITY)))
+    labels = [teacher.infer(lits).prediction.cpu().numpy() for lits in feed]
+    published = {}
+    server = TMServer(cfg, state_from_numpy(ta),
+                      ServePolicy(max_batch=SERVE_BATCH, max_wait_us=500,
+                                  backend="mxu_fused"),
+                      train_backend="fused", train_seed=SEED,
+                      history_size=N_UPDATES + 1,
+                      on_publish=lambda v, st: published.setdefault(v, st))
+    answered, update_s = [], []
+
+    async def client(cid: int) -> None:
+        crng = np.random.default_rng(SEED + 200 + cid)
+        for i in range(PER_CLIENT):
+            lits = crng.integers(0, 2, (int(crng.integers(1, 17)), 2 * F),
+                                 dtype=np.int8)
+            # submit pins the version current when it enqueues, with no
+            # await in between while the queue has room
+            version = server.state_version
+            res = await server.submit(lits, client=cid)
+            answered.append((version, cid, i, lits, res))
+
+    async def feeder() -> list:
+        versions = []
+        for lits, y in zip(feed, labels):
+            t0 = time.perf_counter()
+            versions.append(await server.submit_labeled(lits, y))
+            update_s.append(time.perf_counter() - t0)
+        return versions
+
+    async with server:
+        t0 = time.perf_counter()
+        await server.warmup(train_batches=(LABEL_BATCH,))
+        warm = time.perf_counter() - t0
+        for name in ("clause_votes", "swar_fused_votes",
+                     "train_deltas_keyed"):
+            rt[name].launches = 0
+        t0 = time.perf_counter()
+        versions, *_ = await asyncio.gather(
+            feeder(), *[client(c) for c in range(N_CLIENTS)])
+        wall = time.perf_counter() - t0
+        launches = {name: rt[name].launches for name in
+                    ("clause_votes", "swar_fused_votes",
+                     "train_deltas_keyed")}
+        stats = server.stats()
+    if versions != list(range(1, N_UPDATES + 1)):
+        raise AssertionError(f"learn: update versions {versions}")
+    # checked after the traffic: the CPU replay and oracle stay off the
+    # event loop the server shares
+    t0 = time.perf_counter()
+    ref = get_train_engine("reference", cfg)
+    chain, state = prng.key(SEED), state_from_numpy(ta, device="cpu")
+    replay = [state]
+    for lits, y in zip(feed, labels):
+        chain, k = prng.split(chain)
+        state = ref.step(state, k, lits, y)
+        replay.append(state)
+    for v, want in enumerate(replay):
+        if not torch.equal(published[v].ta.cpu(), want.ta):
+            raise AssertionError(f"learn: published version {v} differs "
+                                 f"from the CPU reference replay")
+    replay_s = time.perf_counter() - t0
+    oracles = {}
+    for version, cid, i, lits, res in answered:
+        if version not in oracles:
+            oracles[version] = get_engine("oracle", cfg, replay[version])
+        want = oracles[version].infer(lits)
+        if not (np.array_equal(res.prediction, want.prediction.numpy())
+                and np.array_equal(res.class_sums, want.class_sums.numpy())):
+            raise AssertionError(f"learn: response differs from the CPU "
+                                 f"oracle at version {version} (client "
+                                 f"{cid}, request {i})")
+    changed = int((replay[-1].ta != replay[0].ta).sum())
+    lat = sorted(update_s)
+    print(f"learn fused+mxu_fused: {N_UPDATES} updates x {LABEL_BATCH} rows "
+          f"== CPU reference replay (replay {replay_s:.1f}s, {changed} TA "
+          f"states changed); {len(answered)} responses == CPU oracle at "
+          f"their versions ({len(oracles)} versions seen) in {wall:.3f}s "
+          f"(warmup {warm:.3f}s)  batches={stats['batches']}  "
+          f"fill={stats['batch_fill']:.3f}  p50={stats['p50_ms']}ms  "
+          f"p99={stats['p99_ms']}ms  launches={launches}", flush=True)
+    print(f"learn update latency ms (host clock around submit_labeled): "
+          f"p50={statistics.median(lat) * 1e3:.3f}  "
+          f"max={lat[-1] * 1e3:.3f}  all="
+          f"{[round(t * 1e3, 3) for t in update_s]}", flush=True)
+    if stats["errors"] or stats["updates"] != N_UPDATES or \
+            len(answered) != N_CLIENTS * PER_CLIENT:
+        raise AssertionError(f"learn: {stats['errors']} errors, "
+                             f"{stats['updates']} updates, "
+                             f"{len(answered)} responses")
+    want_launches = {"train_deltas_keyed": N_UPDATES,
+                     "swar_fused_votes": N_UPDATES,
+                     "clause_votes": stats["batches"]}
+    if launches != want_launches:
+        raise AssertionError(f"learn: launches {launches}, expected "
+                             f"{want_launches}")
+    # where one update's time goes with no predict traffic: the fused step
+    # on the card (host clock, ending in a stream sync) and, within it,
+    # the key draws on the CPU
+    fused, step_s, draw_s = get_train_engine("fused", cfg), [], []
+    for i in range(10):
+        k = prng.split(prng.key(i))[1]
+        t0 = time.perf_counter()
+        fused.step(published[N_UPDATES], k, feed[i], labels[i])
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        rt["feedback_draws"](cfg, k, LABEL_BATCH)
+        draw_s.append(time.perf_counter() - t0)
+    print(f"learn step alone ms (host clock, 10 steps): fused step "
+          f"p50={statistics.median(step_s) * 1e3:.3f}  of which key draws "
+          f"on the CPU p50={statistics.median(draw_s) * 1e3:.3f}",
+          flush=True)
+    return {"stats": stats, "launches": launches}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -260,18 +504,31 @@ def main() -> int:
               "script needs a CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.core import prng
     from repro_torch.core.popcount import pack_bits
+    from repro_torch.core.tm import TMConfig, clause_polarity
+    from repro_torch.core.tm_train import feedback_draws, feedback_masks
     from repro_torch.kernels import ops
     from repro_torch.kernels.clause_eval import (clause_votes,
                                                  clause_votes_plain,
                                                  make_vote_matrix)
     from repro_torch.kernels.swar_fused import (swar_fused_votes,
                                                 swar_fused_votes_plain)
+    from repro_torch.kernels.train_fused import (feedback_polarity_masks,
+                                                 train_deltas_keyed,
+                                                 train_deltas_keyed_plain)
     rt = {"pack_bits": pack_bits, "make_vote_matrix": make_vote_matrix,
           "clause_votes": clause_votes,
           "clause_votes_plain": clause_votes_plain,
           "swar_fused_votes": swar_fused_votes,
-          "swar_fused_votes_plain": swar_fused_votes_plain}
+          "swar_fused_votes_plain": swar_fused_votes_plain,
+          "train_deltas_keyed": train_deltas_keyed,
+          "train_deltas_keyed_plain": train_deltas_keyed_plain,
+          "prng": prng, "TMConfig": TMConfig,
+          "clause_polarity": clause_polarity,
+          "feedback_draws": feedback_draws,
+          "feedback_masks": feedback_masks,
+          "feedback_polarity_masks": feedback_polarity_masks}
 
     card = smi("name,power.limit")
     print(card, flush=True)
@@ -292,6 +549,7 @@ def main() -> int:
               flush=True)
 
     kernels = check_kernels(torch, rt)
+    kernels["train_deltas_keyed"] = check_train_deltas(torch, rt)
     print(f"clocks/power after timing: "
           f"{smi('clocks.sm,power.draw,temperature.gpu')}", flush=True)
 
@@ -305,6 +563,7 @@ def main() -> int:
             raise AssertionError(f"{backend} served "
                                  f"{runs[backend]['stats']['batches']} "
                                  f"batches but launched {name} {n} times")
+    learn = asyncio.run(serve_and_learn(torch, rt, ta))
 
     meta = {
         "swar_fused_votes": ("src/repro_torch/csrc/swar_fused.cu",
@@ -313,17 +572,25 @@ def main() -> int:
         "clause_votes": ("src/repro_torch/csrc/clause_votes.cu",
                          "src/repro/kernels/clause_eval.py:64",
                          "clause_votes_pallas"),
+        "train_deltas_keyed": ("src/repro_torch/csrc/train_deltas.cu",
+                               "src/repro/kernels/train_fused.py:171",
+                               "train_deltas_pallas"),
     }
+    launches = {name: runs[backend]["launches"][name]
+                for name, backend in path_of.items()}
+    launches["train_deltas_keyed"] = learn["launches"]["train_deltas_keyed"]
     rows = []
     for name, (source, replaces, pallas) in meta.items():
         k = kernels[name]
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "pallas": pallas,
-                     "launches": runs[path_of[name]]["launches"][name],
+                     "launches": launches[name],
                      "max_abs_err": k["max_abs_err"], "bitwise": True,
                      "ms": k["ms"], "plain_ms": k["plain_ms"],
                      "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
-                     "library_ms": None, "batch": SERVE_BATCH})
+                     "library_ms": None,
+                     "batch": LABEL_BATCH if name == "train_deltas_keyed"
+                     else SERVE_BATCH})
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,10 @@
-"""Backend-dispatched inference engines (port of ``repro.engine``).
+"""Backend-dispatched inference and training engines (port of
+``repro.engine``).
 
->>> from repro_torch.engine import get_engine
+>>> from repro_torch.engine import get_engine, get_train_engine
 >>> eng = get_engine("mxu_fused", cfg, state)   # or oracle / adder_tree /
 >>> eng.infer(literals).prediction              #   swar_packed / swar_fused
-
-Training engines (``get_train_engine``) come with the next slice of the
-port (see ROADMAP.md).
+>>> new_state = get_train_engine("fused", cfg).step(state, key, lits, y)
 """
 
 from .base import (DEFAULT_BACKEND, EngineResult, ServiceStats, VoteEngine,
@@ -13,8 +12,17 @@ from .base import (DEFAULT_BACKEND, EngineResult, ServiceStats, VoteEngine,
                    evict_engines_for_state, get_engine, infer_padded,
                    nearest_rank, pad_batch, register_backend, state_nbytes)
 from . import backends  # noqa: F401  (registers the built-in backends)
+from .train import (DEFAULT_TRAIN_BACKEND, TrainEngine,
+                    available_train_backends, clear_train_engine_cache,
+                    export_key_cursor, get_train_engine, import_key_cursor,
+                    register_train_backend, train_engine_cache_info,
+                    train_engine_opts)
 
 __all__ = ["DEFAULT_BACKEND", "EngineResult", "ServiceStats", "VoteEngine",
            "available_backends", "clear_engine_cache", "engine_cache_info",
            "evict_engines_for_state", "get_engine", "infer_padded",
-           "nearest_rank", "pad_batch", "register_backend", "state_nbytes"]
+           "nearest_rank", "pad_batch", "register_backend", "state_nbytes",
+           "DEFAULT_TRAIN_BACKEND", "TrainEngine", "available_train_backends",
+           "clear_train_engine_cache", "export_key_cursor",
+           "get_train_engine", "import_key_cursor", "register_train_backend",
+           "train_engine_cache_info", "train_engine_opts"]

@@ -36,8 +36,8 @@ from repro_torch.core.popcount import argmax_tournament
 from .clause_eval import clause_votes, make_vote_matrix
 
 __all__ = ["on_cuda", "resolve_device", "load_library", "build_kernels",
-           "launch", "KERNEL_SOURCES", "tm_fused_votes", "tm_fused_predict",
-           "make_vote_matrix"]
+           "launch", "KERNEL_SOURCES", "KERNEL_ARGTYPES", "tm_fused_votes",
+           "tm_fused_predict", "make_vote_matrix"]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -45,8 +45,17 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # library name (also the name of its C launch function) -> source
 KERNEL_SOURCES = {"swar_fused_votes": "swar_fused.cu",
-                  "clause_votes": "clause_votes.cu"}
-_HEADERS = ("tm_votes.cuh",)
+                  "clause_votes": "clause_votes.cu",
+                  "train_deltas": "train_deltas.cu"}
+_HEADERS = ("tm_votes.cuh", "threefry.cuh")
+_P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
+# each C launch function's arguments before the trailing (int device,
+# void* stream): tensor pointers first, then the scalars
+KERNEL_ARGTYPES = {
+    "swar_fused_votes": (_P,) * 4 + (_I,) * 4,
+    "clause_votes": (_P,) * 4 + (_I,) * 4,
+    "train_deltas": (_P,) * 12 + (_I,) * 4 + (_U,) * 2,
+}
 
 _lock = threading.RLock()      # load_library holds it around build_kernels
 _libs: dict[str, ctypes.CDLL] = {}
@@ -137,18 +146,17 @@ def load_library(name: str) -> ctypes.CDLL:
     """The loaded library for kernel ``name``; a miss builds every
     library that is not built yet (:func:`build_kernels`).
 
-    Each library exports ``int <name>(...)`` — four pointers, four
-    ints, the device index and the stream; it returns a ``cudaError_t``
-    — and ``const char* <name>_error(int)``."""
+    Each library exports ``int <name>(...)`` — the arguments of
+    ``KERNEL_ARGTYPES[name]``, then the device index and the stream; it
+    returns a ``cudaError_t`` — and ``const char* <name>_error(int)``."""
     with _lock:
         lib = _libs.get(name)
         if lib is not None:
             return lib
         lib = ctypes.CDLL(str(build_kernels()[name]))
         fn = getattr(lib, name)
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + \
-            [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+        fn.argtypes = [*KERNEL_ARGTYPES[name], _I, _P]
+        fn.restype = _I
         err = getattr(lib, f"{name}_error")
         err.argtypes = [ctypes.c_int]
         err.restype = ctypes.c_char_p
@@ -161,6 +169,12 @@ def launch(name: str, tensors: tuple[torch.Tensor, ...], ints: tuple[int, ...]
     """Call kernel ``name``'s C entry on ``tensors``' pointers and
     ``ints``, on the current stream of their device; raise on a refused
     launch (``cudaGetLastError`` is checked right after it)."""
+    argtypes = KERNEL_ARGTYPES[name]
+    n_ptr = argtypes.count(_P)
+    if len(tensors) != n_ptr or len(ints) != len(argtypes) - n_ptr:
+        raise TypeError(f"kernel {name} takes {n_ptr} tensors and "
+                        f"{len(argtypes) - n_ptr} scalars, got "
+                        f"{len(tensors)} and {len(ints)}")
     lib = load_library(name)
     dev = tensors[0].device
     stream = torch.cuda.current_stream(dev).cuda_stream

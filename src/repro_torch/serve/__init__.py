@@ -1,5 +1,6 @@
 """Serving layer: the TM micro-batching scheduler (port of
-``repro.serve``, predict plane) and its traffic generators.
+``repro.serve``: predict and online-learning planes) and its traffic
+generators.
 
 See ``python -m repro_torch.launch.tm_serve``.  ``TMFleet`` and the LM
 decode path come in later slices of the port (see ROADMAP.md).

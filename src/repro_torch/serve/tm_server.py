@@ -1,5 +1,5 @@
 """TM serving: async micro-batching scheduler over the VoteEngine registry
-(port of ``repro.serve.tm_server``, predict plane).
+(port of ``repro.serve.tm_server``: predict and learning planes).
 
 Requests arrive one at a time — variable-size, asynchronous, bursty — and
 throughput comes from decoupling arrival from evaluation:
@@ -41,21 +41,36 @@ service time) and reaps already-expired queue heads at dispatch.
 A failing batch (bad routing entry, backend error) fails its own
 requests' futures only; the scheduler outlives engine errors.
 
+**Online learning** (opt-in via ``train_backend=``) — :meth:`submit_labeled`
+enqueues labeled batches.  Each runs a :mod:`repro_torch.engine.train`
+``TrainEngine`` step on a dedicated training thread (overlapping predict
+compute) and publishes the new ``(version, state)`` pair as one tuple
+swap, so a predict never sees a half-applied update; updates serialise
+among themselves.  ``train_seed`` seeds the update-key chain exactly as
+the JAX package does (update ``i`` uses ``split(chain)[1]``, the chain
+advancing to ``split(chain)[0]`` only when the step succeeds), so for the
+same seed and batches the published states equal the JAX server's bit for
+bit.  ``probe=(literals, labels)`` with ``probe_every_updates`` scores a
+held-out stream every N applied updates (``stats()["probe"]``).
+
 The server runs on ``device`` (``None`` → cuda, and it raises where no
 GPU is visible); tensors carry their device, so the worker thread needs
 no ``set_device`` and kernels launch on that device's current stream.
 
-Not ported yet (see ROADMAP.md): online learning (``train_backend``,
-``submit_labeled``), checkpoint/restore and rollback from disk, the drift
-probe, ``mesh=``, the overload shed tier, the measured autotune routes
-and the sparse layout half of the publish refresh.  Passing one of those
-options raises ``NotImplementedError``.
+Not ported yet (see ROADMAP.md): checkpoint/restore and rollback from
+disk (``checkpoint_dir``, ``checkpoint_every_updates``,
+``checkpoint_keep``), ``mesh=``, the overload shed tier, the measured
+autotune routes and the sparse layout half of the publish refresh.
+Passing one of those options raises ``NotImplementedError``.
 
 >>> async with TMServer(cfg, state, ServePolicy(max_batch=64,
 ...                     backend="mxu_fused")) as srv:
 ...     result = await srv.submit(literals)       # (n, 2F) or (2F,)
 ...     result.prediction                         # (n,) int32 numpy
 ...     fast = await srv.submit(literals, deadline_us=5000, priority=0)
+>>> async with TMServer(cfg, state, train_backend="fused",
+...                     train_seed=0) as srv:
+...     version = await srv.submit_labeled(literals, labels)
 """
 
 from __future__ import annotations
@@ -71,10 +86,11 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from repro_torch.core import prng
 from repro_torch.core.tm import TMConfig, TMState, include_mask
 from repro_torch.engine import (EngineResult, ServiceStats,
                                 engine_cache_info, evict_engines_for_state,
-                                get_engine, infer_padded)
+                                get_engine, get_train_engine, infer_padded)
 from repro_torch.kernels.ops import resolve_device
 
 from .loadgen import DeadlineExceeded, percentiles_ms
@@ -85,10 +101,8 @@ __all__ = ["ServePolicy", "TMServer", "DeadlineExceeded", "bucket_for",
 _STOP = object()        # queue sentinel: wakes the scheduler for shutdown
 _NOT_PORTED = ("ROADMAP.md lists it among the TMServer options the port "
                "does not have yet")
-_UNPORTED_OPTIONS = ("mesh", "train_backend", "train_seed",
-                     "checkpoint_dir", "checkpoint_every_updates",
-                     "checkpoint_keep", "probe", "probe_every_updates",
-                     "probe_window")
+_UNPORTED_OPTIONS = ("mesh", "checkpoint_dir", "checkpoint_every_updates",
+                     "checkpoint_keep")
 
 
 def default_buckets(max_batch: int) -> tuple[int, ...]:
@@ -205,6 +219,18 @@ class _Request:
                 self.seq)
 
 
+class _Update:
+    """A queued labeled feedback batch (online-learning mode)."""
+
+    __slots__ = ("lits", "labels", "future", "t_in")
+
+    def __init__(self, lits, labels, future):
+        self.lits = lits
+        self.labels = labels
+        self.future = future
+        self.t_in = time.monotonic()
+
+
 class TMServer:
     """Async micro-batching front end over one (cfg, state) TM on a device.
 
@@ -213,6 +239,13 @@ class TMServer:
     slice of a batched ``infer``.  One scheduler coroutine coalesces and
     assembles (stage A), one worker thread runs the engines (stage B) and
     a fan-out coroutine resolves futures (stage C).
+
+    ``train_backend`` opts into online learning through the named
+    :mod:`repro_torch.engine.train` backend on a training thread of its
+    own; ``train_seed`` seeds the update-key chain (see the module
+    docstring).  ``probe=(literals, labels)`` with ``probe_every_updates >
+    0`` scores the held-out probe stream every N applied updates, keeping
+    the last ``probe_window`` scores.
 
     ``device``: where the state lives and the engines run (``None`` →
     cuda; raises where no GPU is visible — pass ``device="cpu"`` for the
@@ -226,7 +259,11 @@ class TMServer:
                  policy: ServePolicy | None = None, *,
                  routing: dict[int, str] | None = None,
                  device=None,
+                 train_backend: str | None = None, train_seed: int = 0,
                  history_size: int = 8,
+                 probe: tuple | None = None,
+                 probe_every_updates: int = 0,
+                 probe_window: int = 256,
                  latency_window: int = 4096,
                  on_publish=None,
                  executor: ThreadPoolExecutor | None = None,
@@ -262,15 +299,49 @@ class TMServer:
         self._n_publish_hook_errors = 0
         self._n_rollbacks = 0
         self._publish(0, state)
+        self._train_engine = None
+        self._train_key = None
+        self._train_pool: ThreadPoolExecutor | None = None
+        if train_backend is not None:
+            self._train_engine = get_train_engine(train_backend, cfg)
+            # the chain lives on the CPU: its splits and the step's small
+            # draws are a few hundred tiny ops, cheaper there than as
+            # kernel launches
+            self._train_key = prng.key(train_seed)
+            # updates get their own thread: a training step overlaps
+            # predict compute (stage B) instead of serialising behind it
+            self._train_pool = ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="tm-serve-train")
+        self._probe = None
+        if probe is not None:
+            lits, labels = probe
+            lits = self._check_literals(lits)
+            y = np.asarray(labels, dtype=np.int32).reshape(-1)
+            if y.shape[0] != lits.shape[0]:
+                raise ValueError(f"probe labels {y.shape} do not match "
+                                 f"{lits.shape[0]} literal rows")
+            self._probe = (lits, y)
+        self._probe_every = int(probe_every_updates)
+        if self._probe_every and self._probe is None:
+            raise ValueError("probe_every_updates needs probe=(lits, labels)")
+        self._probe_history: deque[tuple[int, float]] = deque(
+            maxlen=probe_window)
+        self._probe_best: float | None = None
+        self._n_probe_evals = 0
         # -- queues + pipeline state ----------------------------------
-        # the arrival queue is unbounded; the capacity semaphore is the
-        # backpressure bound, released when the scheduler pops a request
+        # the arrival queue is unbounded; the capacity semaphores are the
+        # backpressure bounds, one per plane (a predict flood must not
+        # park labeled updates behind it), released when the scheduler
+        # pops the item
         self._queue: asyncio.Queue = asyncio.Queue()
         self._capacity = asyncio.Semaphore(self.policy.queue_depth)
+        self._update_capacity = asyncio.Semaphore(self.policy.queue_depth)
         self._sem = asyncio.Semaphore(self.policy.pipeline_depth)
         self._completions: asyncio.Queue = asyncio.Queue()
         self._pending: list[tuple] = []            # EDF heap of predicts
+        self._pending_updates: deque[_Update] = deque()
         self._get_task: asyncio.Task | None = None
+        self._update_task: asyncio.Task | None = None
         self._fanout_task: asyncio.Task | None = None
         self._seq = 0
         self._next_slot = 0
@@ -293,6 +364,8 @@ class TMServer:
         self._n_batches = 0
         self._n_padded_rows = 0
         self._n_errors = 0
+        self._n_updates = 0
+        self._n_update_rows = 0
         self._n_deadline_reqs = 0
         self._n_deadline_misses = 0
         self._n_admission_rejects = 0
@@ -334,8 +407,9 @@ class TMServer:
     def rollback(self, version: int) -> int:
         """Re-publish a state from the history ring → the new (bumped)
         version.  Versions stay monotonic; in-flight predicts pinned to
-        other versions are untouched.  Rollback from a checkpoint on disk
-        is not ported yet (see ROADMAP.md)."""
+        other versions are untouched.  Rollback restores the state only:
+        the update-key chain keeps advancing from its cursor.  Rollback
+        from a checkpoint on disk is not ported yet (see ROADMAP.md)."""
         state = next((s for v, s in self._history if v == version), None)
         if state is None:
             raise KeyError(f"version {version} is not in the history ring "
@@ -352,7 +426,8 @@ class TMServer:
 
     @property
     def state_version(self) -> int:
-        """Version of the served state (0 at start, +1 per publish)."""
+        """Version of the served state (0 at start, +1 per applied update,
+        publish or rollback)."""
         return self._current[0]
 
     @property
@@ -361,10 +436,6 @@ class TMServer:
         return tuple(v for v, _ in self._history)
 
     # -- planes that are not ported yet ---------------------------------
-
-    async def submit_labeled(self, literals, labels) -> int:
-        """Online learning is not ported yet (see ROADMAP.md)."""
-        raise NotImplementedError(f"submit_labeled: {_NOT_PORTED}")
 
     def checkpoint(self, directory: str | None = None, **_) -> int:
         """Checkpointing is not ported yet (see ROADMAP.md)."""
@@ -398,6 +469,8 @@ class TMServer:
             await self._task
         if self._owns_pool:
             self._pool.shutdown(wait=True)
+        if self._train_pool is not None:
+            self._train_pool.shutdown(wait=True)
 
     async def __aenter__(self) -> "TMServer":
         return await self.start()
@@ -413,15 +486,41 @@ class TMServer:
             self.routing.get(self.buckets[-1], "oracle")
         return get_engine(backend, self.cfg, st)
 
-    async def warmup(self) -> None:
-        """Build every bucket's engine, and on cuda its kernel library,
-        on the worker thread before taking traffic."""
+    async def warmup(self, *, train_batches: tuple[int, ...] = ()) -> None:
+        """Build every bucket's engine (the probe's bucket too), and on
+        cuda its kernel library, on the worker thread before taking
+        traffic.  ``train_batches`` also runs one train step per listed
+        labeled-batch row count on the training thread; its result is
+        discarded and the served state and key chain are untouched."""
         loop = asyncio.get_running_loop()
         zeros = np.zeros((1, self.cfg.n_literals), np.int8)
-        for bucket in self.buckets:
+        buckets = list(self.buckets)
+        if self._probe is not None:
+            probe_bucket = bucket_for(self._probe[0].shape[0], self.buckets)
+            if probe_bucket not in buckets:
+                buckets.append(probe_bucket)
+        for bucket in buckets:
             eng = self.engine_for(bucket)
             await loop.run_in_executor(
                 self._pool, lambda e=eng, b=bucket: infer_padded(e, zeros, b))
+        for n in train_batches:
+            if self._train_engine is None:
+                raise RuntimeError("train_batches warmup needs online "
+                                   "learning (train_backend=)")
+            lits = np.zeros((n, self.cfg.n_literals), np.int8)
+            labels = np.zeros((n,), np.int32)
+            await loop.run_in_executor(
+                self._train_pool,
+                lambda l=lits, y=labels: self._sync(self._train_engine.step(
+                    self._current[1], prng.key(0), l, y)))
+
+    @staticmethod
+    def _sync(state: TMState) -> TMState:
+        """Wait for ``state``'s device work (the counterpart of JAX's
+        ``block_until_ready``): a CUDA stream sync, a no-op on the CPU."""
+        if state.ta.device.type == "cuda":
+            torch.cuda.current_stream(state.ta.device).synchronize()
+        return state
 
     # -- request path -------------------------------------------------
 
@@ -483,12 +582,44 @@ class TMServer:
                 f"got {np.shape(literals)}")
         return lits
 
+    async def submit_labeled(self, literals, labels) -> int:
+        """One labeled feedback batch: ``(n, 2F)`` literals + ``(n,)``
+        labels → the state version that includes this update, once it is
+        live.
+
+        Requires online-learning mode (``train_backend=``).  Updates apply
+        in FIFO order among themselves behind their own admission gate
+        (``queue_depth`` deep); predicts already queued keep the version
+        they arrived under.
+        """
+        if self._closed:
+            raise RuntimeError("TMServer is stopped")
+        if self._train_engine is None:
+            raise RuntimeError(
+                "online learning is off: construct TMServer with "
+                "train_backend=<TrainEngine name> to enable submit_labeled")
+        lits = self._check_literals(literals)
+        if isinstance(labels, torch.Tensor):
+            labels = labels.cpu().numpy()
+        y = np.asarray(labels, dtype=np.int32).reshape(-1)
+        if y.shape[0] != lits.shape[0]:
+            raise ValueError(f"labels {y.shape} do not match "
+                             f"{lits.shape[0]} literal rows")
+        if y.size and (y.min() < 0 or y.max() >= self.cfg.n_classes):
+            raise ValueError(f"labels out of range [0, {self.cfg.n_classes})")
+        future = asyncio.get_running_loop().create_future()
+        await self._update_capacity.acquire()
+        self._queue.put_nowait(_Update(lits, y, future))
+        return await future
+
     # -- scheduler (stage A: coalesce + assemble) ---------------------
 
     def _ingest(self, item) -> None:
-        """Sort one arrival into the EDF heap."""
+        """Sort one arrival into the EDF heap / update FIFO."""
         if item is _STOP:
             self._stop_seen = True
+        elif isinstance(item, _Update):
+            self._pending_updates.append(item)
         else:
             heapq.heappush(self._pending, (*item.sort_key(), item))
 
@@ -504,13 +635,19 @@ class TMServer:
             except asyncio.QueueEmpty:
                 break
 
-    async def _next_arrival(self, timeout) -> bool:
+    async def _next_arrival(self, timeout, extra: asyncio.Task | None = None
+                            ) -> bool:
         """Block up to ``timeout`` for the next queue item (ingested on
-        arrival; returns True).  The queue getter is a persistent task so
-        a timeout never cancels a get that already claimed an item."""
+        arrival; returns True) — or until ``extra`` (the in-flight update
+        task) finishes.  The queue getter is a persistent task so a
+        timeout never cancels a get that already claimed an item."""
         if self._get_task is None:
             self._get_task = asyncio.ensure_future(self._queue.get())
-        done, _ = await asyncio.wait({self._get_task}, timeout=timeout)
+        waits = {self._get_task}
+        if extra is not None:
+            waits.add(extra)
+        done, _ = await asyncio.wait(waits, timeout=timeout,
+                                     return_when=asyncio.FIRST_COMPLETED)
         if self._get_task in done:
             item = self._get_task.result()
             self._get_task = None
@@ -519,8 +656,10 @@ class TMServer:
         return False
 
     def _qdepth(self) -> int:
-        """Waiting (undispatched) requests: arrival queue + EDF heap."""
-        return self._queue.qsize() + len(self._pending)
+        """Waiting (undispatched) items: arrival queue + EDF heap + update
+        FIFO."""
+        return (self._queue.qsize() + len(self._pending)
+                + len(self._pending_updates))
 
     def _reap_expired(self) -> None:
         """Fail already-dead queue heads without compute (the dispatch
@@ -558,17 +697,46 @@ class TMServer:
         self._capacity.release()
         return req
 
+    async def _service_updates(self) -> None:
+        """Dispatch the next pending update when the barrier allows:
+        updates serialise among themselves (one in flight); at
+        ``pipeline_depth=1`` an update also waits for in-flight predicts
+        first, the serial interleaving."""
+        if self._update_task is not None and self._update_task.done():
+            await self._update_task   # surfaces scheduler bugs, not
+            self._update_task = None  # engine errors (_run_update catches)
+        if self._update_task is None and self._pending_updates:
+            upd = self._pending_updates.popleft()
+            self._update_capacity.release()
+            if self.policy.pipeline_depth == 1:
+                await self._completions.join()
+                await self._run_update(upd)
+            else:
+                self._update_task = asyncio.get_running_loop().create_task(
+                    self._run_update(upd), name="tm-serve-update")
+
     async def _scheduler(self) -> None:
         try:
             while True:
+                # drain before servicing updates: an update that arrived
+                # ahead of this pass must dispatch now
                 self._drain_queue()
                 self._reap_expired()
+                await self._service_updates()
                 if self._pending:
                     await self._coalesce_and_dispatch()
                     continue
-                if self._stop_seen and self._queue.empty():
+                update_running = (self._update_task is not None
+                                  and not self._update_task.done())
+                if (self._stop_seen and self._queue.empty()
+                        and not self._pending_updates
+                        and not update_running):
                     break
-                await self._next_arrival(None)
+                # idle: wake on the next arrival, or on the in-flight
+                # update finishing (its successor may be waiting)
+                await self._next_arrival(
+                    None, extra=self._update_task if update_running
+                    else None)
         finally:
             t, self._get_task = self._get_task, None
             if t is not None:
@@ -579,9 +747,17 @@ class TMServer:
                     pass
                 else:
                     self._ingest(item)   # cancel raced a claimed item
-            # abnormal exit only: on a graceful stop both are empty
+            if self._update_task is not None:
+                try:
+                    await self._update_task
+                except Exception:
+                    pass
+                self._update_task = None
+            # abnormal exit only: on a graceful stop all are empty
             leftovers = [entry[-1] for entry in self._pending]
             self._pending.clear()
+            leftovers.extend(self._pending_updates)
+            self._pending_updates.clear()
             while not self._queue.empty():
                 item = self._queue.get_nowait()
                 if item is not _STOP:
@@ -612,9 +788,9 @@ class TMServer:
                 batch.append(nxt)
                 rows += nxt.n
                 continue
-            if self._pending or self._stop_seen:
-                # the head cannot join (version cut / row overflow), or a
-                # stop wants the floor: close
+            if self._pending or self._pending_updates or self._stop_seen:
+                # the head cannot join (version cut / row overflow), or an
+                # update or a stop wants the floor: close
                 break
             timeout = deadline - time.monotonic()
             if timeout <= 0 or not await self._next_arrival(timeout):
@@ -740,13 +916,70 @@ class TMServer:
             self._n_deadline_reqs += n_dead
             self._n_deadline_misses += n_miss
 
+    # -- online learning ----------------------------------------------
+
+    async def _run_update(self, upd: _Update) -> None:
+        """Apply one labeled batch on the training thread, then publish
+        the new ``(version, state)`` pair.  The key chain advances on the
+        event loop only after the step succeeded: the offline-replay
+        contract covers applied updates, so a failed step consumes no
+        key."""
+        def learn() -> tuple:
+            chain, k = prng.split(self._train_key)
+            new_state = self._train_engine.step(
+                self._current[1], k, upd.lits, upd.labels)
+            return chain, self._sync(new_state)
+
+        try:
+            chain, new_state = await asyncio.get_running_loop() \
+                .run_in_executor(self._train_pool, learn)
+        except Exception as exc:
+            if not upd.future.done():
+                upd.future.set_exception(exc)
+            with self._mu:
+                self._n_errors += 1
+            return
+        self._train_key = chain
+        version = self._current[0] + 1
+        self._publish(version, new_state)
+        with self._mu:
+            self._n_updates += 1
+            self._n_update_rows += upd.lits.shape[0]
+        if not upd.future.done():
+            upd.future.set_result(version)
+        if (self._probe is not None and self._probe_every
+                and self._n_updates % self._probe_every == 0):
+            try:
+                acc = await asyncio.get_running_loop().run_in_executor(
+                    self._train_pool, self._probe_eval, new_state)
+            except Exception:
+                with self._mu:
+                    self._n_errors += 1
+            else:
+                self._probe_history.append((version, acc))
+                self._n_probe_evals += 1
+                if self._probe_best is None or acc > self._probe_best:
+                    self._probe_best = acc
+
+    def _probe_eval(self, state: TMState) -> float:
+        """Accuracy of the held-out probe stream under ``state`` (training
+        thread), through the padded-bucket engine path predicts take."""
+        lits, labels = self._probe
+        bucket = bucket_for(lits.shape[0], self.buckets)
+        res = infer_padded(self.engine_for(bucket, state), lits, bucket)
+        return float((res.prediction == labels).mean())
+
     # -- observability ------------------------------------------------
 
     def stats(self) -> dict:
         """Serving counters in one consistent snapshot, with the JAX
         package's key set; blocks for planes the port does not have yet
-        (learning, checkpoint, probe, mesh, sparse layout, shed tier)
-        read ``None`` or zero.  ``device`` names where the engines run.
+        (checkpoint, mesh, sparse layout, shed tier) read ``None`` or
+        zero.  ``device`` names where the engines run.  In online-learning
+        mode ``state_version``/``updates``/``update_rows`` track the
+        learning stream; ``probe`` is ``None`` without a probe, else the
+        latest and best accuracy, ``drift`` = best − latest, ``delta`` =
+        latest − previous, the window mean and the eval count.
 
         ``batch_fill`` is real rows ÷ padded rows; p50/p90/p99 come from
         a sliding window of per-request latencies (ms).  ``pipeline``
@@ -762,6 +995,8 @@ class TMServer:
                 "batches": self._n_batches,
                 "padded": self._n_padded_rows,
                 "errors": self._n_errors,
+                "updates": self._n_updates,
+                "update_rows": self._n_update_rows,
                 "version": self._current[0],
                 "history": list(v for v, _ in self._history),
                 "inflight": self._inflight,
@@ -774,6 +1009,21 @@ class TMServer:
                 "publish_hook_errors": self._n_publish_hook_errors,
             }
         p50_ms, p90_ms, p99_ms = percentiles_ms(lats, (0.50, 0.90, 0.99))
+        probe_stats = None
+        if self._probe is not None:
+            probe_stats = {"evals": self._n_probe_evals, "accuracy": None,
+                           "best": self._probe_best, "drift": 0.0,
+                           "delta": 0.0, "window_mean": 0.0,
+                           "at_version": None}
+            if self._probe_history:
+                accs = [a for _, a in self._probe_history]
+                probe_stats.update(
+                    accuracy=accs[-1],
+                    drift=round(self._probe_best - accs[-1], 6),
+                    delta=round(accs[-1] - accs[-2], 6)
+                    if len(accs) > 1 else 0.0,
+                    window_mean=round(float(np.mean(accs)), 6),
+                    at_version=self._probe_history[-1][0])
         return {
             "requests": snap["requests"],
             "rows": snap["rows"],
@@ -787,13 +1037,13 @@ class TMServer:
             "p90_ms": p90_ms,
             "p99_ms": p99_ms,
             "state_version": snap["version"],
-            "updates": 0,
-            "update_rows": 0,
+            "updates": snap["updates"],
+            "update_rows": snap["update_rows"],
             "history": {"versions": snap["history"],
                         "capacity": self._history.maxlen},
             "rollbacks": self._n_rollbacks,
             "checkpoint": None,
-            "probe": None,
+            "probe": probe_stats,
             "routing": {str(k): v for k, v in sorted(self.routing.items())},
             "routing_updates": snap["routing_updates"],
             "mesh": None,
@@ -805,7 +1055,8 @@ class TMServer:
                 "inflight_versions": {str(k): v for k, v in
                                       sorted(snap["inflight_versions"]
                                              .items())},
-                "update_inflight": False,
+                "update_inflight": (self._update_task is not None
+                                    and not self._update_task.done()),
             },
             "deadline": {
                 "requests": snap["deadline_reqs"],

@@ -16,14 +16,18 @@ import pytest
 import torch
 
 from repro_torch.convert import state_from_numpy
+from repro_torch.core import prng
 from repro_torch.core.popcount import pack_bits
 from repro_torch.core.tm import TMConfig
-from repro_torch.engine import available_backends, get_engine
+from repro_torch.engine import (available_backends, get_engine,
+                                get_train_engine)
 from repro_torch.kernels.clause_eval import (clause_votes,
                                              clause_votes_plain,
                                              make_vote_matrix)
 from repro_torch.kernels.swar_fused import (swar_fused_votes,
                                             swar_fused_votes_plain)
+from repro_torch.kernels.train_fused import (train_deltas_keyed,
+                                             train_deltas_keyed_plain)
 from repro_torch.serve import ServePolicy, TMServer
 
 pytestmark = pytest.mark.cuda
@@ -142,3 +146,102 @@ def test_server_on_cuda(cuda):
         want = oracle.infer(lits)
         np.testing.assert_array_equal(res.prediction, want.prediction)
         np.testing.assert_array_equal(res.class_sums, want.class_sums)
+
+
+def _k2_inputs(dev, b, c, m, lit, density, seed, masks_on=True):
+    g = torch.Generator().manual_seed(seed)
+    lits = torch.randint(0, 2, (b, lit), generator=g, dtype=torch.int8)
+    inc = (torch.rand((c, m, lit), generator=g) < density).to(torch.int8)
+    keys = prng.bits(prng.key(seed), (2, b, 2))
+    masks = [(torch.rand((b, m), generator=g) < 0.5) & masks_on
+             for _ in range(4)]
+    y = torch.randint(0, c, (b,), generator=g, dtype=torch.int32)
+    yn = ((y + torch.randint(1, max(c, 2), (b,), generator=g)) % c) \
+        .to(torch.int32)
+    return [t.to(dev) for t in (lits, keys[0], keys[1], inc, *masks, y, yn)]
+
+
+# (B, C, M, L, density, masks on): tm-mnist-50 widths, ragged shapes, a
+# class count above the kernel's 16-class tile, density extremes, and all
+# masks off (a zero update)
+K2_CASES = [(32, 10, 50, 1568, 0.05, True), (37, 10, 50, 1568, 1.0, True),
+            (1, 10, 50, 1568, 0.0, True), (64, 3, 7, 18, 0.3, True),
+            (40, 37, 5, 33, 0.2, True), (9, 4, 6, 40, 0.1, False)]
+
+
+@pytest.mark.parametrize("case", K2_CASES,
+                         ids=lambda c: "B{}C{}M{}L{}-d{}-{}".format(
+                             *c[:5], "masks" if c[5] else "off"))
+def test_train_deltas_kernel_bitwise_vs_plain(cuda, case):
+    b, c, m, lit, density, on = case
+    args = _k2_inputs(cuda, b, c, m, lit, density, seed=b + c + m,
+                      masks_on=on)
+    for p_inc in (1.0, 6 / 7):
+        kw = dict(n_classes=c, p_inc=p_inc, p_dec=1 / 7)
+        n = train_deltas_keyed.launches
+        got = train_deltas_keyed(*args, **kw)
+        torch.cuda.synchronize()
+        assert train_deltas_keyed.launches == n + 1
+        want = train_deltas_keyed_plain(*args, **kw)
+        assert got.dtype == torch.int32 and got.shape == (c, m, lit)
+        assert torch.equal(got, want)
+        assert torch.equal(want.cpu(), train_deltas_keyed_plain(
+            *[t.cpu() for t in args], **kw))
+        assert bool(got.any()) == (on and b > 0)
+
+
+def test_fused_on_cuda_equals_reference_on_cpu(cuda):
+    """A 5-step chain at tm-mnist-50 width: the fused engine on the card
+    (K1 + K2) publishes exactly the CPU reference engine's states."""
+    rng = np.random.default_rng(11)
+    cfg = TMConfig(10, 50, 784, T=5, s=7.0)
+    ta = np.where(rng.random((10, 50, 1568)) < 0.05, 129, 128)
+    gpu, cpu = state_from_numpy(ta), state_from_numpy(ta, device="cpu")
+    fused, ref = get_train_engine("fused", cfg), \
+        get_train_engine("reference", cfg)
+    chain = prng.key(3)
+    for _ in range(5):
+        lits = rng.integers(0, 2, (32, 1568), dtype=np.int8)
+        y = rng.integers(0, 10, (32,), dtype=np.int32)
+        chain, k = prng.split(chain)
+        gpu = fused.step(gpu, k, lits, y)
+        cpu = ref.step(cpu, k, lits, y)
+        assert gpu.ta.device.type == "cuda"
+        assert torch.equal(gpu.ta.cpu(), cpu.ta)
+    assert not np.array_equal(cpu.ta.numpy(), ta)
+
+
+def test_learning_server_on_cuda(cuda):
+    rng = np.random.default_rng(12)
+    cfg = TMConfig(3, 8, 20, T=5, s=3.9)
+    ta = rng.integers(128, 130, (3, 8, 40))
+    batches = [(rng.integers(0, 2, (16, 40), dtype=np.int8),
+                rng.integers(0, 3, (16,), dtype=np.int32)) for _ in range(3)]
+    reqs = [rng.integers(0, 2, (int(n), 40), dtype=np.int8)
+            for n in rng.integers(1, 9, 12)]
+
+    async def go():
+        async with TMServer(cfg, state_from_numpy(ta),
+                            ServePolicy(max_batch=16, max_wait_us=300,
+                                        backend="mxu_fused"),
+                            train_backend="fused", train_seed=4) as srv:
+            await srv.warmup(train_batches=(16,))
+            n = train_deltas_keyed.launches
+            versions = []
+            for lits, y in batches:
+                versions.append(await srv.submit_labeled(lits, y))
+            res = await asyncio.gather(*[srv.submit(r) for r in reqs])
+            return versions, res, srv.state, train_deltas_keyed.launches - n
+
+    versions, res, state, launches = asyncio.run(go())
+    assert versions == [1, 2, 3] and launches == 3
+    chain, want = prng.key(4), state_from_numpy(ta, device="cpu")
+    ref = get_train_engine("reference", cfg)
+    for lits, y in batches:
+        chain, k = prng.split(chain)
+        want = ref.step(want, k, lits, y)
+    assert torch.equal(state.ta.cpu(), want.ta)
+    oracle = get_engine("oracle", cfg, want)
+    for lits, r in zip(reqs, res):
+        np.testing.assert_array_equal(r.prediction,
+                                      oracle.infer(lits).prediction)
