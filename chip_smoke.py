@@ -2,8 +2,10 @@
 """Quickest proof that the PyTorch/CUDA port (``src/repro_torch``) runs on
 an NVIDIA GPU: builds its CUDA kernels from this checkout, holds each
 against its plain PyTorch version, serves tm-mnist-50 through
-``TMServer`` on both kernel-backed backends, and serves while it learns
-online through the ``fused`` train engine.
+``TMServer`` on both kernel-backed backends and on the paper's
+``time_domain`` race, serves while it learns online through the
+``fused`` train engine, drives the time-domain popcount and PDL race
+kernels on the served state, and trains and runs the paper's BNN.
 
     python3 chip_smoke.py
 
@@ -25,11 +27,20 @@ package.  Phases, each on its own lines:
    threefry contract) for B in {1, 32, 37, 64, 512}, at the all-include
    and no-include states, with ``boost_tpf=False`` and with every mask
    off, timed at B in {32, 64};
+   then the paper-surface kernels: K4 (``popcount_words``) at (1, 1),
+   (37, 129) and (4096, 512) words with all-ones and all-zero rows, and
+   K6 (``binary_matmul``) at (1, 784)x(784, 128), (37, 129)x(129, 65)
+   and 1024^3, both bitwise; K5 (``pdl_race``) at (1, 10, 50),
+   (37, 10, 50) and (1024, 10, 100), bitwise on integer-valued delays
+   and within the stated tolerance on float delays, plus a tied-minimum
+   row and C=1; timed at the ``benchmarks/kernel_bench.py`` shapes (K4
+   4096x512, K5 B=1024 C=10 M=100, K6 1024^3; K6 also beside
+   ``torch._int_mm``, cuBLASLt's int8 GEMM);
 4. the main path: ``TMServer`` on cuda at tm-mnist-50 width, state at 5%
    include density from a seeded numpy generator through
    ``state_from_numpy``, once with ``backend="mxu_fused"`` (K3) and once
-   with ``"swar_fused"`` (K1).  Eight concurrent clients send requests of
-   1-16 rows, every third with a deadline; after the traffic every
+   with ``"swar_fused"`` (K1).  Eight concurrent clients send requests
+   of 1-16 rows, every third with a deadline; after the traffic every
    response must equal the port's ``oracle`` backend on the CPU, and the
    path's kernel counter (zeroed just before the traffic) must equal the
    number of batches served;
@@ -42,7 +53,25 @@ package.  Phases, each on its own lines:
    response must equal the CPU oracle under the state of the version it
    was pinned to, and the counters (zeroed just before the traffic) must
    show K2 = K1 = updates and K3 = predict batches;
-6. a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
+6. the paper's time-domain race behind ``TMServer``: phase 4's traffic
+   with ``backend="time_domain"`` (the ideal PDL race, plain tensor
+   code) on the state phase 5 learned (the random state of phase 4 fires
+   no clause, so every row would tie); every response must equal the
+   CPU oracle and every ``latency_ps`` and ``metastable`` the port's CPU
+   ``time_domain`` engine, on at least two distinct latencies;
+7. the time-domain popcount on the learned state: the clause bits of
+   1024 rows become PDL select bits; the ideal ``time_domain`` engine on
+   cuda must equal the CPU engine bitwise (prediction, class sums,
+   ``latency_ps``, ``metastable``); ``popcount.popcount_words`` (K4)
+   counts each chain's low-net elements, which must equal the engine's
+   class sums plus the opposing clauses, and ``pdl_race.pdl_race`` (K5)
+   races the chains on a ``make_device(key(5), sigma_elem=2)`` device
+   against ``core.time_domain.race`` on the same delays; counters zeroed
+   before, read after;
+8. the BNN: ``launch.bnn_popcount.run(device="cuda")`` trains the
+   784-128-10 BNN and runs its int8 inference through K6, checked
+   against an int32 matmul; K6's counter zeroed before, read after;
+9. a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero; without a CUDA device it exits 1
@@ -85,6 +114,15 @@ HBM_BPS, INT8_OPS, FP32_FLOPS = 3.35e12, 1979e12, 67e12
 # Programming Guide, arithmetic instructions: 128 float32 FMA = 256 FLOP,
 # 64 integer add / bitwise AND, 16 __popc per clock per SM)
 INT32_OPS, POPC_OPS = FP32_FLOPS * 64 / 256, FP32_FLOPS * 16 / 256
+# float32 adds outside the tensor cores (an FMA counts as 2 FLOP)
+FP32_ADDS = FP32_FLOPS / 2
+# the paper-surface kernels' checked and timed shapes
+# (benchmarks/kernel_bench.py: K4 4096x512, K5 B=1024 C=10 M=100, K6 1024^3)
+K4_SHAPES = ((1, 1), (37, 129), (4096, 512))
+K6_SHAPES = ((1, 784, 128), (37, 129, 65), (1024, 1024, 1024))
+K5_SHAPES = ((1, 10, 50), (37, 10, 50), (1024, 10, 100))
+T_RES = 10.0                      # PDLConfig().t_res, ps
+K5_ROWS = 1024                    # served-state rows raced through K5
 
 
 def smi(query: str) -> str:
@@ -226,6 +264,10 @@ async def serve(torch, rt, backend: str, ta: np.ndarray) -> dict:
 
     cfg = TMConfig(n_classes=C, n_clauses=M, n_features=F, T=T, s=S)
     oracle = get_engine("oracle", cfg, state_from_numpy(ta, device="cpu"))
+    # the time_domain responses' per-row aux, from the CPU engine
+    td_cpu = (get_engine("time_domain", cfg,
+                         state_from_numpy(ta, device="cpu"))
+              if backend == "time_domain" else None)
     server = TMServer(cfg, state_from_numpy(ta),
                       ServePolicy(max_batch=SERVE_BATCH, max_wait_us=500,
                                   backend=backend))
@@ -260,6 +302,13 @@ async def serve(torch, rt, backend: str, ta: np.ndarray) -> dict:
                 and np.array_equal(res.class_sums, want.class_sums.numpy())):
             raise AssertionError(f"{backend}: response differs from the "
                                  f"CPU oracle (client {cid}, request {i})")
+        if td_cpu is not None:
+            aux = td_cpu.infer(lits).aux
+            for k in ("latency_ps", "metastable"):
+                if not np.array_equal(res.aux[k], aux[k].numpy()):
+                    raise AssertionError(
+                        f"{backend}: aux {k} differs from the CPU "
+                        f"time_domain engine (client {cid}, request {i})")
     checked = len(answered)
     print(f"serve {backend:10s}: {checked} responses == CPU oracle in "
           f"{wall:.3f}s ({checked / wall:.0f} req/s, warmup {warm:.3f}s)  "
@@ -268,6 +317,18 @@ async def serve(torch, rt, backend: str, ta: np.ndarray) -> dict:
           f"p99={stats['p99_ms']}ms  deadline_misses="
           f"{stats['deadline']['misses']}/{stats['deadline']['requests']}  "
           f"launches={launches}", flush=True)
+    if td_cpu is not None:
+        lat = np.concatenate([r.aux["latency_ps"] for *_, r in answered])
+        meta = np.concatenate([r.aux["metastable"] for *_, r in answered])
+        n_lat = np.unique(lat).size
+        print(f"serve {backend:10s} aux: latency_ps == CPU time_domain "
+              f"engine for {lat.size} rows ({n_lat} distinct; min "
+              f"{lat.min():.1f}  median {np.median(lat):.1f}  max "
+              f"{lat.max():.1f} ps)  metastable rate {meta.mean():.3f}",
+              flush=True)
+        if n_lat < 2:
+            raise AssertionError(f"{backend}: every served row has one "
+                                 f"latency; the state fires no clause")
     print(f"serve {backend:10s} buckets: {json.dumps(stats['buckets'])}",
           flush=True)
     if checked != N_CLIENTS * PER_CLIENT or stats["errors"]:
@@ -494,7 +555,288 @@ async def serve_and_learn(torch, rt, ta: np.ndarray) -> dict:
           f"p50={statistics.median(step_s) * 1e3:.3f}  of which key draws "
           f"on the CPU p50={statistics.median(draw_s) * 1e3:.3f}",
           flush=True)
-    return {"stats": stats, "launches": launches}
+    return {"stats": stats, "launches": launches,
+            "state": published[N_UPDATES]}
+
+
+def timed_row(torch, name, kern, plain, nbytes, t_ops, label,
+              library=None) -> dict:
+    """Median device times of a kernel, its plain version and (where one
+    PyTorch call computes the same function) that call, beside the bound
+    — the larger of ``nbytes`` at the HBM rate and ``t_ops`` seconds of
+    operations at their peak."""
+    ms = device_ms(torch, kern, reps=50)
+    plain_ms = device_ms(torch, plain, reps=5)
+    library_ms = device_ms(torch, library, reps=50) if library else None
+    t_bytes = nbytes / HBM_BPS
+    bound_ms = max(t_bytes, t_ops) * 1e3
+    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    lib = "" if library_ms is None else f"  library {library_ms:.6f} ms"
+    print(f"time  {name:16s} {label}: kernel {ms:.6f} ms  plain "
+          f"{plain_ms:.6f} ms{lib}  bound {bound_ms:.6f} ms ({bound_by})",
+          flush=True)
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms}
+
+
+def exact_err(torch, name, got, want, label) -> None:
+    """Raise unless two integer tensors are equal in shape, type and
+    every value."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{name} at {label}: {tuple(got.shape)} "
+                             f"{got.dtype} vs plain {tuple(want.shape)} "
+                             f"{want.dtype}")
+    if not torch.equal(got, want):
+        e = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+        raise AssertionError(f"{name} disagrees with its plain version at "
+                             f"{label}: max abs err {e}")
+
+
+def check_popcount(torch, rt) -> dict:
+    """Phase 3c: K4 bitwise against its plain version, then timed."""
+    rng = np.random.default_rng(SEED + 40)
+    for r, w in K4_SHAPES:
+        words = rng.integers(0, 2**32, (r, w), dtype=np.uint32)
+        if r > 2:
+            words[1] = 0xFFFFFFFF        # all-ones row: 32 * W
+            words[2] = 0                 # all-zero row
+        t = torch.as_tensor(words.view(np.int32), device="cuda")
+        got = rt["popcount_words"](t)
+        want = rt["popcount_words_plain"](t)
+        torch.cuda.synchronize()
+        exact_err(torch, "popcount_words", got, want, f"({r}, {w})")
+        if r > 2 and (int(got[1]) != 32 * w or int(got[2]) != 0):
+            raise AssertionError(f"popcount_words edge rows: {got[1:3]}")
+        print(f"check popcount_words   ({r:4d}, {w:3d}) words: bitwise=True",
+              flush=True)
+    r, w = K4_SHAPES[-1]
+    row = timed_row(torch, "popcount_words", lambda: rt["popcount_words"](t),
+                    lambda: rt["popcount_words_plain"](t),
+                    4 * r * w + 4 * r,
+                    max(r * w / POPC_OPS, r * w / INT32_OPS), f"{r}x{w}")
+    row["max_abs_err"] = 0
+    return row
+
+
+def check_binary_matmul(torch, rt) -> dict:
+    """Phase 3c: K6 bitwise against its plain version, then timed beside
+    ``torch._int_mm`` (cuBLASLt's int8 GEMM, the same function here)."""
+    rng = np.random.default_rng(SEED + 50)
+    for m, k, n in K6_SHAPES:
+        x = torch.as_tensor(rng.choice([-1, 1], (m, k)).astype(np.int8),
+                            device="cuda")
+        w = torch.as_tensor(rng.choice([-1, 1], (k, n)).astype(np.int8),
+                            device="cuda")
+        got = rt["binary_matmul"](x, w)
+        want = rt["binary_matmul_plain"](x, w)
+        torch.cuda.synchronize()
+        exact_err(torch, "binary_matmul", got, want, f"({m}, {k})x({k}, {n})")
+        print(f"check binary_matmul    ({m:4d}, {k:4d})x({k:4d}, {n:4d}): "
+              f"bitwise=True", flush=True)
+    lib = torch._int_mm(x, w)
+    torch.cuda.synchronize()
+    if not torch.equal(lib, got):
+        raise AssertionError("torch._int_mm disagrees with binary_matmul")
+    row = timed_row(torch, "binary_matmul", lambda: rt["binary_matmul"](x, w),
+                    lambda: rt["binary_matmul_plain"](x, w),
+                    m * k + k * n + 4 * m * n, 2 * m * n * k / INT8_OPS,
+                    f"{m}x{k}x{n}", library=lambda: torch._int_mm(x, w))
+    row["max_abs_err"] = 0
+    return row
+
+
+def k5_inputs(torch, rng, b, c, m, *, integer: bool):
+    sel = rng.integers(0, 2, (b, c, m), dtype=np.int8)
+    if integer:
+        ed = rng.integers(300, 700, (c, m, 2)).astype(np.float32)
+        skew = rng.integers(-3, 4, (c,)).astype(np.float32)
+    else:
+        ed = rng.normal([[[384.5, 617.6]]], 5.0, (c, m, 2)).astype(np.float32)
+        skew = rng.normal(0, 1, (c,)).astype(np.float32)
+    return tuple(torch.as_tensor(a, device="cuda") for a in (sel, ed, skew))
+
+
+def clear_rows(delays: np.ndarray, t_res: float) -> np.ndarray:
+    """Rows whose race no float rounding can decide: every pair of
+    arrivals more than 1e-3 ps apart, and the top gap more than 1e-3 ps
+    from ``t_res``."""
+    gaps = np.diff(np.sort(delays.astype(np.float64), -1), axis=-1)
+    if gaps.shape[-1] == 0:
+        return np.ones(delays.shape[0], bool)
+    return (gaps.min(-1) > 1e-3) & (np.abs(gaps[:, 0] - t_res) > 1e-3)
+
+
+def check_pdl_race(torch, rt) -> dict:
+    """Phase 3c: K5 against its plain version — bitwise on integer-valued
+    delays (exact in any summation order), and on float delays latency
+    within rtol 1e-6 with winner and flag exact on the rows no rounding
+    can decide — plus a tied minimum and C = 1; then timed."""
+    rng = np.random.default_rng(SEED + 60)
+    k5, plain = rt["pdl_race"], rt["pdl_race_plain"]
+    lat_err = 0.0
+    cases = [(shape, True) for shape in K5_SHAPES] + \
+        [(shape, False) for shape in K5_SHAPES] + [((37, 1, 50), True)]
+    for (b, c, m), integer in cases:
+        args = k5_inputs(torch, rng, b, c, m, integer=integer)
+        got = k5(*args, T_RES)
+        want = plain(*args, T_RES)
+        torch.cuda.synchronize()
+        label = f"({b}, {c}, {m}) {'integer' if integer else 'float'}"
+        if [t.dtype for t in got] != [torch.int32, torch.float32, torch.bool]:
+            raise AssertionError(f"pdl_race dtypes {[t.dtype for t in got]}")
+        if integer:
+            for g, w_ in zip(got, want):
+                if not torch.equal(g, w_):
+                    raise AssertionError(f"pdl_race disagrees with its plain "
+                                         f"version at {label}")
+            if c == 1 and not (bool(got[2].all()) and int(got[0].max()) == 0):
+                raise AssertionError("pdl_race C=1: expected gap 0, winner 0")
+            note = "bitwise=True"
+        else:
+            err = float((got[1] - want[1]).abs().max())
+            rel = float(((got[1] - want[1]).abs() / want[1].abs()).max())
+            lat_err = max(lat_err, err)
+            if rel > 1e-6:
+                raise AssertionError(f"pdl_race latency at {label}: rel err "
+                                     f"{rel}")
+            sel, ed, skew = (a.cpu().numpy() for a in args)
+            d = np.where(sel == 1, ed[None, :, :, 0], ed[None, :, :, 1]) \
+                .astype(np.float64).sum(-1) + skew
+            clear = clear_rows(d, T_RES)
+            for i in (0, 2):
+                if not np.array_equal(got[i].cpu().numpy()[clear],
+                                      want[i].cpu().numpy()[clear]):
+                    raise AssertionError(f"pdl_race output {i} at {label} "
+                                         f"differs on a clear row")
+            note = (f"latency max abs err {err:.3g} ps (rel {rel:.3g}, "
+                    f"tol 1e-6); winner, metastable exact on "
+                    f"{int(clear.sum())}/{b} clear rows")
+        print(f"check pdl_race         {label}: {note}", flush=True)
+    # classes 0 and 1 tie at 4 ps, class 2 at 400 ps: the kernel's gap runs
+    # to the next distinct arrival (396 ps), so the row is not metastable
+    sel = torch.ones((1, 3, 1), dtype=torch.int8, device="cuda")
+    ed = torch.tensor([[[4.0, 4.0]], [[4.0, 4.0]], [[400.0, 400.0]]],
+                      device="cuda")
+    skew = torch.zeros(3, device="cuda")
+    got = k5(sel, ed, skew, T_RES)
+    want = plain(sel, ed, skew, T_RES)
+    if not all(torch.equal(g, w_) for g, w_ in zip(got, want)) or \
+            int(got[0][0]) != 0 or bool(got[2][0]):
+        raise AssertionError(f"pdl_race tied minimum: {got}")
+    print("check pdl_race         tied minimum: winner 0, not metastable "
+          "== plain", flush=True)
+    b, c, m = K5_SHAPES[-1]
+    args = k5_inputs(torch, rng, b, c, m, integer=False)
+    row = timed_row(torch, "pdl_race", lambda: k5(*args, T_RES),
+                    lambda: plain(*args, T_RES),
+                    b * c * m + 8 * c * m + 4 * c + 9 * b,
+                    b * c * m / FP32_ADDS, f"B={b} C={c} M={m}")
+    row["max_abs_err"] = lat_err
+    return row
+
+
+def time_domain_popcount(torch, rt, state) -> dict:
+    """Phase 6: the clause bits of K5_ROWS rows under ``state`` (the last
+    state the learn phase published, on cuda) as PDL select bits.  K4
+    counts each chain's low-net elements (the Hamming weight the PDL
+    turns into time), K5 races the chains on a physical device; counters
+    zeroed before, read after → launches and rates."""
+    from repro_torch.core import time_domain as td
+    from repro_torch.core.popcount import pack_bits
+    from repro_torch.core.tm import clause_outputs, clause_polarity
+    from repro_torch.engine import get_engine
+
+    cfg = rt["TMConfig"](n_classes=C, n_clauses=M, n_features=F, T=T, s=S)
+    rng = np.random.default_rng(SEED + 70)
+    lits = torch.as_tensor(rng.integers(0, 2, (K5_ROWS, 2 * F),
+                                        dtype=np.int8), device="cuda")
+    pol = clause_polarity(M, "cuda")
+    clauses = clause_outputs(cfg, state, lits)              # (B, C, M)
+    low_sel = td.low_select(clauses, pol).to(torch.int8).contiguous()
+    pdl = td.PDLConfig(sigma_elem=2.0)
+    dev = td.make_device(pdl, C, M, rt["prng"].key(5, device="cuda"))
+    elem = torch.stack([pdl.d_low + dev.elem_offset[..., 0],
+                        pdl.d_high + dev.elem_offset[..., 1]], -1) \
+        .to(torch.float32).contiguous()
+    words = pack_bits(low_sel.reshape(K5_ROWS * C, M))     # (B*C, ceil(M/32))
+    ideal = get_engine("time_domain", cfg, state).infer(lits)
+    cpu = get_engine("time_domain", cfg,
+                     type(state)(state.ta.cpu())).infer(lits.cpu())
+    for k, got, want in (
+            ("prediction", ideal.prediction, cpu.prediction),
+            ("class_sums", ideal.class_sums, cpu.class_sums),
+            ("latency_ps", ideal.aux["latency_ps"], cpu.aux["latency_ps"]),
+            ("metastable", ideal.aux["metastable"], cpu.aux["metastable"])):
+        if not torch.equal(got.cpu(), want):
+            raise AssertionError(f"time_domain engine on cuda: {k} differs "
+                                 f"from the CPU engine on the learned state")
+    delays = td.pdl_delays(pdl, dev, clauses, pol)
+    reference = td.race(pdl, delays)
+    torch.cuda.synchronize()
+
+    rt["popcount_words"].launches = 0
+    rt["pdl_race"].launches = 0
+    low_count = rt["popcount_words"](words).reshape(K5_ROWS, C)
+    win, lat, meta = rt["pdl_race"](low_sel, elem, dev.skew, pdl.t_res)
+    torch.cuda.synchronize()
+    launches = {"popcount_words": rt["popcount_words"].launches,
+                "pdl_race": rt["pdl_race"].launches}
+
+    if not torch.equal(low_count, ideal.class_sums + M // 2):
+        raise AssertionError("popcount_words low-net counts differ from the "
+                             "time_domain engine's class sums + n_neg")
+    if not torch.equal(low_count, low_sel.sum(-1, dtype=torch.int32)):
+        raise AssertionError("popcount_words low-net counts differ from "
+                             "the select bits' sum")
+    rel = float(((lat - reference.latency).abs()
+                 / reference.latency.abs()).max())
+    if rel > 1e-6:
+        raise AssertionError(f"pdl_race latency vs race: rel err {rel}")
+    clear = clear_rows(delays.cpu().numpy(), 0.0)
+    if not np.array_equal(win.cpu().numpy()[clear],
+                          reference.winner.cpu().numpy()[clear]):
+        raise AssertionError("pdl_race winner differs from race on a row "
+                             "without near-ties")
+    agree = float((win == ideal.prediction).float().mean())
+    fire = float(clauses.float().mean())
+    n_sums = int(ideal.class_sums.unique().numel())
+    n_lat = int(ideal.aux["latency_ps"].unique().numel())
+    print(f"time-domain popcount: {K5_ROWS} rows x {C} chains of {M} "
+          f"elements under the learned state ({fire:.3f} of clauses fire, "
+          f"{n_sums} distinct class sums, {n_lat} distinct latencies); "
+          f"ideal engine on cuda == CPU engine (prediction, class sums, "
+          f"latency_ps, metastable); K4 low-net counts == ideal "
+          f"engine class sums + {M // 2}; K5 winner == race on "
+          f"{int(clear.sum())}/{K5_ROWS} rows without near-ties, latency "
+          f"rel err {rel:.3g} (tol 1e-6); metastable rate K5 (top gap < "
+          f"t_res) {float(meta.float().mean()):.3f}, race (any arbiter) "
+          f"{float(reference.metastable.float().mean()):.3f}; device "
+          f"winner == ideal argmax on {agree:.3f} of rows  "
+          f"launches={launches}", flush=True)
+    for name, n in launches.items():
+        if n != 1:
+            raise AssertionError(f"time-domain popcount launched {name} "
+                                 f"{n} times")
+    return {"launches": launches}
+
+
+def bnn_phase(torch, rt) -> dict:
+    """Phase 7: the BNN entry point on cuda; K6's counter zeroed before,
+    read after."""
+    from repro_torch.launch.bnn_popcount import run
+    rt["binary_matmul"].launches = 0
+    t0 = time.perf_counter()
+    out = run(device="cuda")
+    torch.cuda.synchronize()
+    launches = {"binary_matmul": rt["binary_matmul"].launches}
+    print(f"bnn: {time.perf_counter() - t0:.2f}s  losses={out['losses']}  "
+          f"test_acc={out['test_acc']}  time-domain agreement "
+          f"{out['agreement']:.3f} accuracy {out['td_acc']:.3f}  "
+          f"launches={launches}", flush=True)
+    if launches["binary_matmul"] != 1 or out["h_shape"] != (120, 128):
+        raise AssertionError(f"bnn: h {out['h_shape']}, launches "
+                             f"{launches}")
+    return {"launches": launches}
 
 
 def main() -> int:
@@ -517,6 +859,11 @@ def main() -> int:
     from repro_torch.kernels.train_fused import (feedback_polarity_masks,
                                                  train_deltas_keyed,
                                                  train_deltas_keyed_plain)
+    from repro_torch.kernels.binary_matmul import (binary_matmul,
+                                                   binary_matmul_plain)
+    from repro_torch.kernels.pdl_race import pdl_race, pdl_race_plain
+    from repro_torch.kernels.popcount import (popcount_words,
+                                              popcount_words_plain)
     rt = {"pack_bits": pack_bits, "make_vote_matrix": make_vote_matrix,
           "clause_votes": clause_votes,
           "clause_votes_plain": clause_votes_plain,
@@ -528,8 +875,14 @@ def main() -> int:
           "clause_polarity": clause_polarity,
           "feedback_draws": feedback_draws,
           "feedback_masks": feedback_masks,
-          "feedback_polarity_masks": feedback_polarity_masks}
+          "feedback_polarity_masks": feedback_polarity_masks,
+          "popcount_words": popcount_words,
+          "popcount_words_plain": popcount_words_plain,
+          "pdl_race": pdl_race, "pdl_race_plain": pdl_race_plain,
+          "binary_matmul": binary_matmul,
+          "binary_matmul_plain": binary_matmul_plain}
 
+    t_start = time.perf_counter()
     card = smi("name,power.limit")
     print(card, flush=True)
     print(f"torch {torch.__version__}  cuda {torch.version.cuda}  python "
@@ -550,6 +903,9 @@ def main() -> int:
 
     kernels = check_kernels(torch, rt)
     kernels["train_deltas_keyed"] = check_train_deltas(torch, rt)
+    kernels["popcount_words"] = check_popcount(torch, rt)
+    kernels["binary_matmul"] = check_binary_matmul(torch, rt)
+    kernels["pdl_race"] = check_pdl_race(torch, rt)
     print(f"clocks/power after timing: "
           f"{smi('clocks.sm,power.draw,temperature.gpu')}", flush=True)
 
@@ -564,6 +920,10 @@ def main() -> int:
                                  f"{runs[backend]['stats']['batches']} "
                                  f"batches but launched {name} {n} times")
     learn = asyncio.run(serve_and_learn(torch, rt, ta))
+    asyncio.run(serve(torch, rt, "time_domain",
+                      learn["state"].ta.cpu().numpy()))
+    slice_run = time_domain_popcount(torch, rt, learn["state"])
+    bnn = bnn_phase(torch, rt)
 
     meta = {
         "swar_fused_votes": ("src/repro_torch/csrc/swar_fused.cu",
@@ -575,22 +935,40 @@ def main() -> int:
         "train_deltas_keyed": ("src/repro_torch/csrc/train_deltas.cu",
                                "src/repro/kernels/train_fused.py:171",
                                "train_deltas_pallas"),
+        "popcount_words": ("src/repro_torch/csrc/popcount_words.cu",
+                           "src/repro/kernels/popcount.py:46",
+                           "popcount_words_pallas"),
+        "pdl_race": ("src/repro_torch/csrc/pdl_race.cu",
+                     "src/repro/kernels/pdl_race.py:51", "pdl_race_pallas"),
+        "binary_matmul": ("src/repro_torch/csrc/binary_matmul.cu",
+                          "src/repro/kernels/binary_matmul.py:38",
+                          "binary_matmul_pallas"),
     }
     launches = {name: runs[backend]["launches"][name]
                 for name, backend in path_of.items()}
     launches["train_deltas_keyed"] = learn["launches"]["train_deltas_keyed"]
+    launches.update(slice_run["launches"])
+    launches.update(bnn["launches"])
+    shape_of = {"swar_fused_votes": f"B={SERVE_BATCH}",
+                "clause_votes": f"B={SERVE_BATCH}",
+                "train_deltas_keyed": f"B={LABEL_BATCH}",
+                "popcount_words": "{}x{}".format(*K4_SHAPES[-1]),
+                "pdl_race": "B={} C={} M={}".format(*K5_SHAPES[-1]),
+                "binary_matmul": "{}x{}x{}".format(*K6_SHAPES[-1])}
     rows = []
     for name, (source, replaces, pallas) in meta.items():
         k = kernels[name]
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "pallas": pallas,
                      "launches": launches[name],
-                     "max_abs_err": k["max_abs_err"], "bitwise": True,
+                     "max_abs_err": k["max_abs_err"],
+                     "bitwise": name != "pdl_race",
                      "ms": k["ms"], "plain_ms": k["plain_ms"],
                      "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
-                     "library_ms": None,
-                     "batch": LABEL_BATCH if name == "train_deltas_keyed"
-                     else SERVE_BATCH})
+                     "library_ms": k.get("library_ms"),
+                     "shape": shape_of[name]})
+    print(f"chip_smoke: every phase passed in "
+          f"{time.perf_counter() - t_start:.1f}s", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

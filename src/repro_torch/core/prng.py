@@ -17,7 +17,12 @@ it exactly:
   ``i`` (JAX's ``_threefry_split_foldlike``);
 - :func:`uniform` turns the top 23 bits into a float32 in ``[1, 2)`` and
   subtracts 1; :func:`randint` follows ``jax.random.randint``'s two-word
-  modular reduction.
+  modular reduction;
+- :func:`normal` is ``√2 · erfinv(u)`` of a uniform ``u`` in
+  ``(-1, 1)``, with XLA's float32 ``erfinv`` polynomial (Giles 2010)
+  evaluated step for step: the draws agree with ``jax.random.normal`` to
+  a few float32 ulps (XLA's ``log1p`` is its own approximation), not bit
+  for bit.
 
 The arithmetic runs on ``int64`` tensors masked to 32 bits (torch has no
 ``>>``/``<<`` for ``uint32`` on the CPU, and ``int32`` overflow is not a
@@ -37,12 +42,20 @@ import numpy as np
 import torch
 
 __all__ = ["IMPL", "threefry2x32", "key", "split", "bits", "uniform",
-           "randint", "wrap_key_data", "key_data"]
+           "randint", "normal", "wrap_key_data", "key_data"]
 
 IMPL = "threefry2x32"
 _MASK = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _PARITY = 0x1BD11BDA
+# XLA's float32 erfinv (xla/client/lib/math.cc, ErfInv32): Horner
+# coefficients for w = -log1p(-x²) below 5 and from 5 up
+_ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+               -4.39150654e-06, 0.00021858087, -0.00125372503,
+               -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
+               -0.00367342844, 0.00573950773, -0.0076224613,
+               0.00943887047, 1.00167406, 2.83297682)
 
 
 def _check_impl(impl: str) -> None:
@@ -127,8 +140,8 @@ def _draw(keys: torch.Tensor, shape: tuple[int, ...]
     shape = tuple(int(d) for d in shape)
     k = _u64(keys)
     lead = k.shape[:-1]
-    k0 = k[..., 0].reshape(*lead, *([1] * len(shape)))
-    k1 = k[..., 1].reshape(*lead, *([1] * len(shape)))
+    k0 = k[..., 0].reshape(tuple(lead) + (1,) * len(shape))
+    k1 = k[..., 1].reshape(tuple(lead) + (1,) * len(shape))
     c0, c1 = _counters(shape, keys.device)
     return threefry2x32(k0, k1, c0, c1)
 
@@ -171,3 +184,50 @@ def randint(keys: torch.Tensor, shape, minval: int, maxval: int
     mult = (((2**16 % span) ** 2) & _MASK) % span
     offset = (((higher % span) * mult) & _MASK) + lower % span
     return (minval + (offset & _MASK) % span).to(torch.int32)
+
+
+def _fma32(a, b, c) -> torch.Tensor:
+    """``a·b + c`` rounded once to float32 — what XLA computes where it
+    contracts a float32 multiply feeding an add into a fused
+    multiply-add.  Evaluated in float64, where the product of two
+    float32 values is exact; Python floats are rounded to float32 first,
+    as JAX's weak types are."""
+    def f64(v):
+        if isinstance(v, torch.Tensor):
+            return v.to(torch.float64)
+        return float(np.float32(v))
+    return (f64(a) * f64(b) + f64(c)).to(torch.float32)
+
+
+def _erfinv32(x: torch.Tensor) -> torch.Tensor:
+    """XLA's float32 ``erf_inv`` on float32 ``x`` in ``(-1, 1)`` (what
+    :func:`normal` passes; XLA's ``±1`` edge case is never reached): the
+    degree-8 polynomial in ``w = -log1p(-x²)`` (or ``√w - 3`` from
+    ``w = 5`` up) times ``x``, each Horner step one fused multiply-add."""
+    dev = x.device
+    xx = x * x
+    w = (-torch.log1p(-xx.to(torch.float64))).to(torch.float32)
+    lt = w < 5.0
+    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
+
+    def coef(i):
+        return torch.where(lt, torch.tensor(_ERFINV_LT5[i], device=dev),
+                           torch.tensor(_ERFINV_GE5[i], device=dev))
+
+    p = coef(0)
+    for i in range(1, len(_ERFINV_LT5)):
+        p = _fma32(p, w, coef(i))
+    return p * x
+
+
+def normal(keys: torch.Tensor, shape) -> torch.Tensor:
+    """``jax.random.normal(key, shape)`` (float32) to a few ulps:
+    ``√2 · erfinv(u)`` with ``u`` uniform in ``[nextafter(-1, 0), 1)``
+    from the same threefry words, ``(..., *shape)`` for ``(..., 2)``
+    keys.  The uniform is bit for bit JAX's; the erfinv polynomial is
+    XLA's (see the module docstring for why it is not bitwise)."""
+    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+    u = uniform(keys, shape)
+    # u·(1 - lo) + lo with the span rounded to float32 (2.0): exact
+    u = torch.clamp(u * 2.0 + lo, min=lo)
+    return float(np.float32(np.sqrt(2.0))) * _erfinv32(u)

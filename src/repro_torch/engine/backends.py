@@ -16,6 +16,8 @@
                         (:func:`~repro_torch.kernels.clause_eval.
                         clause_votes`): clause matrix never in device
                         memory.  tm-mnist-50's default backend.
+``time_domain``         the paper's PDL race: chain delays affine in the
+                        vote count, arbiter-tree argmin (``race``).
 ======================  ====================================================
 
 Every backend precomputes its clause layout on the state's device at
@@ -23,8 +25,8 @@ construction, so ``infer`` does only literal-dependent work, and all
 return identical ``prediction`` and ``class_sums`` (ties → lowest
 index), bit for bit equal to the JAX package's same-named backends.
 
-Not registered yet (see ROADMAP.md): ``sparse_csr``, ``time_domain`` and
-``cascade``; asking for one raises the registry's unknown-backend error.
+Not registered yet (see ROADMAP.md): ``sparse_csr`` and ``cascade``;
+asking for one raises the registry's unknown-backend error.
 The JAX ``block_b``/``block_cm`` tile options of the fused backends are
 TPU tiling and have no counterpart here.
 """
@@ -33,9 +35,13 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core import prng
 from repro_torch.core.popcount import (argmax_tournament, int_matmul,
                                        pack_bits, popcount_adder_tree,
                                        popcount_swar, signed_vote_count)
+from repro_torch.core.time_domain import (PDLConfig, PDLDevice,
+                                          ideal_delays, low_select,
+                                          pdl_delays, race)
 from repro_torch.core.tm import (TMConfig, TMState, clause_polarity,
                                  include_mask)
 from repro_torch.kernels.clause_eval import clause_votes, make_vote_matrix
@@ -44,7 +50,8 @@ from repro_torch.kernels.swar_fused import swar_fused_votes
 from .base import EngineResult, as_literals, register_backend
 
 __all__ = ["OracleEngine", "AdderTreeEngine", "SwarPackedEngine",
-           "SwarFusedEngine", "MXUFusedEngine", "swar_clauses_votes"]
+           "SwarFusedEngine", "MXUFusedEngine", "TimeDomainEngine",
+           "swar_clauses_votes"]
 
 
 def _clause_bits(inc: torch.Tensor, literals: torch.Tensor) -> torch.Tensor:
@@ -177,3 +184,62 @@ class MXUFusedEngine:
         """(B, 2F) {0,1} literals → :class:`EngineResult` (bit-exact)."""
         return _result(clause_votes(as_literals(literals, self.device),
                                     self._inc, self._vm))
+
+
+@register_backend("time_domain")
+class TimeDomainEngine:
+    """The paper's race: PDL chain delays + arbiter-tree argmin.
+
+    Default is the *ideal* device (no variation, no skew): the chain
+    delay is the affine ``M·d_high − Δ·low_count`` of the integer
+    low-net count, so equal vote sums race to an exact tie and the
+    arbiter's predetermined guess (lowest index) matches the oracle
+    argmax bit for bit.  XLA contracts that expression into one fused
+    multiply-add, so the port rounds it once too (``ideal_delays``) and
+    its delays equal the JAX package's bit for bit.  Pass
+    ``device=PDLDevice(...)`` to simulate a physical chip through
+    per-element delays (and ``noise_key=`` for per-event jitter): then
+    oracle agreement is physics, not arithmetic.
+
+    ``aux``: per-sample ``latency_ps`` (float32, the winning arrival —
+    data-dependent, paper §IV-A) and ``metastable`` (bool, any arbiter
+    gap < ``t_res``).  The engine runs plain tensor code, as the JAX
+    backend runs jnp outside any Pallas kernel.  ``noise_key`` is a
+    threefry key (the port's, or a JAX key's raw data); the engine keeps
+    the simulated chip as ``pdl_device``, since ``device`` is the torch
+    device here as in every port engine.
+    """
+
+    def __init__(self, cfg: TMConfig, state: TMState, *,
+                 pdl: PDLConfig | None = None,
+                 device: PDLDevice | None = None,
+                 noise_key: torch.Tensor | None = None):
+        self.cfg = cfg
+        self.device = state.ta.device
+        self.pdl = pdl if pdl is not None else PDLConfig(sigma_elem=0.0,
+                                                         sigma_noise=0.0)
+        self.pdl_device = None if device is None else PDLDevice(
+            device.elem_offset.to(self.device, torch.float32),
+            device.skew.to(self.device, torch.float32))
+        self.noise_key = None if noise_key is None else \
+            prng.wrap_key_data(noise_key).to(self.device)
+        self._inc = include_mask(cfg, state)                     # (C, M, L)
+        self._pol = clause_polarity(cfg.n_clauses, self.device)  # (M,) ±1
+        self._n_neg = cfg.n_clauses // 2     # odd-index (opposing) clauses
+
+    def infer(self, literals) -> EngineResult:
+        """(B, 2F) {0,1} literals → :class:`EngineResult`; ``aux``
+        carries per-sample ``latency_ps`` (float32) and ``metastable``
+        (bool)."""
+        clauses = _clause_bits(self._inc, as_literals(literals, self.device))
+        low_count = low_select(clauses, self._pol).sum(-1, dtype=torch.int32)
+        sums = low_count - self._n_neg     # low_count = votes + n_neg
+        if self.pdl_device is None:
+            delays = ideal_delays(self.pdl, low_count, self.cfg.n_clauses)
+        else:
+            delays = pdl_delays(self.pdl, self.pdl_device, clauses,
+                                self._pol, key=self.noise_key)
+        res = race(self.pdl, delays)
+        return EngineResult(res.winner, sums,
+                            {"latency_ps": res.latency,
+                             "metastable": res.metastable})

@@ -265,7 +265,15 @@ def available_backends() -> list[str]:
 
 def _cache_key(name, cfg, state, opts):
     """Hashable cache key, or ``None`` when opts aren't hashable.  State
-    identity is (id, shape, dtype, device) of each tensor."""
+    identity is (id, shape, dtype, device) of each tensor.  Tensor-valued
+    opts (a ``PDLDevice``, a noise key) bypass the cache, as JAX arrays,
+    which are unhashable, do in the JAX package: a tensor hashes by its
+    id, which a new tensor may reuse once the old one is freed, and
+    nothing pins an opt tensor the way the state's weakrefs pin it."""
+    for v in opts.values():
+        if isinstance(v, torch.Tensor) or (isinstance(v, tuple) and any(
+                isinstance(x, torch.Tensor) for x in v)):
+            return None
     try:
         opts_key = tuple(sorted(opts.items()))
         state_key = tuple((id(a), tuple(a.shape), str(a.dtype), str(a.device))

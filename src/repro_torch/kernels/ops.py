@@ -17,6 +17,10 @@
 - :func:`tm_fused_votes` / :func:`tm_fused_predict`: fused TM inference
   through ``clause_votes`` (kernel K3 on CUDA tensors, its plain version
   on CPU tensors).
+
+The paper-surface kernels K4, K5 and K6 have no entry here: callers use
+their wrappers (``popcount.popcount_words``, ``pdl_race.pdl_race``,
+``binary_matmul.binary_matmul``) and the ``ref`` oracles by name.
 """
 
 from __future__ import annotations
@@ -46,15 +50,21 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # library name (also the name of its C launch function) -> source
 KERNEL_SOURCES = {"swar_fused_votes": "swar_fused.cu",
                   "clause_votes": "clause_votes.cu",
-                  "train_deltas": "train_deltas.cu"}
+                  "train_deltas": "train_deltas.cu",
+                  "popcount_words": "popcount_words.cu",
+                  "pdl_race": "pdl_race.cu",
+                  "binary_matmul": "binary_matmul.cu"}
 _HEADERS = ("tm_votes.cuh", "threefry.cuh")
-_P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
+_P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 # each C launch function's arguments before the trailing (int device,
 # void* stream): tensor pointers first, then the scalars
 KERNEL_ARGTYPES = {
     "swar_fused_votes": (_P,) * 4 + (_I,) * 4,
     "clause_votes": (_P,) * 4 + (_I,) * 4,
     "train_deltas": (_P,) * 12 + (_I,) * 4 + (_U,) * 2,
+    "popcount_words": (_P,) * 2 + (_I,) * 2,
+    "pdl_race": (_P,) * 6 + (_I,) * 3 + (_F,),
+    "binary_matmul": (_P,) * 3 + (_I,) * 3,
 }
 
 _lock = threading.RLock()      # load_library holds it around build_kernels
@@ -164,11 +174,12 @@ def load_library(name: str) -> ctypes.CDLL:
         return lib
 
 
-def launch(name: str, tensors: tuple[torch.Tensor, ...], ints: tuple[int, ...]
+def launch(name: str, tensors: tuple[torch.Tensor, ...], ints: tuple
            ) -> None:
-    """Call kernel ``name``'s C entry on ``tensors``' pointers and
-    ``ints``, on the current stream of their device; raise on a refused
-    launch (``cudaGetLastError`` is checked right after it)."""
+    """Call kernel ``name``'s C entry on ``tensors``' pointers and the
+    scalars ``ints`` (Python ints, or floats where its signature takes
+    a ``float``), on the current stream of their device; raise on a
+    refused launch (``cudaGetLastError`` is checked right after it)."""
     argtypes = KERNEL_ARGTYPES[name]
     n_ptr = argtypes.count(_P)
     if len(tensors) != n_ptr or len(ints) != len(argtypes) - n_ptr:
@@ -198,3 +209,4 @@ def tm_fused_predict(literals: torch.Tensor, include: torch.Tensor,
                      vote_matrix: torch.Tensor) -> torch.Tensor:
     """Votes + tournament argmax → (B,) predicted class."""
     return argmax_tournament(tm_fused_votes(literals, include, vote_matrix))
+

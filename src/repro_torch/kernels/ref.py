@@ -1,19 +1,23 @@
 """Plain PyTorch versions of the kernels (port of ``repro.kernels.ref``).
 
 Each ``ref_*`` computes what the matching CUDA kernel computes, with
-stock tensor ops.  A kernel wrapper runs its plain version when it is
+stock tensor ops — except :func:`ref_pdl_race`, the JAX package's race
+oracle, whose tie rule differs from kernel K5's (K5's plain version is
+``kernels.pdl_race.pdl_race_plain``).  A kernel wrapper runs its plain version when it is
 handed CPU tensors (the tests), and ``chip_smoke.py`` holds every kernel
-bitwise against its plain version on the card.  Every function here is
-exact integer arithmetic and runs on any device.
+bitwise against its plain version on the card.  Every function here runs on
+any device; all but :func:`ref_pdl_race` are exact integer arithmetic.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.core.popcount import _swar_word, int_matmul
 
-__all__ = ["ref_popcount_words", "ref_clause_votes", "ref_swar_fused_votes"]
+__all__ = ["ref_popcount_words", "ref_clause_votes", "ref_swar_fused_votes",
+           "ref_binary_matmul", "ref_pdl_race"]
 
 # rows per chunk of the (rows, CM, Wl) hit tensor in ref_swar_fused_votes:
 # bounds its temporaries at ~2^24 words whatever the batch
@@ -57,3 +61,35 @@ def ref_swar_fused_votes(not_words: torch.Tensor, inc_words: torch.Tensor,
     clause = torch.cat(fired) if fired else \
         torch.zeros((0, cm), dtype=torch.bool, device=not_words.device)
     return int_matmul(clause.to(torch.int32), vote_matrix)
+
+
+def ref_binary_matmul(x_pm1: torch.Tensor, w_pm1: torch.Tensor
+                      ) -> torch.Tensor:
+    """±1 GEMM, plain (kernel K6's arithmetic): (M, K) int8 × (K, N) int8
+    → (M, N) int32, equal to ``2·popcount(xnor(x_bits, w_bits)) − K`` for
+    the bit encodings — the BNN xnor-popcount accumulation (paper
+    Fig. 1(b))."""
+    return int_matmul(x_pm1, w_pm1)
+
+
+def ref_pdl_race(low_sel: torch.Tensor, elem_delays: torch.Tensor,
+                 skew: torch.Tensor, t_res: float
+                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The JAX package's PDL race oracle (``repro.kernels.ref.
+    ref_pdl_race``).
+
+    low_sel (B, C, M) {0,1} int8; elem_delays (C, M, 2) float32 ps;
+    skew (C,) float32 ps → (winner (B,) int32, latency (B,) float32,
+    metastable (B,) bool).  Metastable iff the two smallest arrivals
+    (``top_k``, so a duplicate minimum gives gap 0) are closer than
+    ``t_res``; needs C ≥ 2, as ``top_k(2)`` does.  Kernel K5 measures the
+    gap to the next *distinct* arrival instead (see
+    :mod:`repro_torch.kernels.pdl_race`).
+    """
+    per = torch.where(low_sel == 1, elem_delays[..., 0], elem_delays[..., 1])
+    delays = per.sum(-1) + skew[None, :]                          # (B, C)
+    winner = torch.argmin(delays, -1).to(torch.int32)
+    latency = delays.min(-1).values
+    top2 = torch.topk(delays, 2, dim=-1, largest=False).values
+    meta = (top2[:, 1] - top2[:, 0]) < float(np.float32(t_res))
+    return winner, latency, meta

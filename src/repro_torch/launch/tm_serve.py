@@ -15,6 +15,8 @@ p50/p99 latency.
     PYTHONPATH=src python -m repro_torch.launch.tm_serve --device cpu \\
         --backend mxu_fused --train-backend fused --label-rate 10 \\
         --probe-every 2 --clients 8 --duration 4
+    PYTHONPATH=src python -m repro_torch.launch.tm_serve --device cpu \\
+        --backend time_domain --features 784 --clauses 50 --clients 8
 
 ``--backend`` pins one backend.  Without it, buckets route by include
 density, which picks ``sparse_csr`` at the default 5% density — a

@@ -732,6 +732,11 @@ class TMServer:
                         and not self._pending_updates
                         and not update_running):
                     break
+                if self._pending_updates and not update_running:
+                    # at pipeline_depth=1 the pass above applied one update
+                    # inline; the next one queued behind it goes now, not
+                    # after an arrival that may never come
+                    continue
                 # idle: wake on the next arrival, or on the in-flight
                 # update finishing (its successor may be waiting)
                 await self._next_arrival(

@@ -17,6 +17,10 @@ from repro_torch.convert import state_from_numpy
 from repro_torch.core import popcount as tpop
 from repro_torch.core import tm as ttm
 
+# one xdist worker per core runs these files beside the JAX suite:
+# torch's default of one intra-op thread per core oversubscribes the CPU
+torch.set_num_threads(2)
+
 SHAPES = [(2, 6, 9), (3, 10, 12), (4, 8, 40), (1, 3, 1)]
 
 

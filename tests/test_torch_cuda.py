@@ -28,7 +28,15 @@ from repro_torch.kernels.swar_fused import (swar_fused_votes,
                                             swar_fused_votes_plain)
 from repro_torch.kernels.train_fused import (train_deltas_keyed,
                                              train_deltas_keyed_plain)
+from repro_torch.kernels.binary_matmul import (binary_matmul,
+                                               binary_matmul_plain)
+from repro_torch.kernels.pdl_race import pdl_race, pdl_race_plain
+from repro_torch.kernels.popcount import popcount_words, popcount_words_plain
 from repro_torch.serve import ServePolicy, TMServer
+
+# one xdist worker per core runs these files beside the JAX suite:
+# torch's default of one intra-op thread per core oversubscribes the CPU
+torch.set_num_threads(2)
 
 pytestmark = pytest.mark.cuda
 
@@ -245,3 +253,131 @@ def test_learning_server_on_cuda(cuda):
     for lits, r in zip(reqs, res):
         np.testing.assert_array_equal(r.prediction,
                                       oracle.infer(lits).prediction)
+
+
+# --- K4, K5, K6: the paper-surface kernels -------------------------------
+
+@pytest.mark.parametrize("r,w", [(1, 1), (37, 129), (4096, 512), (5, 3),
+                                 (300, 4)])
+def test_popcount_kernel_bitwise_vs_plain(cuda, r, w):
+    g = torch.Generator().manual_seed(r + w)
+    words = torch.randint(-2**31, 2**31, (r, w), generator=g,
+                          dtype=torch.int64).to(torch.int32)
+    if r > 2:
+        words[1] = -1                      # all ones
+        words[2] = 0
+    words = words.to(cuda)
+    n = popcount_words.launches
+    got = popcount_words(words)
+    torch.cuda.synchronize()
+    assert popcount_words.launches == n + 1
+    want = popcount_words_plain(words)
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+    assert torch.equal(want.cpu(), popcount_words_plain(words.cpu()))
+    if r > 2:
+        assert int(got[1]) == 32 * w and int(got[2]) == 0
+    # rows starting 4 bytes past a 16-byte boundary take the word path
+    buf = torch.zeros(r * w + 1, dtype=torch.int32, device=cuda)
+    shifted = buf[1:].view(r, w)
+    shifted.copy_(words)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 == 4
+    assert torch.equal(popcount_words(shifted), want)
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 784, 128), (37, 129, 65),
+                                   (1024, 1024, 1024), (70, 3, 1),
+                                   (5, 1, 9), (129, 64, 200)])
+def test_binary_matmul_kernel_bitwise_vs_plain(cuda, m, k, n):
+    g = torch.Generator().manual_seed(m + k + n)
+    x = (torch.randint(0, 2, (m, k), generator=g) * 2 - 1).to(torch.int8)
+    w = (torch.randint(0, 2, (k, n), generator=g) * 2 - 1).to(torch.int8)
+    x, w = x.to(cuda), w.to(cuda)
+    launches = binary_matmul.launches
+    got = binary_matmul(x, w)
+    torch.cuda.synchronize()
+    assert binary_matmul.launches == launches + 1
+    want = binary_matmul_plain(x, w)
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+    assert torch.equal(want.cpu(), binary_matmul_plain(x.cpu(), w.cpu()))
+
+
+def test_binary_matmul_kernel_any_int8(cuda):
+    """The int32 accumulation is exact for any int8 operands, not only
+    ±1, and for a K that is not a multiple of 4 (byte loads)."""
+    g = torch.Generator().manual_seed(2)
+    x = torch.randint(-128, 128, (33, 77), generator=g).to(torch.int8)
+    w = torch.randint(-128, 128, (77, 40), generator=g).to(torch.int8)
+    got = binary_matmul(x.to(cuda), w.to(cuda))
+    assert torch.equal(got.cpu(), x.to(torch.int32) @ w.to(torch.int32))
+
+
+def _race_args(dev, b, c, m, seed, integer):
+    g = torch.Generator().manual_seed(seed)
+    sel = torch.randint(0, 2, (b, c, m), generator=g, dtype=torch.int8)
+    if integer:
+        ed = torch.randint(300, 700, (c, m, 2), generator=g).float()
+        skew = torch.randint(-3, 4, (c,), generator=g).float()
+    else:
+        ed = 500.0 + 100.0 * torch.randn((c, m, 2), generator=g)
+        skew = torch.randn((c,), generator=g)
+    return [t.to(dev) for t in (sel, ed, skew)]
+
+
+@pytest.mark.parametrize("b,c,m", [(1, 10, 50), (37, 10, 50),
+                                   (1024, 10, 100), (37, 1, 50),
+                                   (20, 3000, 4), (9, 33, 1)])
+def test_pdl_race_kernel_bitwise_on_integer_delays(cuda, b, c, m):
+    args = _race_args(cuda, b, c, m, b + c + m, integer=True)
+    n = pdl_race.launches
+    got = pdl_race(*args, 10.0)
+    torch.cuda.synchronize()
+    assert pdl_race.launches == n + 1
+    want = pdl_race_plain(*args, 10.0)
+    assert [t.dtype for t in got] == [torch.int32, torch.float32, torch.bool]
+    for g_, w_ in zip(got, want):
+        assert torch.equal(g_, w_)
+    for g_, w_ in zip(want, pdl_race_plain(*[t.cpu() for t in args], 10.0)):
+        assert torch.equal(g_.cpu(), w_)
+
+
+def test_pdl_race_kernel_float_delays_and_tied_minimum(cuda):
+    args = _race_args(cuda, 1024, 10, 100, 5, integer=False)
+    win, lat, meta = pdl_race(*args, 10.0)
+    pw, pl, pm = pdl_race_plain(*args, 10.0)
+    assert torch.allclose(lat, pl, rtol=1e-6, atol=0)
+    d = torch.sort(torch.where(args[0] != 0, args[1][..., 0],
+                               args[1][..., 1]).double().sum(-1)
+                   + args[2].double(), -1).values
+    gaps = d.diff(dim=-1)
+    clear = (gaps.min(-1).values > 1e-3) & ((gaps[:, 0] - 10.0).abs() > 1e-3)
+    assert float(clear.float().mean()) > 0.9
+    assert torch.equal(win[clear], pw[clear])
+    assert torch.equal(meta[clear], pm[clear])
+    sel = torch.ones((1, 3, 1), dtype=torch.int8, device=cuda)
+    ed = torch.tensor([[[4.0, 4.0]], [[4.0, 4.0]], [[400.0, 400.0]]],
+                      device=cuda)
+    win, lat, meta = pdl_race(sel, ed, torch.zeros(3, device=cuda), 10.0)
+    assert (int(win[0]), float(lat[0]), bool(meta[0])) == (0, 4.0, False)
+
+
+def test_time_domain_engine_on_cuda_matches_cpu(cuda):
+    rng = np.random.default_rng(9)
+    ta = np.where(rng.random((10, 50, 1568)) < 0.002, 129, 128)
+    lits = rng.integers(0, 2, (45, 1568), dtype=np.int8)
+    cfg = TMConfig(10, 50, 784)
+    want = get_engine("time_domain", cfg,
+                      state_from_numpy(ta, device="cpu")).infer(lits)
+    got = get_engine("time_domain", cfg, state_from_numpy(ta)).infer(lits)
+    assert got.prediction.device.type == "cuda"
+    assert torch.equal(got.prediction.cpu(), want.prediction)
+    assert torch.equal(got.class_sums.cpu(), want.class_sums)
+    for k in ("latency_ps", "metastable"):
+        assert torch.equal(got.aux[k].cpu(), want.aux[k])
+
+
+def test_bnn_launcher_on_cuda(cuda):
+    from repro_torch.launch.bnn_popcount import run
+    n = binary_matmul.launches
+    out = run(device="cuda")
+    assert binary_matmul.launches == n + 1
+    assert out["h_shape"] == (120, 128)

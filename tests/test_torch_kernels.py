@@ -21,6 +21,10 @@ from repro_torch.kernels import ops, ref
 from repro_torch.kernels.clause_eval import clause_votes, make_vote_matrix
 from repro_torch.kernels.swar_fused import swar_fused_votes
 
+# one xdist worker per core runs these files beside the JAX suite:
+# torch's default of one intra-op thread per core oversubscribes the CPU
+torch.set_num_threads(2)
+
 CASES = [(b, c, m, f, d)
          for (b, c, m, f) in [(1, 2, 6, 9), (17, 3, 10, 12), (5, 4, 8, 40)]
          for d in (0.0, 0.15, 1.0)]

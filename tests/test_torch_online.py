@@ -12,6 +12,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from repro.core.tm import TMConfig as JConfig
 from repro.core.tm import TMState as JState
@@ -23,7 +24,21 @@ from repro_torch.core.tm import TMConfig
 from repro_torch.engine import get_engine, get_train_engine
 from repro_torch.serve import ServePolicy, TMServer
 
+# one xdist worker per core runs these files beside the JAX suite:
+# torch's default of one intra-op thread per core oversubscribes the CPU
+torch.set_num_threads(2)
+
 C, M, F = 3, 8, 9
+
+# wall-clock bound on every event-loop run: a scheduler that loses a
+# wakeup fails its test instead of hanging the whole run; leaving the
+# ``async with`` block on the timeout stops the server
+LIMIT_S = 120
+
+
+def _run(coro):
+    """``asyncio.run(coro)`` under the ``LIMIT_S`` wall-clock limit."""
+    return asyncio.run(asyncio.wait_for(coro, LIMIT_S))
 
 
 def _tm(seed=0):
@@ -67,7 +82,7 @@ def test_submit_labeled_requires_opt_in():
                 srv.state = srv.state
             assert srv.stats()["updates"] == 0
 
-    asyncio.run(go())
+    _run(go())
 
 
 def test_submit_labeled_validation():
@@ -98,7 +113,7 @@ def test_submit_labeled_validation():
             with pytest.raises(RuntimeError, match="train_backend"):
                 await srv.warmup(train_batches=(4,))
 
-    asyncio.run(go())
+    _run(go())
 
 
 @pytest.mark.parametrize("backend", ["reference", "packed", "fused"])
@@ -134,12 +149,12 @@ def test_update_chain_replays_bit_exactly(backend):
                 states.append(np.asarray(srv.state.ta))
         return states
 
-    versions, states, stats = asyncio.run(port())
+    versions, states, stats = _run(port())
     assert versions == [1, 2, 3]
     assert stats["state_version"] == 3 and stats["updates"] == 3
     assert stats["update_rows"] == 48
     assert stats["pipeline"]["update_inflight"] is False
-    jstates = asyncio.run(reference())
+    jstates = _run(reference())
     for got, want, jax_state in zip(states, expected[1:], jstates):
         np.testing.assert_array_equal(got, want.ta.numpy())
         np.testing.assert_array_equal(got, jax_state)
@@ -165,7 +180,7 @@ def test_predict_pinned_to_arrival_version():
             p_after = await srv.submit(lits[:4])
             return await p_before, p_after, v
 
-    res_before, res_after, version = asyncio.run(go())
+    res_before, res_after, version = _run(go())
     assert version == 1
     for res, st in ((res_before, expected[0]), (res_after, expected[1])):
         ref = get_engine("oracle", cfg, st).infer(lits[:4])
@@ -174,12 +189,17 @@ def test_predict_pinned_to_arrival_version():
 
 
 @pytest.mark.parametrize("case", [(1, 4, 2, 0, 3, 2), (3, 12, 4, 2000, 17, 2),
-                                  (4, 8, 16, 0, 99, 2), (3, 9, 4, 500, 5, 1)],
+                                  (4, 8, 16, 0, 99, 2), (3, 9, 4, 500, 5, 1),
+                                  (3, 2, 8, 200, 5, 1), (3, 4, 8, 200, 30225, 1)],
                          ids=lambda c: "u{}p{}b{}w{}s{}d{}".format(*c))
 def test_interleaved_predicts_never_see_torn_state(case):
     """Every predict response equals a committed version's full oracle
     result — prediction and class sums together — never a mixture; the
-    last case runs the serial scheduler (``pipeline_depth=1``)."""
+    last three cases run the serial scheduler (``pipeline_depth=1``).
+    In the last two, the updates queued behind the predicts outlast
+    them: the scheduler must apply each queued update without waiting
+    for another arrival (it used to go idle with updates pending, and
+    the run hung)."""
     n_updates, n_predicts, max_batch, max_wait_us, seed, depth = case
     cfg, ta = _tm(seed=7)
     lits, labels = _stream(64, seed)
@@ -203,7 +223,7 @@ def test_interleaved_predicts_never_see_torn_state(case):
                     [srv.submit_labeled(*b) for b in batches]
             return await asyncio.gather(*tasks)
 
-    results = asyncio.run(go())
+    results = _run(go())
     assert sorted(results[n_predicts:]) == list(range(1, n_updates + 1))
     refs = [get_engine("oracle", cfg, st) for st in expected]
     for q, res in zip(queries, results[:n_predicts]):
@@ -249,7 +269,7 @@ def test_failing_update_fails_only_itself():
             after = srv.state
         return res, mid, v, after
 
-    res, mid, v, after = asyncio.run(go())
+    res, mid, v, after = _run(go())
     assert mid["state_version"] == 0 and mid["updates"] == 0
     assert mid["errors"] == 1
     ref = get_engine("oracle", cfg, state_from_numpy(ta, device="cpu")) \
@@ -279,7 +299,7 @@ def test_rollback_keeps_the_key_chain_advancing():
             assert await srv.submit_labeled(*b[2]) == 4
             return srv.state.ta.numpy(), srv.stats()
 
-    got, stats = asyncio.run(go())
+    got, stats = _run(go())
     eng = get_train_engine("fused", cfg)
     chain = prng.key(5)
     st = state_from_numpy(ta, device="cpu")
@@ -316,7 +336,7 @@ def test_drift_probe_scores_held_out_stream():
                 await asyncio.sleep(0.01)
             return srv.stats()["probe"]
 
-    p = asyncio.run(go())
+    p = _run(go())
     accs = [float((get_engine("oracle", cfg, expected[v]).infer(probe[0])
                    .prediction.numpy() == probe[1]).mean()) for v in (2, 4)]
     assert p["evals"] == 2 and p["at_version"] == 4

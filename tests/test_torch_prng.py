@@ -16,6 +16,10 @@ from repro_torch.core import prng
 from repro_torch.core.tm import TMConfig
 from repro_torch.core.tm_train import feedback_draws
 
+# one xdist worker per core runs these files beside the JAX suite:
+# torch's default of one intra-op thread per core oversubscribes the CPU
+torch.set_num_threads(2)
+
 
 def _data(key):
     return np.asarray(jax.random.key_data(key))

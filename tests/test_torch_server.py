@@ -29,9 +29,23 @@ from repro_torch.serve import (DeadlineExceeded, ServePolicy, TMServer,
                                bucket_for, default_buckets, route_buckets)
 from repro_torch.serve.tm_server import _Request
 
+# one xdist worker per core runs these files beside the JAX suite:
+# torch's default of one intra-op thread per core oversubscribes the CPU
+torch.set_num_threads(2)
+
 C, M, F = 3, 7, 9
 N_CLIENTS = 3
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
+
+# wall-clock bound on every event-loop run: a scheduler that loses a
+# wakeup fails its test instead of hanging the whole run; leaving the
+# ``async with`` block on the timeout stops the server
+LIMIT_S = 120
+
+
+def _run(coro):
+    """``asyncio.run(coro)`` under the ``LIMIT_S`` wall-clock limit."""
+    return asyncio.run(asyncio.wait_for(coro, LIMIT_S))
 
 
 def _ta(seed=0, density=0.2):
@@ -71,7 +85,7 @@ def _serve_all(server_factory, reqs):
                 *[one(c, s, lit) for c, s, lit in reqs])
             return results, server.stats()
 
-    results, stats = asyncio.run(go())
+    results, stats = _run(go())
     return results, completions, stats
 
 
@@ -185,7 +199,7 @@ def test_routing_explicit_and_heuristic_fails_loudly():
                 await srv.submit(np.zeros((1, 2 * F), np.int8))
             assert srv.stats()["errors"] == 1
 
-    asyncio.run(go())
+    _run(go())
 
 
 def test_failing_batch_fails_only_its_requests():
@@ -201,7 +215,7 @@ def test_failing_batch_fails_only_its_requests():
             assert res.prediction.shape == (4,)
             assert srv.stats()["errors"] == 1
 
-    asyncio.run(go())
+    _run(go())
 
 
 def test_submit_validation_and_lifecycle():
@@ -227,7 +241,7 @@ def test_submit_validation_and_lifecycle():
             res = await srv.submit(torch.zeros(2 * F, dtype=torch.int8))
             assert res.prediction.shape == (1,)
 
-    asyncio.run(go())
+    _run(go())
 
 
 def test_warmup_and_stats_key_set_matches_jax():
@@ -241,10 +255,10 @@ def test_warmup_and_stats_key_set_matches_jax():
             await srv.submit(np.zeros((3, 2 * F), np.int8))
             return srv.stats()
 
-    got = asyncio.run(stats_of(TMServer(
+    got = _run(stats_of(TMServer(
         cfg, state_from_numpy(ta, device="cpu"),
         ServePolicy(max_batch=8, backend="oracle"), device="cpu")))
-    want = asyncio.run(stats_of(JServer(
+    want = _run(stats_of(JServer(
         jcfg, JState(ta=jnp.asarray(ta)),
         JPolicy(max_batch=8, backend="oracle"))))
     assert set(want) <= set(got)
@@ -277,7 +291,7 @@ def test_unported_planes_raise_and_typos_are_type_errors():
         TMServer(cfg, state, device="cpu", polcy=None)
     srv = TMServer(cfg, state, ServePolicy(backend="oracle"), device="cpu")
     with pytest.raises(RuntimeError, match="online learning is off"):
-        asyncio.run(srv.submit_labeled(np.zeros((1, 2 * F)), [0]))
+        _run(srv.submit_labeled(np.zeros((1, 2 * F)), [0]))
     for call in (srv.checkpoint, srv.restore):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             call("somewhere")
@@ -367,7 +381,7 @@ def test_admission_control_rejects_provably_late(admission):
                              deadline_us=60_000_000)
             return rejected, srv.stats()
 
-    rejected, stats = asyncio.run(go())
+    rejected, stats = _run(go())
     dl = stats["deadline"]
     assert rejected == admission
     assert dl["admission_rejects"] == (1 if admission else 0)
@@ -387,7 +401,12 @@ def test_port_imports_no_jax_and_no_repro():
     code = ("import sys, repro_torch, repro_torch.serve, "
             "repro_torch.launch.tm_serve, repro_torch.convert, "
             "repro_torch.core.prng, repro_torch.core.tm_train, "
-            "repro_torch.kernels.train_fused, repro_torch.engine.train\n"
+            "repro_torch.kernels.train_fused, repro_torch.engine.train, "
+            "repro_torch.core.time_domain, repro_torch.core.bnn, "
+            "repro_torch.core.booleanize, repro_torch.data, "
+            "repro_torch.kernels.popcount, repro_torch.kernels.pdl_race, "
+            "repro_torch.kernels.binary_matmul, "
+            "repro_torch.launch.bnn_popcount\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.'))\n"

@@ -29,6 +29,10 @@ from repro_torch.engine import (DEFAULT_TRAIN_BACKEND,
                                 train_engine_cache_info, train_engine_opts)
 from repro_torch.kernels import train_fused as tfused
 
+# one xdist worker per core runs these files beside the JAX suite:
+# torch's default of one intra-op thread per core oversubscribes the CPU
+torch.set_num_threads(2)
+
 PORTED = ["fused", "packed", "reference"]
 # (C, M, F): odd M (unequal polarity halves), C=2 (forced negative class)
 SHAPES = [(2, 6, 9), (3, 10, 12), (5, 7, 33), (4, 12, 5), (10, 25, 49)]
