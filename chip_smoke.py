@@ -15,7 +15,9 @@ package.  Phases, each on its own lines:
 1. the card (``nvidia-smi`` name and power limit) and the torch / CUDA
    versions;
 2. the kernel build (one ``nvcc`` per source, all started together) and
-   what ``ptxas`` reports per kernel;
+   what ``ptxas`` reports per kernel; then ``cuobjdump -sass`` of K3's and
+   K6's libraries, which must hold integer tensor-core MMA instructions
+   (``IMMA``) and no ``IDP`` (``__dp4a``);
 3. kernels K1 (``swar_fused_votes``) and K3 (``clause_votes``) against
    their plain versions on the card, bitwise, at tm-mnist-50 widths
    (C=10, M=50, F=784) for B in {1, 37, 64, 4096} and at edge states
@@ -29,13 +31,14 @@ package.  Phases, each on its own lines:
    off, timed at B in {32, 64};
    then the paper-surface kernels: K4 (``popcount_words``) at (1, 1),
    (37, 129) and (4096, 512) words with all-ones and all-zero rows, and
-   K6 (``binary_matmul``) at (1, 784)x(784, 128), (37, 129)x(129, 65)
-   and 1024^3, both bitwise; K5 (``pdl_race``) at (1, 10, 50),
+   K6 (``binary_matmul``) at (1, 784)x(784, 128), (37, 129)x(129, 65),
+   the BNN's (120, 784)x(784, 128) and 1024^3, both bitwise; K5 (``pdl_race``) at (1, 10, 50),
    (37, 10, 50) and (1024, 10, 100), bitwise on integer-valued delays
    and within the stated tolerance on float delays, plus a tied-minimum
    row and C=1; timed at the ``benchmarks/kernel_bench.py`` shapes (K4
-   4096x512, K5 B=1024 C=10 M=100, K6 1024^3; K6 also beside
-   ``torch._int_mm``, cuBLASLt's int8 GEMM);
+   4096x512, K5 B=1024 C=10 M=100, K6 1024^3) and K6 also at the BNN's
+   120x784x128, both K6 shapes beside ``torch._int_mm``, cuBLASLt's int8
+   GEMM;
 4. the main path: ``TMServer`` on cuda at tm-mnist-50 width, state at 5%
    include density from a seeded numpy generator through
    ``state_from_numpy``, once with ``backend="mxu_fused"`` (K3) and once
@@ -81,7 +84,11 @@ before printing any result.
 from __future__ import annotations
 
 import asyncio
+import collections
 import json
+import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -119,7 +126,11 @@ FP32_ADDS = FP32_FLOPS / 2
 # the paper-surface kernels' checked and timed shapes
 # (benchmarks/kernel_bench.py: K4 4096x512, K5 B=1024 C=10 M=100, K6 1024^3)
 K4_SHAPES = ((1, 1), (37, 129), (4096, 512))
-K6_SHAPES = ((1, 784, 128), (37, 129, 65), (1024, 1024, 1024))
+# K6: the last two are timed; the BNN's one launch (launch/bnn_popcount.py:
+# 120 rows of 784 inputs into 128 hidden units) is the main path's shape
+K6_SHAPES = ((1, 784, 128), (37, 129, 65), (120, 784, 128),
+             (1024, 1024, 1024))
+K6_MAIN = (120, 784, 128)
 K5_SHAPES = ((1, 10, 50), (37, 10, 50), (1024, 10, 100))
 T_RES = 10.0                      # PDLConfig().t_res, ps
 K5_ROWS = 1024                    # served-state rows raced through K5
@@ -620,8 +631,11 @@ def check_popcount(torch, rt) -> dict:
 
 def check_binary_matmul(torch, rt) -> dict:
     """Phase 3c: K6 bitwise against its plain version, then timed beside
-    ``torch._int_mm`` (cuBLASLt's int8 GEMM, the same function here)."""
+    ``torch._int_mm`` (cuBLASLt's int8 GEMM, the same function here) at
+    the BNN's shape and at 1024^3 → the row at the BNN's shape, with the
+    1024^3 row under ``"at_1024^3"``."""
     rng = np.random.default_rng(SEED + 50)
+    timed = {}
     for m, k, n in K6_SHAPES:
         x = torch.as_tensor(rng.choice([-1, 1], (m, k)).astype(np.int8),
                             device="cuda")
@@ -633,16 +647,43 @@ def check_binary_matmul(torch, rt) -> dict:
         exact_err(torch, "binary_matmul", got, want, f"({m}, {k})x({k}, {n})")
         print(f"check binary_matmul    ({m:4d}, {k:4d})x({k:4d}, {n:4d}): "
               f"bitwise=True", flush=True)
-    lib = torch._int_mm(x, w)
-    torch.cuda.synchronize()
-    if not torch.equal(lib, got):
-        raise AssertionError("torch._int_mm disagrees with binary_matmul")
-    row = timed_row(torch, "binary_matmul", lambda: rt["binary_matmul"](x, w),
-                    lambda: rt["binary_matmul_plain"](x, w),
-                    m * k + k * n + 4 * m * n, 2 * m * n * k / INT8_OPS,
-                    f"{m}x{k}x{n}", library=lambda: torch._int_mm(x, w))
-    row["max_abs_err"] = 0
+        if (m, k, n) not in (K6_MAIN, K6_SHAPES[-1]):
+            continue
+        lib = torch._int_mm(x, w)
+        torch.cuda.synchronize()
+        if not torch.equal(lib, got):
+            raise AssertionError("torch._int_mm disagrees with binary_matmul")
+        row = timed_row(
+            torch, "binary_matmul",
+            lambda: rt["binary_matmul"](x, w),
+            lambda: rt["binary_matmul_plain"](x, w),
+            m * k + k * n + 4 * m * n, 2 * m * n * k / INT8_OPS,
+            f"{m}x{k}x{n}", library=lambda: torch._int_mm(x, w))
+        row["max_abs_err"] = 0
+        timed[(m, k, n)] = row
+    row = timed[K6_MAIN]
+    row["at_1024^3"] = timed[K6_SHAPES[-1]]
     return row
+
+
+def check_tensor_cores(libs: dict) -> None:
+    """Phase 2b: K3's and K6's products run on the int8 tensor cores —
+    ``cuobjdump -sass`` of each library shows integer MMA instructions
+    (``IMMA``, from ``mma.sync`` with s8 operands) and no ``IDP``
+    (``__dp4a``)."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    for name in ("clause_votes", "binary_matmul"):
+        sass = subprocess.run([tool, "-sass", str(libs[name])], check=True,
+                              capture_output=True, text=True,
+                              timeout=120).stdout
+        ops = collections.Counter(re.findall(r"\b((?:IMMA|IDP)[.\w]*)",
+                                             sass))
+        print(f"sass  {name}: {dict(ops)}", flush=True)
+        if not any(op.startswith("IMMA") for op in ops):
+            raise AssertionError(f"{name}: no IMMA instruction in its SASS")
+        if any(op.startswith("IDP") for op in ops):
+            raise AssertionError(f"{name}: __dp4a (IDP) in its SASS")
 
 
 def k5_inputs(torch, rng, b, c, m, *, integer: bool):
@@ -736,7 +777,7 @@ def check_pdl_race(torch, rt) -> dict:
 
 
 def time_domain_popcount(torch, rt, state) -> dict:
-    """Phase 6: the clause bits of K5_ROWS rows under ``state`` (the last
+    """Phase 7: the clause bits of K5_ROWS rows under ``state`` (the last
     state the learn phase published, on cuda) as PDL select bits.  K4
     counts each chain's low-net elements (the Hamming weight the PDL
     turns into time), K5 races the chains on a physical device; counters
@@ -821,7 +862,7 @@ def time_domain_popcount(torch, rt, state) -> dict:
 
 
 def bnn_phase(torch, rt) -> dict:
-    """Phase 7: the BNN entry point on cuda; K6's counter zeroed before,
+    """Phase 8: the BNN entry point on cuda; K6's counter zeroed before,
     read after."""
     from repro_torch.launch.bnn_popcount import run
     rt["binary_matmul"].launches = 0
@@ -900,6 +941,7 @@ def main() -> int:
                  if "registers" in ln or "spill" in ln]
         print(f"ptxas {name}: {' | '.join(notes) or '(cached build)'}",
               flush=True)
+    check_tensor_cores(libs)
 
     kernels = check_kernels(torch, rt)
     kernels["train_deltas_keyed"] = check_train_deltas(torch, rt)
@@ -954,7 +996,7 @@ def main() -> int:
                 "train_deltas_keyed": f"B={LABEL_BATCH}",
                 "popcount_words": "{}x{}".format(*K4_SHAPES[-1]),
                 "pdl_race": "B={} C={} M={}".format(*K5_SHAPES[-1]),
-                "binary_matmul": "{}x{}x{}".format(*K6_SHAPES[-1])}
+                "binary_matmul": "{}x{}x{}".format(*K6_MAIN)}
     rows = []
     for name, (source, replaces, pallas) in meta.items():
         k = kernels[name]
@@ -966,7 +1008,9 @@ def main() -> int:
                      "ms": k["ms"], "plain_ms": k["plain_ms"],
                      "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
                      "library_ms": k.get("library_ms"),
-                     "shape": shape_of[name]})
+                     "shape": shape_of[name],
+                     **({"at_1024^3": k["at_1024^3"]} if "at_1024^3" in k
+                        else {})})
     print(f"chip_smoke: every phase passed in "
           f"{time.perf_counter() - t_start:.1f}s", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

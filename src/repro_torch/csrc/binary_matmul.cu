@@ -8,103 +8,102 @@
 // which for ±1 operands is 2 * popcount(xnor(x_bits, w_bits)) - K.  The
 // TPU kernel cast the tiles to float32 for the MXU and carried the sum in
 // the output block across the sequential K axis of its grid (exact while
-// K < 2^24).  Here each block owns a 64 x 64 output tile and walks K
-// itself, 32 bytes at a time: x's tile is read as 4-byte words along K,
-// w's tile is gathered byte by byte into words of four consecutive K
-// values per column, both stored K-word-major in shared memory, and each
-// of the 256 threads keeps a 4 x 4 int32 accumulator fed by __dp4a (four
-// int8 products and their sum in one instruction, exact).  The
-// accumulation is int32 and exact for any K.  Ragged edges are masked to
-// zero bytes, which add nothing.
+// K < 2^24).
 //
 // Bound on an H100: the operands are read once and the output written
 // once, M*K + K*N + 4*M*N bytes (6.29 MB at 1024^3, 1.88 us at
 // 3.35 TB/s), against 2*M*N*K int8 operations (1.09 us at the 1,979 TOP/s
-// of the int8 tensor cores).  __dp4a runs on the CUDA cores at a small
-// fraction of the tensor-core rate, so this first version is bound by
-// its dp4a throughput; an mma / wgmma int8 version is the later step.
+// of the int8 tensor cores): bound by bytes at every shape the port runs.
+//
+// Design (mma_s8.cuh): a block owns a 64 x 64 output tile (256 blocks at
+// 1024^3, for 132 SMs) and runs the product on the int8 tensor cores with
+// mma.sync m16n8k32 fed by ldmatrix, int32 accumulation, exact for any int8
+// operands and any K below 2^17.  Both mma operands must be K-major in
+// shared memory.  x (M, K) is, and its rows go straight in (cp.async, 16
+// bytes a copy, when K is a multiple of 16).  w arrives (K, N) row-major,
+// N-major, and ldmatrix transposes only 16-bit elements, so w is transposed
+// while it is staged: each thread loads 16 N-values from each of four
+// consecutive K-rows into registers before the current chunk's mma steps,
+// and after them turns every 4 x 4 byte block into four words of four
+// K-values with __byte_perm and stores those to the tile's [n][k] rows.
+// When the tile grid leaves SMs idle (the BNN's 120 x 784 x 128 gives 4
+// tiles) the depth is cut among up to four thread groups of the block,
+// reduced in shared memory. Ragged M, N and K are masked to zero bytes in
+// the loads.
 
-#include <cstdint>
-#include <cuda_runtime.h>
+#include "mma_s8.cuh"
+
+using namespace mma_s8;
 
 namespace {
 
-constexpr int BM = 64, BN = 64;  // output tile
-constexpr int BKW = 8;           // K words (4 int8 each) per staged chunk
-constexpr int TX = 16, TY = 16;  // thread grid; 4 x 4 outputs per thread
-constexpr int THREADS = TX * TY;
-constexpr int PAD = 4;  // row pad: conflict-free stores of the x tile
-
-__device__ __forceinline__ int gather_word(const int8_t* p, size_t stride,
-                                           int k, int K) {
-  // four consecutive K values (k .. k+3) at byte stride `stride`, zero
-  // past K, little-endian in one word
-  uint32_t u = 0;
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-    if (k + j < K)
-      u |= static_cast<uint32_t>(static_cast<uint8_t>(p[(k + j) * stride]))
-           << (8 * j);
-  return static_cast<int>(u);
+// the 4 x 4 byte transpose: r[i] holds bytes (k = i, n = 0..3); returns
+// in o[j] the bytes (k = 0..3, n = j)
+__device__ __forceinline__ void transpose4x4(const uint32_t (&r)[4],
+                                             uint32_t (&o)[4]) {
+  const uint32_t t0 = __byte_perm(r[0], r[1], 0x5140);  // n0,n1 of k0,k1
+  const uint32_t t1 = __byte_perm(r[0], r[1], 0x7362);  // n2,n3 of k0,k1
+  const uint32_t t2 = __byte_perm(r[2], r[3], 0x5140);
+  const uint32_t t3 = __byte_perm(r[2], r[3], 0x7362);
+  o[0] = __byte_perm(t0, t2, 0x5410);
+  o[1] = __byte_perm(t0, t2, 0x7632);
+  o[2] = __byte_perm(t1, t3, 0x5410);
+  o[3] = __byte_perm(t1, t3, 0x7632);
 }
 
-__global__ void __launch_bounds__(THREADS)
-binary_matmul_kernel(const int8_t* __restrict__ x,
-                     const int8_t* __restrict__ w, int32_t* __restrict__ out,
-                     int M, int N, int K, bool x_words) {
-  __shared__ int xs[BKW][BM + PAD];
-  __shared__ int ws[BKW][BN + PAD];
-  const int tid = threadIdx.x;
-  const int tx = tid % TX, ty = tid / TX;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int KW = (K + 3) / 4;
-  int acc[4][4] = {};
+struct MatmulOp {
+  const int8_t* __restrict__ x;  // (M, K)
+  const int8_t* __restrict__ w;  // (K, N)
+  int M, N, K, m0, n0;
+  bool x_vec, w_vec;  // 16-byte pieces: K resp. N % 16 == 0, bases aligned
+  uint4 wreg[4];      // the next chunk's w: 4 K-rows x 16 N-values
 
-  for (int kw0 = 0; kw0 < KW; kw0 += BKW) {
-    for (int p = tid; p < BM * BKW; p += THREADS) {
-      const int mm = p / BKW, kk = p % BKW;
-      const int m = m0 + mm, kw = kw0 + kk;
-      int v = 0;
-      if (m < M && kw < KW) {
-        const int8_t* row = x + static_cast<size_t>(m) * K;
-        v = x_words ? __ldg(reinterpret_cast<const int*>(row) + kw)
-                    : gather_word(row, 1, 4 * kw, K);
-      }
-      xs[kk][mm] = v;
+  // thread t of the group: K-rows k0 + 4 * (t % 32) + 0..3, N-values
+  // n0 + 16 * (t / 32) + 0..15 (one warp per 16 columns, so each store
+  // below writes 32 consecutive words of one row)
+  __device__ __forceinline__ void issue(uint8_t* stage, int k0, int t) {
+    stage_kmajor(stage, x, M, m0, K, k0, x_vec, t);
+    const int n = n0 + 16 * (t / 32);
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int k = k0 + 4 * (t % 32) + r;
+      const int valid = k < K ? N - n : 0;
+      wreg[r] = load16(w + (static_cast<size_t>(k) * N + n), valid, w_vec);
     }
-    for (int p = tid; p < BKW * BN; p += THREADS) {
-      const int kk = p / BN, nn = p % BN;
-      const int n = n0 + nn, kw = kw0 + kk;
-      ws[kk][nn] = (n < N && kw < KW)
-                       ? gather_word(w + n, static_cast<size_t>(N), 4 * kw, K)
-                       : 0;
-    }
-    __syncthreads();
+  }
+
+  __device__ __forceinline__ void land(uint8_t* stage, int t) {
+    uint8_t* bs = stage + BM * ROW + 16 * (t / 32) * ROW + 4 * (t % 32);
+    const uint32_t rows[4][4] = {
+        {wreg[0].x, wreg[1].x, wreg[2].x, wreg[3].x},
+        {wreg[0].y, wreg[1].y, wreg[2].y, wreg[3].y},
+        {wreg[0].z, wreg[1].z, wreg[2].z, wreg[3].z},
+        {wreg[0].w, wreg[1].w, wreg[2].w, wreg[3].w}};
 #pragma unroll
-    for (int kk = 0; kk < BKW; ++kk) {
-      int a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = xs[kk][ty + TY * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = ws[kk][tx + TX * j];
+    for (int j = 0; j < 4; ++j) {  // N-values 4j .. 4j + 3
+      uint32_t o[4];
+      transpose4x4(rows[j], o);
 #pragma unroll
       for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = __dp4a(a[i], b[j], acc[i][j]);
+        *reinterpret_cast<uint32_t*>(bs + (4 * j + i) * ROW) = o[i];
     }
-    __syncthreads();  // the chunk is consumed before the next overwrites it
   }
+};
 
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty + TY * i;
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx + TX * j;
-      if (n < N) out[static_cast<size_t>(m) * N + n] = acc[i][j];
-    }
-  }
+template <int KSPLIT>
+__global__ void __launch_bounds__(GROUP * KSPLIT)
+binary_matmul_kernel(MatmulOp op, int32_t* __restrict__ out, int n_chunks) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  op.m0 = blockIdx.y * BM;
+  op.n0 = blockIdx.x * BN;
+  Acc acc;
+  mma_tile<KSPLIT, false>(op, smem, n_chunks, acc);
+  if (threadIdx.x >= GROUP) return;  // group 0 holds the sums
+  const int t = threadIdx.x, wm = t / 64, wn = (t / 32) % 2;
+  each_acc(acc, wm, wn, t % 32, [&](int r, int c, int v) {
+    const int m = op.m0 + r, n = op.n0 + c;
+    if (m < op.M && n < op.N) out[static_cast<size_t>(m) * op.N + n] = v;
+  });
 }
 
 }  // namespace
@@ -118,13 +117,29 @@ extern "C" int binary_matmul(const void* x, const void* w, void* out, int M,
   if (M <= 0 || N <= 0) return 0;
   const int m_tiles = (M + BM - 1) / BM, n_tiles = (N + BN - 1) / BN;
   if (m_tiles > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
-  const bool x_words =
-      K % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 4 == 0;
-  binary_matmul_kernel<<<dim3(n_tiles, m_tiles), THREADS, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(x), static_cast<const int8_t*>(w),
-      static_cast<int32_t*>(out), M, N, K, x_words);
-  return static_cast<int>(cudaGetLastError());
+  int n_sm = 0;
+  err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int n_chunks = (K + BK - 1) / BK;
+  const auto aligned = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  MatmulOp op{};
+  op.x = static_cast<const int8_t*>(x);
+  op.w = static_cast<const int8_t*>(w);
+  op.M = M;
+  op.N = N;
+  op.K = K;
+  op.x_vec = K % 16 == 0 && aligned(x);
+  op.w_vec = N % 16 == 0 && aligned(w);
+  const int ks = pick_ksplit(static_cast<long long>(m_tiles) * n_tiles,
+                             n_chunks, n_sm);
+  void (*fn)(MatmulOp, int32_t*, int) = binary_matmul_kernel<4>;
+  if (ks == 1) fn = binary_matmul_kernel<1>;
+  if (ks == 2) fn = binary_matmul_kernel<2>;
+  return launch(fn, ks, dim3(n_tiles, m_tiles),
+                static_cast<cudaStream_t>(stream), op,
+                static_cast<int32_t*>(out), n_chunks);
 }
 
 extern "C" const char* binary_matmul_error(int code) {

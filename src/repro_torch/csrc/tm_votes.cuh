@@ -1,14 +1,14 @@
-// Shared skeleton of the two fused TM vote kernels (K1 swar_fused.cu,
-// K3 clause_votes.cu).
+// Skeleton of the fused TM vote kernel K1 (swar_fused.cu), which alone
+// uses it (K3, clause_votes.cu, runs on the int8 tensor cores through
+// mma_s8.cuh).
 //
-// Both compute, for batch rows b and flattened clauses i = c*M + m,
+// It computes, for batch rows b and flattened clauses i = c*M + m,
 //
 //   viol[b,i]  = sum_w step(lhs[b,w], rhs[i,w])      (a violation count)
 //   votes[b,c] = sum_i (viol[b,i] == 0) * vote_matrix[i,c]
 //
-// and differ only in what a word is and how `step` counts violations
-// (popcount of an AND over packed bits, or an int8 dot product over four
-// literals), which the Op template parameter supplies.
+// where the Op template parameter supplies what a word is and how `step`
+// counts violations (K1: popcount of an AND over packed bits).
 //
 // Work split.  The TPU kernels ran a sequential grid whose second axis
 // carried the (rows, C) vote block across clause tiles.  Hopper blocks run

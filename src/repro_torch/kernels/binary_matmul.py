@@ -6,14 +6,15 @@
 Replaces the Pallas kernel ``repro/kernels/binary_matmul.py:
 binary_matmul_pallas`` (body ``_binary_matmul_kernel``).  On a CUDA
 tensor :func:`binary_matmul` launches the hand-written kernel in
-``csrc/binary_matmul.cu`` (64 × 64 output tiles, int8 products with
-``__dp4a``, int32 accumulation); on a CPU tensor it runs the plain
-version :func:`repro_torch.kernels.ref.ref_binary_matmul`.  Nothing falls
-back: a CUDA build or launch failure raises.
+``csrc/binary_matmul.cu`` (64 × 64 output tiles on the int8 tensor cores
+through ``mma.sync`` m16n8k32, ``w`` transposed to K-major while it is
+staged, int32 accumulation); on a CPU tensor it runs the plain version
+:func:`repro_torch.kernels.ref.ref_binary_matmul`.  Nothing falls back: a
+CUDA build or launch failure raises.
 
 The Pallas kernel accumulates in float32, exact for ±1 operands while
-K < 2²⁴; the kernel and its plain version accumulate integers, exact
-for any int8 operands and any K, so all three agree bit for bit.
+K < 2²⁴; the kernel and its plain version accumulate int32, exact for
+any int8 operands while 2¹⁴·K < 2³¹, so all three agree bit for bit.
 
 Bound on an H100 at the ``kernel_bench`` shape 1024³: 6.29 MB of
 operands and output (1.88 µs at 3.35 TB/s) against 2.15 G int8

@@ -9,9 +9,10 @@ Replaces the Pallas kernel ``repro/kernels/clause_eval.py:
 clause_votes_pallas`` (body ``_clause_votes_kernel``), the
 ``mxu_fused`` backend and tm-mnist-50's default.  On a CUDA tensor
 :func:`clause_votes` launches the hand-written kernel in
-``csrc/clause_votes.cu`` (int8 dot products with ``__dp4a``, the clause
-tile folded straight into the vote product, so the (B, C·M) clause
-matrix never reaches device memory); on a CPU tensor it runs the plain
+``csrc/clause_votes.cu`` (the violation counts on the int8 tensor cores
+through ``mma.sync`` m16n8k32, each 64 × 64 clause tile folded straight
+into the vote product, so the (B, C·M) clause matrix never reaches
+device memory); on a CPU tensor it runs the plain
 version :func:`repro_torch.kernels.ref.ref_clause_votes`.  Nothing falls
 back: a CUDA build or launch failure raises.
 

@@ -11,9 +11,10 @@
   libraries with a plain C interface, loaded with ``ctypes``.  Builds go
   to ``build/repro_torch/`` at the root of the checkout (listed in
   ``.gitignore``), one library per source, named by a hash of the source,
-  the shared header and the flags — a changed source rebuilds, an
-  unchanged one loads.  A lock guards the build and the load: the serving
-  worker thread may build while other code builds too.
+  every ``*.cuh`` header under ``csrc/`` and the flags — a changed source
+  or header rebuilds, an unchanged one loads.  A lock guards the build
+  and the load: the serving worker thread may build while other code
+  builds too.
 - :func:`tm_fused_votes` / :func:`tm_fused_predict`: fused TM inference
   through ``clause_votes`` (kernel K3 on CUDA tensors, its plain version
   on CPU tensors).
@@ -54,7 +55,6 @@ KERNEL_SOURCES = {"swar_fused_votes": "swar_fused.cu",
                   "popcount_words": "popcount_words.cu",
                   "pdl_race": "pdl_race.cu",
                   "binary_matmul": "binary_matmul.cu"}
-_HEADERS = ("tm_votes.cuh", "threefry.cuh")
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 # each C launch function's arguments before the trailing (int device,
 # void* stream): tensor pointers first, then the scalars
@@ -103,9 +103,12 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
+    """The library of kernel ``name``, named by a hash of the flags, its
+    source and every header under ``csrc/`` (an edited header rebuilds
+    every library, whichever includes it)."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for f in (KERNEL_SOURCES[name], *_HEADERS):
-        h.update((_CSRC / f).read_bytes())
+    for f in (_CSRC / KERNEL_SOURCES[name], *sorted(_CSRC.glob("*.cuh"))):
+        h.update(f.read_bytes())
     return _BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 

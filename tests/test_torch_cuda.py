@@ -58,14 +58,33 @@ def _inputs(dev, b, c, m, lit, density, seed):
     return lits.to(dev), inc.to(dev)
 
 
+def _shifted(t):
+    """``t``'s values in a contiguous tensor whose data starts one byte
+    past a 16-byte boundary (the kernels' byte-load path)."""
+    buf = torch.zeros(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    assert out.is_contiguous() and out.data_ptr() % 16 == 1
+    return out
+
+
 # (B, C, M, L, density): tm-mnist-50 widths, ragged batches, L not a
 # multiple of 4 (byte loads) or of 32 (ragged last word), a class count
 # whose (rows, C) tile needs more than 48 KB of shared memory, and the
-# density extremes
+# density extremes; then the edges of K3's tensor-core tiles (64 rows x
+# 64 clauses x 128 bytes, mma steps of 16 rows and 32 bytes): B around 16
+# and 64, CM = 63 / 65 / 128 around the clause tile, L around 32 and
+# tm-mnist-50's 1568 (16-byte copies), and B = 4096 at one, two and four
+# depth groups per block
 CASES = [(64, 10, 50, 1568, 0.05), (37, 10, 50, 1568, 0.05),
          (1, 10, 50, 1568, 0.05), (300, 3, 7, 18, 0.2),
          (13, 4, 9, 30, 1.0), (9, 2, 6, 22, 0.0), (5, 1500, 2, 40, 0.1),
-         (70, 5, 33, 130, 0.02)]
+         (70, 5, 33, 130, 0.02),
+         (15, 7, 9, 31, 0.05), (16, 5, 13, 32, 0.05), (17, 7, 9, 33, 0.05),
+         (63, 5, 13, 1568, 0.002), (65, 7, 9, 1568, 0.002),
+         (16, 4, 32, 32, 0.04), (65, 5, 13, 33, 0.1),
+         (4096, 10, 50, 1568, 0.05), (4096, 4, 32, 1568, 0.002),
+         (4096, 7, 9, 32, 0.05)]
 
 
 @pytest.mark.parametrize("case", CASES,
@@ -86,6 +105,11 @@ def test_kernels_bitwise_vs_plain(cuda, case):
     assert torch.equal(got1, swar_fused_votes_plain(not_words, inc_words, vm))
     assert torch.equal(want.cpu(), clause_votes_plain(lits.cpu(), inc.cpu(),
                                                       vm.cpu()))
+    # operands one byte off 16-byte alignment: K3's byte loads
+    got3 = clause_votes(_shifted(lits), _shifted(inc), vm)
+    torch.cuda.synchronize()
+    assert clause_votes.launches == n3 + 2
+    assert torch.equal(got3, want)
 
 
 def test_kernels_take_an_arbitrary_vote_matrix(cuda):
@@ -284,9 +308,17 @@ def test_popcount_kernel_bitwise_vs_plain(cuda, r, w):
     assert torch.equal(popcount_words(shifted), want)
 
 
+# (M, K, N): ragged shapes; then the edges of K6's tensor-core tiles
+# (64 x 64 blocks, mma steps of 16 rows, 8 columns and 32 bytes, 128-byte
+# chunks): the BNN's one launch (launch/bnn_popcount.py), M and N around
+# 16 / 64 / 128, K around 32 and a deep K (32 chunks)
 @pytest.mark.parametrize("m,k,n", [(1, 784, 128), (37, 129, 65),
                                    (1024, 1024, 1024), (70, 3, 1),
-                                   (5, 1, 9), (129, 64, 200)])
+                                   (5, 1, 9), (129, 64, 200),
+                                   (120, 784, 128), (15, 31, 17),
+                                   (17, 32, 15), (127, 33, 129),
+                                   (129, 4096, 127), (16, 4096, 64),
+                                   (128, 32, 16), (64, 129, 65)])
 def test_binary_matmul_kernel_bitwise_vs_plain(cuda, m, k, n):
     g = torch.Generator().manual_seed(m + k + n)
     x = (torch.randint(0, 2, (m, k), generator=g) * 2 - 1).to(torch.int8)
@@ -299,16 +331,31 @@ def test_binary_matmul_kernel_bitwise_vs_plain(cuda, m, k, n):
     want = binary_matmul_plain(x, w)
     assert got.dtype == torch.int32 and torch.equal(got, want)
     assert torch.equal(want.cpu(), binary_matmul_plain(x.cpu(), w.cpu()))
+    # operands one byte off 16-byte alignment: K6's byte loads
+    got = binary_matmul(_shifted(x), _shifted(w))
+    torch.cuda.synchronize()
+    assert binary_matmul.launches == launches + 2
+    assert torch.equal(got, want)
 
 
-def test_binary_matmul_kernel_any_int8(cuda):
+@pytest.mark.parametrize("m,k,n", [(33, 77, 40), (70, 4096, 72)])
+def test_binary_matmul_kernel_any_int8(cuda, m, k, n):
     """The int32 accumulation is exact for any int8 operands, not only
-    ±1, and for a K that is not a multiple of 4 (byte loads)."""
+    ±1: a K that is not a multiple of 4 (byte loads), and K = 4096 with
+    values in [-128, 127]; a row and a column of -128 make
+    out[0, 0] = 2^14 · K, 2^26 at K = 4096."""
     g = torch.Generator().manual_seed(2)
-    x = torch.randint(-128, 128, (33, 77), generator=g).to(torch.int8)
-    w = torch.randint(-128, 128, (77, 40), generator=g).to(torch.int8)
+    x = torch.randint(-128, 128, (m, k), generator=g).to(torch.int8)
+    w = torch.randint(-128, 128, (k, n), generator=g).to(torch.int8)
+    x[0] = -128
+    w[:, 0] = -128
+    launches = binary_matmul.launches
     got = binary_matmul(x.to(cuda), w.to(cuda))
-    assert torch.equal(got.cpu(), x.to(torch.int32) @ w.to(torch.int32))
+    torch.cuda.synchronize()
+    assert binary_matmul.launches == launches + 1
+    want = x.to(torch.int32) @ w.to(torch.int32)
+    assert int(want[0, 0]) == 2**14 * k
+    assert torch.equal(got.cpu(), want)
 
 
 def _race_args(dev, b, c, m, seed, integer):

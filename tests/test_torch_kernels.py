@@ -7,6 +7,8 @@ nothing.  Densities 0, 0.15 and 1 cover the no-include, trained-like and
 all-include extremes; batch sizes are ragged against every tile.
 """
 
+import shutil
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -162,3 +164,34 @@ def test_kernel_sources_and_build_flags():
         assert ops._lib_path(name).parent == ops._BUILD_DIR
     assert "arch=compute_90a,code=sm_90a" in ops.NVCC_FLAGS
     assert ops._BUILD_DIR.parts[-2:] == ("build", "repro_torch")
+
+
+def test_lib_path_hashes_every_header(tmp_path, monkeypatch):
+    """A library's name hashes its source and every ``*.cuh`` under
+    ``csrc/`` — the shared ones (``tm_votes.cuh``, ``threefry.cuh``,
+    ``mma_s8.cuh``) and any header added later — so an edited header
+    never loads a stale build."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(ops._CSRC, csrc)
+    monkeypatch.setattr(ops, "_CSRC", csrc)
+
+    def names():
+        return {name: ops._lib_path(name) for name in ops.KERNEL_SOURCES}
+
+    before = names()
+    headers = sorted(csrc.glob("*.cuh"))
+    assert {"tm_votes.cuh", "threefry.cuh", "mma_s8.cuh"} <= \
+        {h.name for h in headers}
+    for header in headers:
+        text = header.read_text()
+        header.write_text(text + "\n// edited\n")
+        after = names()
+        assert all(after[n] != before[n] for n in before), header.name
+        header.write_text(text)
+        assert names() == before
+    source = csrc / ops.KERNEL_SOURCES["clause_votes"]
+    source.write_text(source.read_text() + "\n// edited\n")
+    after = names()
+    assert [n for n in before if after[n] != before[n]] == ["clause_votes"]
+    (csrc / "new_shared.cuh").write_text("#pragma once\n")
+    assert all(p != after[n] for n, p in names().items())
