@@ -28,7 +28,10 @@ package.  Phases, each on its own lines:
    ``fused`` train step gives it (feedback masks and row keys from the
    threefry contract) for B in {1, 32, 37, 64, 512}, at the all-include
    and no-include states, with ``boost_tpf=False`` and with every mask
-   off, timed at B in {32, 64};
+   off, timed at B in {32, 64, 512}; then the device kernels one K1 call
+   (B=64) and one K2 call (B=32, the fused step's int64 labels) run, from
+   ``torch.profiler``'s trace of the card (each must be one kernel and no
+   memset where the profiler sees the card);
    then the paper-surface kernels: K4 (``popcount_words``) at (1, 1),
    (37, 129) and (4096, 512) words with all-ones and all-zero rows, and
    K6 (``binary_matmul``) at (1, 784)x(784, 128), (37, 129)x(129, 65),
@@ -106,13 +109,17 @@ KERNEL_BATCHES = (1, 37, 64, 4096)
 SERVE_BATCH = 64                  # largest serving bucket: the JSON shape
 N_CLIENTS, PER_CLIENT = 8, 40
 # online learning: labeled batches of the JAX launcher's --label-batch
-# default; K2 is checked at these batches and timed at the first two
+# default; K2 is checked at these batches and timed at K2_TIMED
 LABEL_BATCH, N_UPDATES = 32, 16
 TRAIN_BATCHES = (32, 64, 1, 37, 512)
+K2_TIMED = (32, 64, 512)
 # integer operations per Type I word in K2: threefry2x32's 20 rounds
 # (add, funnel-shift rotate, xor), 12 key injections and the output xor
-# (csrc/threefry.cuh), then the shift and two threshold compares
-K2_OPS_PER_WORD = 76
+# (csrc/threefry.cuh), then the shift and two threshold compares.  The 20
+# rotations, 21 XORs and the shift issue only to the integer ALU pipe (64
+# per clock per SM: INT32_OPS); the adds and compares can go to the FMA
+# pipe too (IMAD), so an SM issues at most 2 x 64 of them per clock
+K2_OPS_PER_WORD, K2_ALU_OPS_PER_WORD = 76, 42
 # H100 SXM published peaks (NVIDIA H100 datasheet, 700 W): HBM bytes/s,
 # dense int8 tensor-core ops/s, float32 FLOP/s outside the tensor cores
 HBM_BPS, INT8_OPS, FP32_FLOPS = 3.35e12, 1979e12, 67e12
@@ -142,32 +149,22 @@ def smi(query: str) -> str:
         check=True, capture_output=True, text=True, timeout=60).stdout.strip()
 
 
-def device_ms(torch, fn, reps: int) -> float:
-    """Median per-call device time (ms): ``reps`` calls queued behind a
-    GPU spin, timed between two CUDA events, five rounds."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    rounds = []
-    for _ in range(5):
-        torch.cuda._sleep(20_000_000)          # ~10 ms: the queue fills
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        end.synchronize()
-        rounds.append(start.elapsed_time(end) / reps)
-    return statistics.median(rounds)
+def device_ms(fn, reps: int) -> float:
+    """Median per-call device time (ms) of ``fn``, by the port's timer
+    (``repro_torch.kernels.ops.device_ms``: ``reps`` calls queued behind a
+    GPU spin, between two CUDA events, five rounds)."""
+    from repro_torch.kernels.ops import device_ms as timed
+    return timed(fn, reps)
 
 
 def bound(kernel: str, b: int) -> tuple[float, str]:
     """Least time (ms) the card could take for the kernel's work at batch
     ``b``: each input read once, the output written once, vs its
-    operations at the peak rate of their type.  No data-dependent work:
-    neither kernel exits early.  K1's popcounts and its integer adds /
-    ANDs issue to different units, so its operation time is the larger
-    of the two, not their sum."""
+    operations at the peak rate of their type.  Neither kernel exits
+    early.  K1: a clause fires iff every word of inc & not-literal is
+    zero, so one three-input logic op (acc | a & b) per (row, clause,
+    word) computes it; the adds that fold fired clauses into votes depend
+    on the data and are not counted, so the bound stays a lower one."""
     lit, cm = 2 * F, C * M
     if kernel == "clause_votes":
         nbytes = b * lit + cm * lit + cm * C + 4 * b * C
@@ -175,9 +172,7 @@ def bound(kernel: str, b: int) -> tuple[float, str]:
     else:
         wl = -(-lit // 32)
         nbytes = 4 * b * wl + 4 * cm * wl + cm * C + 4 * b * C
-        words = b * cm * wl                 # one AND, popc, add each
-        t_ops = max(words / POPC_OPS,
-                    (2 * words + 2 * b * cm * C) / INT32_OPS)
+        t_ops = b * cm * wl / INT32_OPS
     t_bytes = nbytes / HBM_BPS
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
@@ -252,8 +247,8 @@ def check_kernels(torch, rt) -> dict:
                                                      vm)),
         }
         for name, (kern, plain) in calls.items():
-            ms = device_ms(torch, kern, reps=50)
-            plain_ms = device_ms(torch, plain, reps=5)
+            ms = device_ms(kern, reps=50)
+            plain_ms = device_ms(plain, reps=5)
             bound_ms, bound_by = bound(name, b)
             print(f"time  {name:16s} B={b:5d}: kernel {ms:.6f} ms  plain "
                   f"{plain_ms:.6f} ms  bound {bound_ms:.6f} ms "
@@ -372,13 +367,15 @@ def k2_inputs(torch, rt, cfg, ta: np.ndarray, b: int, seed: int,
 def k2_bound(args) -> tuple[float, str]:
     """Least time (ms) for K2's work on these inputs: each input read
     once and the (C, M, L) int32 output written once, vs the threefry
-    words this run's masks select (m1_t / m1_n rows × L) at the integer
-    rate.  Type II and the selection are not counted, so the bound
-    stays a lower one."""
+    words this run's masks select (m1_t / m1_n rows × L): their ALU-only
+    operations at the ALU rate, or all their operations at twice it,
+    whichever is longer.  Type II and the selection are not counted, so
+    the bound stays a lower one."""
     x, k1s, k2s, inc8, m1_t, m2_t, m1_n, m2_n, y, y_neg = args
     nbytes = sum(t.numel() * t.element_size() for t in args) + 4 * inc8.numel()
     words = int(m1_t.sum() + m1_n.sum()) * 2 * F
-    t_ops = words * K2_OPS_PER_WORD / INT32_OPS
+    t_ops = words * max(K2_ALU_OPS_PER_WORD,
+                        K2_OPS_PER_WORD / 2) / INT32_OPS
     t_bytes = nbytes / HBM_BPS
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
@@ -423,10 +420,10 @@ def check_train_deltas(torch, rt) -> dict:
         print(f"check train_deltas {label:15s} B={b:4d}: bitwise=True  "
               f"type-I words={words}  |upd|={int(got.abs().sum())}",
               flush=True)
-        if label.startswith("density") and b in TRAIN_BATCHES[:2]:
-            ms = device_ms(torch, lambda: rt["train_deltas_keyed"](
+        if label.startswith("density") and b in K2_TIMED:
+            ms = device_ms(lambda: rt["train_deltas_keyed"](
                 *args, **kw), reps=50)
-            plain_ms = device_ms(torch, lambda: rt[
+            plain_ms = device_ms(lambda: rt[
                 "train_deltas_keyed_plain"](*args, **kw), reps=3)
             bound_ms, bound_by = k2_bound(args)
             print(f"time  train_deltas     B={b:5d}: kernel {ms:.6f} ms  "
@@ -437,6 +434,56 @@ def check_train_deltas(torch, rt) -> dict:
     out = timed[LABEL_BATCH]
     out["max_abs_err"] = err
     return out
+
+
+def device_kernels(torch, fn) -> list:
+    """The device activities (kernels, memsets, copies) one call of ``fn``
+    puts on the card, by name, from ``torch.profiler``'s trace; empty
+    where the profiler traces no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def profile_launches(torch, rt) -> dict:
+    """Phase 3d: the device activities of one K1 call (B=SERVE_BATCH) and
+    of one K2 call (B=LABEL_BATCH on a fused step's inputs, int64 labels
+    included) → {name: count, or None where the profiler traced no
+    device activity}.  Each must be one kernel and no memset wherever the
+    profiler traces the card."""
+    rng = np.random.default_rng(SEED + 80)
+    ta = make_ta(rng, DENSITY)
+    inc = torch.as_tensor((ta > 128).astype(np.int8).reshape(C * M, -1),
+                          device="cuda")
+    lit = torch.as_tensor(rng.integers(0, 2, (SERVE_BATCH, 2 * F),
+                                       dtype=np.int8), device="cuda")
+    k1 = (rt["pack_bits"](1 - lit), rt["pack_bits"](inc),
+          rt["make_vote_matrix"](C, M, "cuda"))
+    cfg = rt["TMConfig"](n_classes=C, n_clauses=M, n_features=F, T=T, s=S)
+    k2 = k2_inputs(torch, rt, cfg, ta, LABEL_BATCH, SEED + 81)
+    kw = {"n_classes": C, "p_inc": 1.0, "p_dec": 1 / S}
+    counts = {}
+    for name, fn in (
+            ("swar_fused_votes", lambda: rt["swar_fused_votes"](*k1)),
+            ("train_deltas_keyed",
+             lambda: rt["train_deltas_keyed"](*k2, **kw))):
+        acts = device_kernels(torch, fn)
+        # None, not 0, where the profiler saw nothing of the card
+        counts[name] = len(acts) if acts else None
+        print(f"profile {name}: "
+              + (f"{len(acts)} device activities per call: {acts}" if acts
+                 else "the profiler traced no device activity"), flush=True)
+        if acts and (len(acts) != 1 or
+                     any("memset" in a.lower() for a in acts)):
+            raise AssertionError(f"{name}: one call ran {acts}, not one "
+                                 f"kernel")
+    return counts
 
 
 async def serve_and_learn(torch, rt, ta: np.ndarray) -> dict:
@@ -576,9 +623,9 @@ def timed_row(torch, name, kern, plain, nbytes, t_ops, label,
     PyTorch call computes the same function) that call, beside the bound
     — the larger of ``nbytes`` at the HBM rate and ``t_ops`` seconds of
     operations at their peak."""
-    ms = device_ms(torch, kern, reps=50)
-    plain_ms = device_ms(torch, plain, reps=5)
-    library_ms = device_ms(torch, library, reps=50) if library else None
+    ms = device_ms(kern, reps=50)
+    plain_ms = device_ms(plain, reps=5)
+    library_ms = device_ms(library, reps=50) if library else None
     t_bytes = nbytes / HBM_BPS
     bound_ms = max(t_bytes, t_ops) * 1e3
     bound_by = "bytes" if t_bytes >= t_ops else "operations"
@@ -945,6 +992,7 @@ def main() -> int:
 
     kernels = check_kernels(torch, rt)
     kernels["train_deltas_keyed"] = check_train_deltas(torch, rt)
+    per_call = profile_launches(torch, rt)
     kernels["popcount_words"] = check_popcount(torch, rt)
     kernels["binary_matmul"] = check_binary_matmul(torch, rt)
     kernels["pdl_race"] = check_pdl_race(torch, rt)
@@ -1009,6 +1057,8 @@ def main() -> int:
                      "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
                      "library_ms": k.get("library_ms"),
                      "shape": shape_of[name],
+                     **({"device_kernels_per_call": per_call[name]}
+                        if name in per_call else {}),
                      **({"at_1024^3": k["at_1024^3"]} if "at_1024^3" in k
                         else {})})
     print(f"chip_smoke: every phase passed in "

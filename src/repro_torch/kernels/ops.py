@@ -14,7 +14,11 @@
   every ``*.cuh`` header under ``csrc/`` and the flags — a changed source
   or header rebuilds, an unchanged one loads.  A lock guards the build
   and the load: the serving worker thread may build while other code
-  builds too.
+  builds too.  A variant build (extra ``nvcc`` flags, such as the phase
+  clocks probe's ``-DREPRO_PHASE_CLOCKS``) goes the same way into a
+  subdirectory of its own.
+- :func:`device_ms`: the per-call device time of a launch, from CUDA
+  events (``chip_smoke.py`` and the phase clocks probe time with it).
 - :func:`tm_fused_votes` / :func:`tm_fused_predict`: fused TM inference
   through ``clause_votes`` (kernel K3 on CUDA tensors, its plain version
   on CPU tensors).
@@ -30,6 +34,7 @@ import ctypes
 import hashlib
 import os
 import shutil
+import statistics
 import subprocess
 import threading
 from pathlib import Path
@@ -41,8 +46,8 @@ from repro_torch.core.popcount import argmax_tournament
 from .clause_eval import clause_votes, make_vote_matrix
 
 __all__ = ["on_cuda", "resolve_device", "load_library", "build_kernels",
-           "launch", "KERNEL_SOURCES", "KERNEL_ARGTYPES", "tm_fused_votes",
-           "tm_fused_predict", "make_vote_matrix"]
+           "launch", "device_ms", "KERNEL_SOURCES", "KERNEL_ARGTYPES",
+           "tm_fused_votes", "tm_fused_predict", "make_vote_matrix"]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -61,14 +66,14 @@ _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 KERNEL_ARGTYPES = {
     "swar_fused_votes": (_P,) * 4 + (_I,) * 4,
     "clause_votes": (_P,) * 4 + (_I,) * 4,
-    "train_deltas": (_P,) * 12 + (_I,) * 4 + (_U,) * 2,
+    "train_deltas": (_P,) * 11 + (_I,) * 5 + (_U,) * 2,
     "popcount_words": (_P,) * 2 + (_I,) * 2,
     "pdl_race": (_P,) * 6 + (_I,) * 3 + (_F,),
     "binary_matmul": (_P,) * 3 + (_I,) * 3,
 }
 
 _lock = threading.RLock()      # load_library holds it around build_kernels
-_libs: dict[str, ctypes.CDLL] = {}
+_libs: dict[tuple, ctypes.CDLL] = {}    # by (name, extra_flags, subdir)
 
 
 def on_cuda() -> bool:
@@ -102,26 +107,28 @@ def _nvcc() -> str:
     return path
 
 
-def _lib_path(name: str) -> Path:
+def _lib_path(name: str, extra_flags: tuple = (), subdir: str = "") -> Path:
     """The library of kernel ``name``, named by a hash of the flags, its
     source and every header under ``csrc/`` (an edited header rebuilds
-    every library, whichever includes it)."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    every library, whichever includes it); a variant build lives in
+    ``subdir`` of the build directory."""
+    h = hashlib.sha256(" ".join((*NVCC_FLAGS, *extra_flags)).encode())
     for f in (_CSRC / KERNEL_SOURCES[name], *sorted(_CSRC.glob("*.cuh"))):
         h.update(f.read_bytes())
-    return _BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+    return _BUILD_DIR / subdir / f"{name}-{h.hexdigest()[:16]}.so"
 
 
-def _start_build(name: str) -> tuple[subprocess.Popen, Path, Path] | None:
+def _start_build(name: str, extra_flags: tuple = (), subdir: str = ""
+                 ) -> tuple[subprocess.Popen, Path, Path] | None:
     """Start ``nvcc`` for one source unless its library exists → the
     process, its temporary output and its final path."""
-    out = _lib_path(name)
+    out = _lib_path(name, extra_flags, subdir)
     if out.exists():
         return None
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(_CSRC), "-o", str(tmp),
-           str(_CSRC / KERNEL_SOURCES[name])]
+    cmd = [_nvcc(), *NVCC_FLAGS, *extra_flags, "-I", str(_CSRC), "-o",
+           str(tmp), str(_CSRC / KERNEL_SOURCES[name])]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return proc, tmp, out
@@ -138,11 +145,15 @@ def _finish_build(name: str, job) -> None:
     os.replace(tmp, out)          # atomic: other processes see all or none
 
 
-def build_kernels() -> dict[str, Path]:
+def build_kernels(extra_flags: tuple = (), subdir: str = ""
+                  ) -> dict[str, Path]:
     """Build every kernel library that is not built yet, one ``nvcc``
-    per source, all started together → {name: library path}."""
+    per source, all started together → {name: library path}.
+    ``extra_flags`` are added to ``NVCC_FLAGS``, and those builds go to
+    ``subdir`` of the build directory."""
     with _lock:
-        jobs = {name: _start_build(name) for name in KERNEL_SOURCES}
+        jobs = {name: _start_build(name, extra_flags, subdir)
+                for name in KERNEL_SOURCES}
         try:
             for name, job in jobs.items():
                 if job is not None:
@@ -152,28 +163,32 @@ def build_kernels() -> dict[str, Path]:
                 if job is not None and job[0].poll() is None:
                     job[0].kill()
                     job[0].wait()
-        return {name: _lib_path(name) for name in KERNEL_SOURCES}
+        return {name: _lib_path(name, extra_flags, subdir)
+                for name in KERNEL_SOURCES}
 
 
-def load_library(name: str) -> ctypes.CDLL:
-    """The loaded library for kernel ``name``; a miss builds every
-    library that is not built yet (:func:`build_kernels`).
+def load_library(name: str, extra_flags: tuple = (), subdir: str = ""
+                 ) -> ctypes.CDLL:
+    """The loaded library for kernel ``name`` (built with ``extra_flags``
+    into ``subdir``, as :func:`build_kernels`); a miss builds every
+    library that is not built yet.
 
     Each library exports ``int <name>(...)`` — the arguments of
     ``KERNEL_ARGTYPES[name]``, then the device index and the stream; it
     returns a ``cudaError_t`` — and ``const char* <name>_error(int)``."""
+    key = (name, tuple(extra_flags), subdir)
     with _lock:
-        lib = _libs.get(name)
+        lib = _libs.get(key)
         if lib is not None:
             return lib
-        lib = ctypes.CDLL(str(build_kernels()[name]))
+        lib = ctypes.CDLL(str(build_kernels(extra_flags, subdir)[name]))
         fn = getattr(lib, name)
         fn.argtypes = [*KERNEL_ARGTYPES[name], _I, _P]
         fn.restype = _I
         err = getattr(lib, f"{name}_error")
         err.argtypes = [ctypes.c_int]
         err.restype = ctypes.c_char_p
-        _libs[name] = lib
+        _libs[key] = lib
         return lib
 
 
@@ -199,6 +214,25 @@ def launch(name: str, tensors: tuple[torch.Tensor, ...], ints: tuple
         msg = getattr(lib, f"{name}_error")(rc).decode()
         raise RuntimeError(f"CUDA kernel {name} failed to launch: "
                            f"error {rc} ({msg})")
+
+
+def device_ms(fn, reps: int = 50) -> float:
+    """Median per-call device time (ms) of ``fn``: ``reps`` calls queued
+    behind a GPU spin, timed between two CUDA events, five rounds."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    rounds = []
+    for _ in range(5):
+        torch.cuda._sleep(20_000_000)          # ~10 ms: the queue fills
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        rounds.append(start.elapsed_time(end) / reps)
+    return statistics.median(rounds)
 
 
 def tm_fused_votes(literals: torch.Tensor, include: torch.Tensor,

@@ -8,21 +8,26 @@ vote (port of ``repro.kernels.swar_fused``).
 Replaces the Pallas kernel ``repro/kernels/swar_fused.py:
 swar_fused_votes_pallas`` (body ``_swar_fused_kernel``), the
 ``swar_fused`` backend.  On a CUDA tensor :func:`swar_fused_votes`
-launches the hand-written kernel in ``csrc/swar_fused.cu`` (``__popc``
-on word ANDs in registers, so the (B, C·M, Wl) hit tensor never reaches
-device memory); on a CPU tensor it runs the plain version
+launches the hand-written kernel in ``csrc/swar_fused.cu`` once (a
+clause fires iff every hit word is zero, so the kernel ORs word ANDs in
+registers and the (B, C·M, Wl) hit tensor never reaches device memory;
+the blocks of a thread block cluster split the clauses of a row tile and
+sum their vote partials through distributed shared memory); on a CPU
+tensor it runs the plain version
 :func:`repro_torch.kernels.ref.ref_swar_fused_votes`.  Nothing falls
-back: a CUDA build or launch failure raises.
+back: a CUDA build or launch failure raises, and so does a class count
+whose vote tile exceeds the device's shared memory (about 1,600 classes
+on an H100).
 
 Words are int32 tensors holding the JAX package's uint32 bits (see
 :mod:`repro_torch.core.popcount`); the kernel reads them as uint32.
 
 Bound on an H100 at tm-mnist-50 widths (Wl = 49, CM = 500, C = 10):
-its B·CM·Wl popcounts at 4.19 T/s (16 ``__popc`` per clock per SM on
+its B·CM·Wl three-input logic ops at 16.75 T/s (64 per clock per SM on
 compute capability 9.0) outweigh the bytes it moves — at a served bucket
-of 64 rows about 118 KB (0.035 µs at 3.35 TB/s) against 0.37 µs of
-popcounts, far below the cost of a launch, so serving is launch-bound;
-at 4096 rows 24 µs.
+of 64 rows about 118 KB (0.035 µs at 3.35 TB/s) against 0.094 µs of
+logic ops, far below the cost of a launch, so serving is launch-bound;
+at 4096 rows 6.0 µs.
 """
 
 from __future__ import annotations

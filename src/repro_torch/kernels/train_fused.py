@@ -23,11 +23,14 @@ the core of the ``fused`` train step.
   (B, 2) instead of the words and the whole include mask (C, M, L)
   instead of its gathered rows.  It equals ``train_deltas(x,
   bits(k1s, (M, L)), bits(k2s, (M, L)), inc[y], inc[y_neg], ...)``.  On a
-  CUDA tensor it launches ``csrc/train_deltas.cu``, which draws each
-  word in registers from its row key and never writes the two (B, M, L)
-  word tensors the JAX path materialises; on a CPU tensor it runs
+  CUDA tensor it launches ``csrc/train_deltas.cu`` once: a thread block
+  cluster per clause evaluates the addressed clauses, splits the batch
+  over groups of threads and draws each word in registers from its row
+  key, so the two (B, M, L) word tensors the JAX path materialises are
+  never written; on a CPU tensor it runs
   :func:`train_deltas_keyed_plain`.  Nothing falls back: a CUDA build or
-  launch failure raises.
+  launch failure raises, and so does M·L ≥ 2³² (the kernel's threefry
+  counters are 32 bits).
 
 Bound on an H100 (see ``csrc/train_deltas.cu``): the threefry word
 operations — about 76 integer operations per Type I word, one word per
@@ -199,13 +202,14 @@ def train_deltas_keyed(literals, keys1, keys2, include, m1_t, m2_t, m1_n,
         return out
     if b == 0:
         return out.zero_()
-    tensors = (literals, keys1, keys2, include, *masks,
-               y.to(torch.int32), y_neg.to(torch.int32))
+    # the kernel reads y / y_neg as int32 or int64, whichever they share
+    if y_neg.dtype != y.dtype:
+        y_neg = y_neg.to(y.dtype)
+    tensors = (literals, keys1, keys2, include, *masks, y, y_neg)
     tensors = tuple(t.contiguous() for t in tensors)
-    # scratch: the (B, M, 2) clause outputs of the addressed classes
-    clauses = torch.empty((b, m, 2), dtype=torch.uint8, device=dev)
-    launch("train_deltas", (*tensors, clauses, out),
-           (b, c, m, l, uniform_threshold(p_inc), uniform_threshold(p_dec)))
+    launch("train_deltas", (*tensors, out),
+           (b, c, m, l, y.element_size(), uniform_threshold(p_inc),
+            uniform_threshold(p_dec)))
     train_deltas_keyed.launches += 1
     return out
 

@@ -59,12 +59,13 @@ def _inputs(dev, b, c, m, lit, density, seed):
 
 
 def _shifted(t):
-    """``t``'s values in a contiguous tensor whose data starts one byte
-    past a 16-byte boundary (the kernels' byte-load path)."""
+    """``t``'s values in a contiguous tensor whose data starts one element
+    past a 16-byte boundary: one byte for int8 operands (the kernels'
+    byte-load path), four for int32 words."""
     buf = torch.zeros(t.numel() + 1, dtype=t.dtype, device=t.device)
     out = buf[1:].view(t.shape)
     out.copy_(t)
-    assert out.is_contiguous() and out.data_ptr() % 16 == 1
+    assert out.is_contiguous() and out.data_ptr() % 16 == t.element_size()
     return out
 
 
@@ -84,7 +85,21 @@ CASES = [(64, 10, 50, 1568, 0.05), (37, 10, 50, 1568, 0.05),
          (63, 5, 13, 1568, 0.002), (65, 7, 9, 1568, 0.002),
          (16, 4, 32, 32, 0.04), (65, 5, 13, 33, 0.1),
          (4096, 10, 50, 1568, 0.05), (4096, 4, 32, 1568, 0.002),
-         (4096, 7, 9, 32, 0.05)]
+         (4096, 7, 9, 32, 0.05),
+         # K1's cluster design: B around its 8-row serving tile and at the
+         # switch to the 32-row bulk tile (B >= 8 x 132 SMs = 1056); CM
+         # around one cluster's clause span (8 blocks x 64 clauses = 512)
+         # and around 256; Wl = 1, 4, 5 and 49 words and 65 / 128 (two
+         # staged 64-word chunks); odd B, whose 49-word rows start off
+         # 16-byte alignment; densities at which some clauses fire
+         (7, 10, 50, 1568, 0.002), (8, 10, 50, 1568, 0.002),
+         (9, 10, 50, 1568, 0.002), (1055, 10, 50, 1568, 0.002),
+         (1056, 10, 50, 1568, 0.002), (33, 5, 51, 64, 0.02),
+         (33, 8, 32, 64, 0.02), (33, 1, 257, 64, 0.02),
+         (21, 7, 73, 96, 0.02), (21, 8, 64, 96, 0.02),
+         (21, 27, 19, 96, 0.02), (19, 3, 11, 32, 0.05),
+         (19, 3, 11, 128, 0.01), (19, 3, 11, 130, 0.01),
+         (41, 4, 9, 2080, 0.001), (41, 4, 9, 4096, 0.0005)]
 
 
 @pytest.mark.parametrize("case", CASES,
@@ -110,6 +125,43 @@ def test_kernels_bitwise_vs_plain(cuda, case):
     torch.cuda.synchronize()
     assert clause_votes.launches == n3 + 2
     assert torch.equal(got3, want)
+    # words 4 bytes off 16-byte alignment: K1 stages with 4-byte loads
+    got1 = swar_fused_votes(_shifted(not_words), _shifted(inc_words), vm)
+    torch.cuda.synchronize()
+    assert swar_fused_votes.launches == n1 + 2
+    assert torch.equal(got1, want)
+
+
+# (B, C, M, L, density): K1 alone with many classes — the bulk tile's
+# (32, C) vote partial and 128 vote rows in shared memory (C = 500), and
+# a class count for which only the serving tile fits (C = 900)
+@pytest.mark.parametrize("case", [(2000, 500, 2, 40, 0.1),
+                                  (1200, 900, 2, 40, 0.1)],
+                         ids=lambda c: "B{}C{}M{}L{}-d{}".format(*c))
+def test_swar_fused_kernel_many_classes(cuda, case):
+    b, c, m, lit, density = case
+    lits, inc = _inputs(cuda, b, c, m, lit, density, seed=b + c)
+    vm = make_vote_matrix(c, m, cuda)
+    not_words, inc_words = pack_bits(1 - lits), pack_bits(inc)
+    n = swar_fused_votes.launches
+    got = swar_fused_votes(not_words, inc_words, vm)
+    torch.cuda.synchronize()
+    assert swar_fused_votes.launches == n + 1
+    want = swar_fused_votes_plain(not_words, inc_words, vm)
+    assert torch.equal(got, want)
+    assert bool(want.any())
+
+
+def test_swar_fused_kernel_raises_past_its_shared_memory(cuda):
+    """3000 classes need a (8, 3000) int32 vote partial and 64 vote rows
+    of 3000 bytes per block, more than an H100 block's 227 KB: the launch
+    is refused and the wrapper raises; nothing falls back."""
+    lits, inc = _inputs(cuda, 4, 3000, 1, 40, 0.1, seed=6)
+    vm = make_vote_matrix(3000, 1, cuda)
+    n = swar_fused_votes.launches
+    with pytest.raises(RuntimeError, match="swar_fused_votes failed"):
+        swar_fused_votes(pack_bits(1 - lits), pack_bits(inc), vm)
+    assert swar_fused_votes.launches == n
 
 
 def test_kernels_take_an_arbitrary_vote_matrix(cuda):
@@ -180,34 +232,51 @@ def test_server_on_cuda(cuda):
         np.testing.assert_array_equal(res.class_sums, want.class_sums)
 
 
-def _k2_inputs(dev, b, c, m, lit, density, seed, masks_on=True):
+def _k2_inputs(dev, b, c, m, lit, density, seed, masks="masks"):
+    """K2's arguments; ``masks``: "masks" (each on with probability 1/2),
+    "off" (all off: a zero update) or "all" (all on)."""
     g = torch.Generator().manual_seed(seed)
     lits = torch.randint(0, 2, (b, lit), generator=g, dtype=torch.int8)
     inc = (torch.rand((c, m, lit), generator=g) < density).to(torch.int8)
     keys = prng.bits(prng.key(seed), (2, b, 2))
-    masks = [(torch.rand((b, m), generator=g) < 0.5) & masks_on
-             for _ in range(4)]
+    masks = [(torch.rand((b, m), generator=g) < 0.5) & (masks != "off")
+             | (masks == "all") for _ in range(4)]
     y = torch.randint(0, c, (b,), generator=g, dtype=torch.int32)
     yn = ((y + torch.randint(1, max(c, 2), (b,), generator=g)) % c) \
         .to(torch.int32)
     return [t.to(dev) for t in (lits, keys[0], keys[1], inc, *masks, y, yn)]
 
 
-# (B, C, M, L, density, masks on): tm-mnist-50 widths, ragged shapes, a
-# class count above the kernel's 16-class tile, density extremes, and all
-# masks off (a zero update)
-K2_CASES = [(32, 10, 50, 1568, 0.05, True), (37, 10, 50, 1568, 1.0, True),
-            (1, 10, 50, 1568, 0.0, True), (64, 3, 7, 18, 0.3, True),
-            (40, 37, 5, 33, 0.2, True), (9, 4, 6, 40, 0.1, False)]
+# (B, C, M, L, density, masks): tm-mnist-50 widths, ragged shapes, many
+# classes, density extremes, and all masks off (a zero update); then the
+# edges of the batch split (4 groups, 128-row chunks: B = 2, 31, 33, 128,
+# 129, 257, 512), class counts around the class tile the partials' budget
+# holds at L = 1568 (24 classes: C = 13 and 24 in one tile, 25 just
+# above, 49 in three), every mask on, and L = 2049 / 4096 (two steps of
+# four columns per thread)
+K2_CASES = [(32, 10, 50, 1568, 0.05, "masks"),
+            (37, 10, 50, 1568, 1.0, "masks"),
+            (1, 10, 50, 1568, 0.0, "masks"), (64, 3, 7, 18, 0.3, "masks"),
+            (40, 37, 5, 33, 0.2, "masks"), (9, 4, 6, 40, 0.1, "off"),
+            (2, 10, 50, 1568, 0.05, "masks"),
+            (31, 10, 50, 1568, 0.05, "masks"),
+            (33, 10, 50, 1568, 0.05, "masks"),
+            (128, 10, 4, 1568, 0.05, "masks"),
+            (129, 10, 4, 1568, 0.05, "masks"),
+            (257, 10, 4, 1568, 0.05, "masks"),
+            (512, 10, 4, 1568, 0.05, "masks"),
+            (40, 13, 5, 1568, 0.2, "masks"), (33, 25, 3, 1568, 0.1, "masks"),
+            (30, 24, 3, 1568, 0.1, "masks"), (33, 49, 2, 1568, 0.1, "masks"),
+            (32, 10, 50, 1568, 0.05, "all"), (37, 4, 6, 130, 0.3, "all"),
+            (20, 4, 3, 2049, 0.01, "masks"), (20, 3, 3, 4096, 0.01, "all")]
 
 
 @pytest.mark.parametrize("case", K2_CASES,
-                         ids=lambda c: "B{}C{}M{}L{}-d{}-{}".format(
-                             *c[:5], "masks" if c[5] else "off"))
+                         ids=lambda c: "B{}C{}M{}L{}-d{}-{}".format(*c))
 def test_train_deltas_kernel_bitwise_vs_plain(cuda, case):
-    b, c, m, lit, density, on = case
+    b, c, m, lit, density, masks = case
     args = _k2_inputs(cuda, b, c, m, lit, density, seed=b + c + m,
-                      masks_on=on)
+                      masks=masks)
     for p_inc in (1.0, 6 / 7):
         kw = dict(n_classes=c, p_inc=p_inc, p_dec=1 / 7)
         n = train_deltas_keyed.launches
@@ -219,7 +288,22 @@ def test_train_deltas_kernel_bitwise_vs_plain(cuda, case):
         assert torch.equal(got, want)
         assert torch.equal(want.cpu(), train_deltas_keyed_plain(
             *[t.cpu() for t in args], **kw))
-        assert bool(got.any()) == (on and b > 0)
+        assert bool(got.any()) == (masks != "off" and b > 0)
+
+
+def test_train_deltas_kernel_reads_int64_labels(cuda):
+    """The fused step hands K2 int64 labels: the kernel reads them as they
+    are (no cast launch), and mixed label types agree too."""
+    args = _k2_inputs(cuda, 32, 10, 50, 1568, 0.05, seed=5)
+    kw = dict(n_classes=10, p_inc=1.0, p_dec=1 / 7)
+    want = train_deltas_keyed_plain(*args, **kw)
+    y64, yn64 = args[8].to(torch.int64), args[9].to(torch.int64)
+    for y, yn in ((y64, yn64), (y64, args[9]), (args[8], yn64)):
+        n = train_deltas_keyed.launches
+        got = train_deltas_keyed(*args[:8], y, yn, **kw)
+        torch.cuda.synchronize()
+        assert train_deltas_keyed.launches == n + 1
+        assert torch.equal(got, want)
 
 
 def test_fused_on_cuda_equals_reference_on_cpu(cuda):

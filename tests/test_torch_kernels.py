@@ -7,6 +7,8 @@ nothing.  Densities 0, 0.15 and 1 cover the no-include, trained-like and
 all-include extremes; batch sizes are ragged against every tile.
 """
 
+import ctypes
+import re
 import shutil
 
 import jax.numpy as jnp
@@ -80,6 +82,40 @@ def test_k1_plain_matches_pallas_and_ref(case):
         got.numpy(),
         np.asarray(jref.ref_clause_votes(jnp.asarray(lits), jnp.asarray(inc),
                                          jvm)))
+
+
+# (B, C, M, L, density): the edges of kernel K1's cluster design, as
+# tests/test_torch_cuda.py::CASES and ::test_swar_fused_kernel_many_classes
+# hold the kernel to this plain version there — B around the 8-row
+# serving tile and the switch to the bulk tile at 1056 rows; CM around
+# 256 and one cluster's 512 clauses; Wl = 1, 4, 5, 49, 65 and 128 words;
+# odd B; many classes
+K1_EDGES = [(7, 10, 50, 1568, 0.002), (8, 10, 50, 1568, 0.002),
+            (9, 10, 50, 1568, 0.002), (1055, 10, 50, 1568, 0.002),
+            (1056, 10, 50, 1568, 0.002), (33, 5, 51, 64, 0.02),
+            (33, 8, 32, 64, 0.02), (33, 1, 257, 64, 0.02),
+            (21, 7, 73, 96, 0.02), (21, 8, 64, 96, 0.02),
+            (21, 27, 19, 96, 0.02), (19, 3, 11, 32, 0.05),
+            (19, 3, 11, 128, 0.01), (19, 3, 11, 130, 0.01),
+            (41, 4, 9, 2080, 0.001), (41, 4, 9, 4096, 0.0005),
+            (2000, 500, 2, 40, 0.1), (1200, 900, 2, 40, 0.1)]
+
+
+@pytest.mark.parametrize("case", K1_EDGES,
+                         ids=lambda c: "B{}C{}M{}L{}-d{}".format(*c))
+def test_k1_plain_matches_pallas_at_kernel_edges(case):
+    b, c, m, lit, density = case
+    rng = np.random.default_rng(b + c + m + lit)
+    lits = rng.integers(0, 2, (b, lit), dtype=np.int8)
+    inc = (rng.random((c * m, lit)) < density).astype(np.int8)
+    want = np.asarray(swar_fused_votes_pallas(
+        jpack(jnp.asarray(1 - lits)), jpack(jnp.asarray(inc)),
+        jce.make_vote_matrix(c, m), interpret=True))
+    got = swar_fused_votes(pack_bits(torch.from_numpy(1 - lits)),
+                           pack_bits(torch.from_numpy(inc)),
+                           make_vote_matrix(c, m))
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert want.any()
 
 
 def test_k1_plain_chunks_rows(monkeypatch):
@@ -166,11 +202,26 @@ def test_kernel_sources_and_build_flags():
     assert ops._BUILD_DIR.parts[-2:] == ("build", "repro_torch")
 
 
+def test_variant_build_shares_the_build_route():
+    """A variant build (extra nvcc flags, such as the phase clocks
+    probe's) hashes its flags into the library's name and lives in a
+    subdirectory of its own, so it never shadows a library the port
+    loads."""
+    flags = ("-DREPRO_PHASE_CLOCKS",)
+    for name in ops.KERNEL_SOURCES:
+        plain = ops._lib_path(name)
+        variant = ops._lib_path(name, flags, "phase_clocks")
+        assert variant.parent == ops._BUILD_DIR / "phase_clocks"
+        assert variant.name != plain.name
+        assert ops._lib_path(name, flags) != plain
+        assert ops._lib_path(name, (), "") == plain
+
+
 def test_lib_path_hashes_every_header(tmp_path, monkeypatch):
     """A library's name hashes its source and every ``*.cuh`` under
-    ``csrc/`` — the shared ones (``tm_votes.cuh``, ``threefry.cuh``,
-    ``mma_s8.cuh``) and any header added later — so an edited header
-    never loads a stale build."""
+    ``csrc/`` — the shared ones (``threefry.cuh``, ``mma_s8.cuh``) and
+    any header added later — so an edited header never loads a stale
+    build."""
     csrc = tmp_path / "csrc"
     shutil.copytree(ops._CSRC, csrc)
     monkeypatch.setattr(ops, "_CSRC", csrc)
@@ -180,7 +231,7 @@ def test_lib_path_hashes_every_header(tmp_path, monkeypatch):
 
     before = names()
     headers = sorted(csrc.glob("*.cuh"))
-    assert {"tm_votes.cuh", "threefry.cuh", "mma_s8.cuh"} <= \
+    assert {"threefry.cuh", "mma_s8.cuh"} <= \
         {h.name for h in headers}
     for header in headers:
         text = header.read_text()
@@ -195,3 +246,79 @@ def test_lib_path_hashes_every_header(tmp_path, monkeypatch):
     assert [n for n in before if after[n] != before[n]] == ["clause_votes"]
     (csrc / "new_shared.cuh").write_text("#pragma once\n")
     assert all(p != after[n] for n, p in names().items())
+
+
+def _c_argtypes(source: str, name: str) -> list:
+    """The ctypes types of ``extern "C" int <name>(...)``'s parameters in
+    CUDA source text: pointers, ``float``, ``unsigned``, ``int``."""
+    found = re.search(r'extern "C" int ' + name + r"\(([^)]*)\)", source)
+    assert found, f"no extern C entry {name}"
+    kinds = []
+    for param in found.group(1).split(","):
+        words = param.replace("*", " * ").split()
+        if "*" in words:
+            kinds.append(ctypes.c_void_p)
+        elif "float" in words:
+            kinds.append(ctypes.c_float)
+        elif "unsigned" in words:
+            kinds.append(ctypes.c_uint)
+        elif "int" in words:
+            kinds.append(ctypes.c_int)
+        else:
+            raise AssertionError(f"{name}: unknown C type in {param!r}")
+    return kinds
+
+
+@pytest.mark.parametrize("name", sorted(ops.KERNEL_SOURCES))
+def test_kernel_argtypes_match_c_entry_points(name):
+    """Each C launch function takes, in order, the pointers and scalars of
+    ``KERNEL_ARGTYPES[name]`` and then (int device, void* stream): a
+    mismatch would pass a pointer through ctypes as a 32-bit int, which
+    nothing on the CPU would notice."""
+    source = (ops._CSRC / ops.KERNEL_SOURCES[name]).read_text()
+    assert _c_argtypes(source, name) == [*ops.KERNEL_ARGTYPES[name],
+                                         ctypes.c_int, ctypes.c_void_p]
+
+
+def test_c_argtypes_parser():
+    text = ('extern "C" int k(const void* a, void *b, int n, unsigned t,\n'
+            '                 float x, int device, void* stream) {')
+    assert _c_argtypes(text, "k") == [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+
+
+def test_phase_clocks_summarize():
+    """The probe's summary: per-phase median and max clocks over the
+    blocks that reached every mark, the clock rate, the span and the
+    start spread on the global timer."""
+    from repro_torch.kernels.phase_clocks import summarize
+    clk = np.zeros((8, 8), np.uint64)
+    ns = np.zeros((8, 8), np.uint64)
+    clk[0, :3], ns[0, :3] = [100, 300, 700], [1000, 1100, 1300]
+    clk[1, :3], ns[1, :3] = [50, 150, 250], [1040, 1090, 1140]
+    clk[2, :2], ns[2, :2] = [10, 20], [1000, 1005]    # never reached mark 2
+    got = summarize(clk, ns, 2)
+    assert got == {"blocks": 2, "median_clk": [150, 250],
+                   "max_clk": [200, 400], "clk_per_ns": 2.0, "span_ns": 300,
+                   "start_spread_ns": 40}
+    with pytest.raises(ValueError, match="every mark"):
+        summarize(clk, ns, 5)
+
+
+@pytest.mark.parametrize("name", ["swar_fused_votes", "train_deltas"])
+def test_phase_marks_match_the_probe(name):
+    """Each probed source marks PHASE(0) .. PHASE(n) in order, one mark
+    per boundary of the probe's phase names, and takes the marks from the
+    header that compiles them out unless REPRO_PHASE_CLOCKS is set."""
+    from repro_torch.kernels import phase_clocks
+    phases = {"swar_fused_votes": phase_clocks.K1_PHASES,
+              "train_deltas": phase_clocks.K2_PHASES}[name]
+    text = (ops._CSRC / ops.KERNEL_SOURCES[name]).read_text()
+    marks = [int(i) for i in re.findall(r"PHASE\((\d+)\)", text)]
+    assert marks == list(range(len(phases) + 1))
+    assert '#include "phase_clocks.cuh"' in text
+    header = (ops._CSRC / "phase_clocks.cuh").read_text()
+    assert "#ifdef REPRO_PHASE_CLOCKS" in header
+    assert "#define PHASE(i) ((void)0)" in header
+    assert "-DREPRO_PHASE_CLOCKS" not in ops.NVCC_FLAGS

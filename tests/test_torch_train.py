@@ -262,6 +262,53 @@ def test_train_deltas_keyed_equals_train_deltas(masks_on):
     assert got.any() == masks_on
 
 
+# (B, C, M, L, density, masks): the edges of kernel K2's batch split and
+# class tiles, as tests/test_torch_cuda.py::K2_CASES holds the kernel to
+# this plain version there — B = 2, 31, 33, 128, 129, 257, 512 around its 4
+# batch groups and 128-row chunks; C = 13, 24, 25 and 49 around and
+# across its 24-class tile at L = 1568; every mask on; L = 2049 / 4096
+K2_EDGES = [(2, 10, 50, 1568, 0.05, "masks"),
+            (31, 10, 50, 1568, 0.05, "masks"),
+            (33, 10, 50, 1568, 0.05, "masks"),
+            (128, 10, 4, 1568, 0.05, "masks"),
+            (129, 10, 4, 1568, 0.05, "masks"),
+            (257, 10, 4, 1568, 0.05, "masks"),
+            (512, 10, 4, 1568, 0.05, "masks"),
+            (40, 13, 5, 1568, 0.2, "masks"), (33, 25, 3, 1568, 0.1, "masks"),
+            (30, 24, 3, 1568, 0.1, "masks"), (33, 49, 2, 1568, 0.1, "masks"),
+            (32, 10, 50, 1568, 0.05, "all"), (37, 4, 6, 130, 0.3, "all"),
+            (20, 4, 3, 2049, 0.01, "masks"), (20, 3, 3, 4096, 0.01, "all")]
+
+
+@pytest.mark.parametrize("case", K2_EDGES,
+                         ids=lambda c: "B{}C{}M{}L{}-d{}-{}".format(*c))
+def test_train_deltas_keyed_matches_jax_at_kernel_edges(case):
+    """K2's plain version (CPU: ``train_deltas_keyed``) against the JAX
+    package's ``train_deltas`` on the words the row keys draw and the
+    gathered include rows."""
+    b, c, m, L, density, masks = case
+    rng = np.random.default_rng(b + c + m + L)
+    x = rng.integers(0, 2, (b, L), dtype=np.int8)
+    include = (rng.random((c, m, L)) < density).astype(np.int8)
+    mk = [(rng.random((b, m)) < 0.5) | (masks == "all") for _ in range(4)]
+    y = rng.integers(0, c, (b,), dtype=np.int32)
+    yn = ((y + rng.integers(1, c, (b,))) % c).astype(np.int32)
+    keys = prng.bits(prng.key(b + L), (2, b, 2))
+    kw = dict(n_classes=c, p_inc=6 / 7, p_dec=1 / 7)
+    t = torch.from_numpy
+    got = tfused.train_deltas_keyed(t(x), keys[0], keys[1], t(include),
+                                    *[t(a) for a in mk], t(y), t(yn), **kw)
+    bits = [prng.bits(k, (m, L)).numpy().view(np.uint32) for k in keys]
+    want = jfused.train_deltas(jnp.asarray(x), jnp.asarray(bits[0]),
+                               jnp.asarray(bits[1]),
+                               jnp.asarray(include[y]),
+                               jnp.asarray(include[yn]),
+                               *[jnp.asarray(a) for a in mk],
+                               jnp.asarray(y), jnp.asarray(yn), **kw)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert got.any()
+
+
 def test_train_deltas_keyed_rejects_bad_inputs():
     b, m, L, c = 4, 3, 8, 2
     x = torch.zeros((b, L), dtype=torch.int8)
