@@ -4,8 +4,9 @@ an NVIDIA GPU: builds its CUDA kernels from this checkout, holds each
 against its plain PyTorch version, serves tm-mnist-50 through
 ``TMServer`` on both kernel-backed backends and on the paper's
 ``time_domain`` race, serves while it learns online through the
-``fused`` train engine, drives the time-domain popcount and PDL race
-kernels on the served state, and trains and runs the paper's BNN.
+``fused`` train engine and, with default routing, through ``sparse_csr``
+and the ``sparse`` train engine, drives the time-domain popcount and PDL
+race kernels on the served state, and trains and runs the paper's BNN.
 
     python3 chip_smoke.py
 
@@ -32,24 +33,31 @@ package.  Phases, each on its own lines:
    (B=64) and one K2 call (B=32, the fused step's int64 labels) run, from
    ``torch.profiler``'s trace of the card (each must be one kernel and no
    memset where the profiler sees the card);
+   then K1 at 3,000 classes (B = 1 and 64, timed at 64) and K2 at
+   6,200 classes (B = 33), past the class counts whose whole class axis
+   fits a block's shared memory (the class-tiled and per-item paths),
+   bitwise;
    then the paper-surface kernels: K4 (``popcount_words``) at (1, 1),
    (37, 129) and (4096, 512) words with all-ones and all-zero rows, and
    K6 (``binary_matmul``) at (1, 784)x(784, 128), (37, 129)x(129, 65),
-   the BNN's (120, 784)x(784, 128) and 1024^3, both bitwise; K5 (``pdl_race``) at (1, 10, 50),
-   (37, 10, 50) and (1024, 10, 100), bitwise on integer-valued delays
-   and within the stated tolerance on float delays, plus a tied-minimum
-   row and C=1; timed at the ``benchmarks/kernel_bench.py`` shapes (K4
+   the BNN's (120, 784)x(784, 128) and 1024^3, both bitwise; K5
+   (``pdl_race``) at (1, 10, 50), (37, 10, 50) and (1024, 10, 100),
+   bitwise on integer-valued delays and within the stated tolerance on
+   float delays, at its design edges (``K5_EDGES``) bitwise, plus a
+   tied-minimum row, 64 rows of ties and C=1; timed at the
+   ``benchmarks/kernel_bench.py`` shapes (K4
    4096x512, K5 B=1024 C=10 M=100, K6 1024^3) and K6 also at the BNN's
    120x784x128, both K6 shapes beside ``torch._int_mm``, cuBLASLt's int8
    GEMM;
 4. the main path: ``TMServer`` on cuda at tm-mnist-50 width, state at 5%
    include density from a seeded numpy generator through
-   ``state_from_numpy``, once with ``backend="mxu_fused"`` (K3) and once
-   with ``"swar_fused"`` (K1).  Eight concurrent clients send requests
+   ``state_from_numpy``, once with ``backend="mxu_fused"`` (K3), once
+   with ``"swar_fused"`` (K1) and once with no ``backend=``, where the
+   density heuristic routes every bucket to ``sparse_csr`` (no kernel).  Eight concurrent clients send requests
    of 1-16 rows, every third with a deadline; after the traffic every
    response must equal the port's ``oracle`` backend on the CPU, and the
    path's kernel counter (zeroed just before the traffic) must equal the
-   number of batches served;
+   number of batches served (0 for ``sparse_csr``);
 5. serve and learn: ``TMServer`` on cuda with ``backend="mxu_fused"``,
    ``train_backend="fused"`` and ``train_seed=0``; the eight predict
    clients run while a feeder submits 16 teacher-labeled batches of 32
@@ -59,6 +67,13 @@ package.  Phases, each on its own lines:
    response must equal the CPU oracle under the state of the version it
    was pinned to, and the counters (zeroed just before the traffic) must
    show K2 = K1 = updates and K3 = predict batches;
+5b. serve and learn on default routing: the same traffic through a
+   ``TMServer`` built without ``backend=``, with ``train_backend=
+   "sparse"``: the 5% state routes every bucket to ``sparse_csr`` (the
+   ELL gather, plain tensor code) and deltas go through K2 alone.  The
+   same replay and oracle checks; the counters must show K2 = updates
+   and K1 = K3 = 0; ``stats()["sparse_layout"]`` and the per-bucket
+   service times are printed;
 6. the paper's time-domain race behind ``TMServer``: phase 4's traffic
    with ``backend="time_domain"`` (the ideal PDL race, plain tensor
    code) on the state phase 5 learned (the random state of phase 4 fires
@@ -139,6 +154,16 @@ K6_SHAPES = ((1, 784, 128), (37, 129, 65), (120, 784, 128),
              (1024, 1024, 1024))
 K6_MAIN = (120, 784, 128)
 K5_SHAPES = ((1, 10, 50), (37, 10, 50), (1024, 10, 100))
+# K5's design edges: B = 1 at the timed width, M off 4 and 16 (rows start
+# unaligned), 40 classes (lanes walk several), C * M past shared memory
+# (tables and rows read from global memory), more rows than the grid's
+# warps
+K5_EDGES = ((1, 10, 100), (33, 10, 7), (16, 40, 9), (3, 100, 200),
+            (5000, 4, 6))
+# past the class counts whose whole class axis fits a block's shared
+# memory: K1 at 3,000 classes (M = 1, two class tiles of the serving
+# tile), K2 at 6,200 classes (M = 2; include bits staged per item)
+K1_MANY_C, K2_MANY_C = 3000, 6200
 T_RES = 10.0                      # PDLConfig().t_res, ps
 K5_ROWS = 1024                    # served-state rows raced through K5
 
@@ -260,9 +285,10 @@ def check_kernels(torch, rt) -> dict:
     return out
 
 
-async def serve(torch, rt, backend: str, ta: np.ndarray) -> dict:
-    """Phase 4: one TMServer run on cuda; every response checked against
-    the CPU oracle → the run's stats and kernel launch counts."""
+async def serve(torch, rt, backend, ta: np.ndarray) -> dict:
+    """Phase 4: one TMServer run on cuda (``backend=None``: default
+    routing); every response checked against the CPU oracle → the run's
+    stats, kernel launch counts and routes."""
     from repro_torch.convert import state_from_numpy
     from repro_torch.core.tm import TMConfig
     from repro_torch.engine import get_engine
@@ -278,6 +304,8 @@ async def serve(torch, rt, backend: str, ta: np.ndarray) -> dict:
                       ServePolicy(max_batch=SERVE_BATCH, max_wait_us=500,
                                   backend=backend))
     answered = []
+    routes = set(server.routing.values())
+    label = backend or "default(" + "/".join(sorted(routes)) + ")"
 
     async def client(cid: int) -> None:
         rng = np.random.default_rng(SEED + 100 + cid)
@@ -306,17 +334,17 @@ async def serve(torch, rt, backend: str, ta: np.ndarray) -> dict:
         want = oracle.infer(lits)
         if not (np.array_equal(res.prediction, want.prediction.numpy())
                 and np.array_equal(res.class_sums, want.class_sums.numpy())):
-            raise AssertionError(f"{backend}: response differs from the "
+            raise AssertionError(f"{label}: response differs from the "
                                  f"CPU oracle (client {cid}, request {i})")
         if td_cpu is not None:
             aux = td_cpu.infer(lits).aux
             for k in ("latency_ps", "metastable"):
                 if not np.array_equal(res.aux[k], aux[k].numpy()):
                     raise AssertionError(
-                        f"{backend}: aux {k} differs from the CPU "
+                        f"{label}: aux {k} differs from the CPU "
                         f"time_domain engine (client {cid}, request {i})")
     checked = len(answered)
-    print(f"serve {backend:10s}: {checked} responses == CPU oracle in "
+    print(f"serve {label:10s}: {checked} responses == CPU oracle in "
           f"{wall:.3f}s ({checked / wall:.0f} req/s, warmup {warm:.3f}s)  "
           f"batches={stats['batches']}  rows={stats['rows']}  "
           f"fill={stats['batch_fill']:.3f}  p50={stats['p50_ms']}ms  "
@@ -327,20 +355,20 @@ async def serve(torch, rt, backend: str, ta: np.ndarray) -> dict:
         lat = np.concatenate([r.aux["latency_ps"] for *_, r in answered])
         meta = np.concatenate([r.aux["metastable"] for *_, r in answered])
         n_lat = np.unique(lat).size
-        print(f"serve {backend:10s} aux: latency_ps == CPU time_domain "
+        print(f"serve {label:10s} aux: latency_ps == CPU time_domain "
               f"engine for {lat.size} rows ({n_lat} distinct; min "
               f"{lat.min():.1f}  median {np.median(lat):.1f}  max "
               f"{lat.max():.1f} ps)  metastable rate {meta.mean():.3f}",
               flush=True)
         if n_lat < 2:
-            raise AssertionError(f"{backend}: every served row has one "
+            raise AssertionError(f"{label}: every served row has one "
                                  f"latency; the state fires no clause")
-    print(f"serve {backend:10s} buckets: {json.dumps(stats['buckets'])}",
+    print(f"serve {label:10s} buckets: {json.dumps(stats['buckets'])}",
           flush=True)
     if checked != N_CLIENTS * PER_CLIENT or stats["errors"]:
-        raise AssertionError(f"{backend}: {checked} checked, "
+        raise AssertionError(f"{label}: {checked} checked, "
                              f"{stats['errors']} errors")
-    return {"stats": stats, "launches": launches}
+    return {"stats": stats, "launches": launches, "routes": routes}
 
 
 def k2_inputs(torch, rt, cfg, ta: np.ndarray, b: int, seed: int,
@@ -451,6 +479,64 @@ def device_kernels(torch, fn) -> list:
             if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
+def check_class_tiles(torch, rt) -> None:
+    """Phase 3e: K1 and K2 past the class counts whose whole class axis
+    fits a block's shared memory, bitwise against their plain versions at
+    tm-mnist-50's literal width: K1 at K1_MANY_C classes for B in (1, 64)
+    and timed at B = 64, K2 at K2_MANY_C classes and B = 33, timed."""
+    rng = np.random.default_rng(SEED + 90)
+    c = K1_MANY_C
+    inc = torch.as_tensor((rng.random((c, 2 * F)) < 0.002)
+                          .astype(np.int8), device="cuda")
+    vm = torch.as_tensor(rng.integers(-3, 4, (c, c)).astype(np.int8),
+                         device="cuda")
+    inc_words = rt["pack_bits"](inc)
+    for b in (1, SERVE_BATCH):
+        lit = torch.as_tensor(rng.integers(0, 2, (b, 2 * F), dtype=np.int8),
+                              device="cuda")
+        not_words = rt["pack_bits"](1 - lit)
+        got = rt["swar_fused_votes"](not_words, inc_words, vm)
+        want = rt["swar_fused_votes_plain"](not_words, inc_words, vm)
+        torch.cuda.synchronize()
+        exact_err(torch, "swar_fused_votes", got, want, f"C={c} B={b}")
+        if not bool(want.any()):
+            raise AssertionError(f"swar_fused_votes C={c}: no clause fired")
+        print(f"check swar_fused_votes C={c} M=1 B={b:3d}: bitwise=True",
+              flush=True)
+    ms = device_ms(lambda: rt["swar_fused_votes"](not_words, inc_words, vm),
+                   reps=20)
+    plain_ms = device_ms(lambda: rt["swar_fused_votes_plain"](
+        not_words, inc_words, vm), reps=3)
+    print(f"time  swar_fused_votes C={c} M=1 B={SERVE_BATCH}: kernel "
+          f"{ms:.6f} ms  plain {plain_ms:.6f} ms", flush=True)
+    c, m, b = K2_MANY_C, 2, 33
+    lits = torch.as_tensor(rng.integers(0, 2, (b, 2 * F), dtype=np.int8),
+                           device="cuda")
+    keys = rt["prng"].bits(rt["prng"].key(SEED + 91), (2, b, 2)).cuda()
+    inc8 = torch.as_tensor((rng.random((c, m, 2 * F)) < 0.02)
+                           .astype(np.int8), device="cuda")
+    masks = [torch.as_tensor(rng.random((b, m)) < 0.5, device="cuda")
+             for _ in range(4)]
+    y = rng.integers(0, c, (b,))
+    y_neg = (y + rng.integers(1, c, (b,))) % c
+    args = (lits, keys[0], keys[1], inc8, *masks,
+            torch.as_tensor(y, device="cuda"),
+            torch.as_tensor(y_neg, device="cuda"))
+    kw = {"n_classes": c, "p_inc": (S - 1) / S, "p_dec": 1 / S}
+    got = rt["train_deltas_keyed"](*args, **kw)
+    want = rt["train_deltas_keyed_plain"](*args, **kw)
+    torch.cuda.synchronize()
+    exact_err(torch, "train_deltas_keyed", got, want, f"C={c} B={b}")
+    if not bool(got.any()):
+        raise AssertionError(f"train_deltas_keyed C={c}: a zero update")
+    ms = device_ms(lambda: rt["train_deltas_keyed"](*args, **kw), reps=5)
+    plain_ms = device_ms(lambda: rt["train_deltas_keyed_plain"](*args, **kw),
+                         reps=2)
+    print(f"check train_deltas C={c} M={m} B={b}: bitwise=True  "
+          f"|upd|={int(got.abs().sum())}  kernel {ms:.6f} ms  plain "
+          f"{plain_ms:.6f} ms", flush=True)
+
+
 def profile_launches(torch, rt) -> dict:
     """Phase 3d: the device activities of one K1 call (B=SERVE_BATCH) and
     of one K2 call (B=LABEL_BATCH on a fused step's inputs, int64 labels
@@ -486,11 +572,14 @@ def profile_launches(torch, rt) -> dict:
     return counts
 
 
-async def serve_and_learn(torch, rt, ta: np.ndarray) -> dict:
-    """Phase 5: predicts and labeled updates through one TMServer on
-    cuda; every published state checked against the CPU reference replay
-    and every response against the CPU oracle at its pinned version →
-    stats, launch counts and update latencies."""
+async def serve_and_learn(torch, rt, ta: np.ndarray, *, backend,
+                          train_backend: str, expect) -> dict:
+    """Phases 5 and 5b: predicts and labeled updates through one TMServer
+    on cuda (``backend=None``: default routing); every published state
+    checked against the CPU reference replay and every response against
+    the CPU oracle at its pinned version; the kernel counters, zeroed
+    just before the traffic, must equal ``expect(stats)`` → stats, launch
+    counts and update latencies."""
     from repro_torch.convert import state_from_numpy
     from repro_torch.engine import get_engine, get_train_engine
     from repro_torch.serve import ServePolicy, TMServer
@@ -505,8 +594,8 @@ async def serve_and_learn(torch, rt, ta: np.ndarray) -> dict:
     published = {}
     server = TMServer(cfg, state_from_numpy(ta),
                       ServePolicy(max_batch=SERVE_BATCH, max_wait_us=500,
-                                  backend="mxu_fused"),
-                      train_backend="fused", train_seed=SEED,
+                                  backend=backend),
+                      train_backend=train_backend, train_seed=SEED,
                       history_size=N_UPDATES + 1,
                       on_publish=lambda v, st: published.setdefault(v, st))
     answered, update_s = [], []
@@ -531,6 +620,7 @@ async def serve_and_learn(torch, rt, ta: np.ndarray) -> dict:
         return versions
 
     async with server:
+        routes = set(server.routing.values())
         t0 = time.perf_counter()
         await server.warmup(train_batches=(LABEL_BATCH,))
         warm = time.perf_counter() - t0
@@ -574,7 +664,8 @@ async def serve_and_learn(torch, rt, ta: np.ndarray) -> dict:
                                  f"{cid}, request {i})")
     changed = int((replay[-1].ta != replay[0].ta).sum())
     lat = sorted(update_s)
-    print(f"learn fused+mxu_fused: {N_UPDATES} updates x {LABEL_BATCH} rows "
+    tag = f"{train_backend}+{backend or '/'.join(sorted(routes))}"
+    print(f"learn {tag}: {N_UPDATES} updates x {LABEL_BATCH} rows "
           f"== CPU reference replay (replay {replay_s:.1f}s, {changed} TA "
           f"states changed); {len(answered)} responses == CPU oracle at "
           f"their versions ({len(oracles)} versions seen) in {wall:.3f}s "
@@ -590,30 +681,33 @@ async def serve_and_learn(torch, rt, ta: np.ndarray) -> dict:
         raise AssertionError(f"learn: {stats['errors']} errors, "
                              f"{stats['updates']} updates, "
                              f"{len(answered)} responses")
-    want_launches = {"train_deltas_keyed": N_UPDATES,
-                     "swar_fused_votes": N_UPDATES,
-                     "clause_votes": stats["batches"]}
+    print(f"learn {tag} routing={stats['routing']}  routing_updates="
+          f"{stats['routing_updates']}  sparse_layout="
+          f"{json.dumps(stats['sparse_layout'])}", flush=True)
+    print(f"learn {tag} buckets: {json.dumps(stats['buckets'])}",
+          flush=True)
+    want_launches = expect(stats)
     if launches != want_launches:
         raise AssertionError(f"learn: launches {launches}, expected "
                              f"{want_launches}")
-    # where one update's time goes with no predict traffic: the fused step
-    # on the card (host clock, ending in a stream sync) and, within it,
-    # the key draws on the CPU
-    fused, step_s, draw_s = get_train_engine("fused", cfg), [], []
+    # where one update's time goes with no predict traffic: the step on
+    # the card (host clock, ending in a stream sync) and, within it, the
+    # key draws on the CPU
+    engine, step_s, draw_s = get_train_engine(train_backend, cfg), [], []
     for i in range(10):
         k = prng.split(prng.key(i))[1]
         t0 = time.perf_counter()
-        fused.step(published[N_UPDATES], k, feed[i], labels[i])
+        engine.step(published[N_UPDATES], k, feed[i], labels[i])
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
         t0 = time.perf_counter()
         rt["feedback_draws"](cfg, k, LABEL_BATCH)
         draw_s.append(time.perf_counter() - t0)
-    print(f"learn step alone ms (host clock, 10 steps): fused step "
-          f"p50={statistics.median(step_s) * 1e3:.3f}  of which key draws "
-          f"on the CPU p50={statistics.median(draw_s) * 1e3:.3f}",
+    print(f"learn step alone ms (host clock, 10 steps): {train_backend} "
+          f"step p50={statistics.median(step_s) * 1e3:.3f}  of which key "
+          f"draws on the CPU p50={statistics.median(draw_s) * 1e3:.3f}",
           flush=True)
-    return {"stats": stats, "launches": launches,
+    return {"stats": stats, "launches": launches, "routes": routes,
             "state": published[N_UPDATES]}
 
 
@@ -762,7 +856,7 @@ def check_pdl_race(torch, rt) -> dict:
     rng = np.random.default_rng(SEED + 60)
     k5, plain = rt["pdl_race"], rt["pdl_race_plain"]
     lat_err = 0.0
-    cases = [(shape, True) for shape in K5_SHAPES] + \
+    cases = [(shape, True) for shape in K5_SHAPES + K5_EDGES] + \
         [(shape, False) for shape in K5_SHAPES] + [((37, 1, 50), True)]
     for (b, c, m), integer in cases:
         args = k5_inputs(torch, rng, b, c, m, integer=integer)
@@ -813,6 +907,22 @@ def check_pdl_race(torch, rt) -> dict:
         raise AssertionError(f"pdl_race tied minimum: {got}")
     print("check pdl_race         tied minimum: winner 0, not metastable "
           "== plain", flush=True)
+    # whole rows of ties on integer delays: class C-1 copies class 0, and
+    # in the first 8 rows every class arrives together (gap 0)
+    b, c, m = K5_SHAPES[-1]
+    sel, ed, skew = k5_inputs(torch, rng, 64, c, m, integer=True)
+    sel[:, c - 1], ed[c - 1], skew[c - 1] = sel[:, 0], ed[0], skew[0]
+    sel[:8] = sel[:8, :1].clone()
+    ed[:], skew[:] = ed[:1].clone(), skew[:1].clone()
+    sel[8:, 1:c - 1] = 1 - sel[8:, :1]
+    got = k5(sel, ed, skew, T_RES)
+    want = plain(sel, ed, skew, T_RES)
+    if not all(torch.equal(g, w_) for g, w_ in zip(got, want)) or \
+            not bool(got[2][:8].all()):
+        raise AssertionError("pdl_race tied rows differ from the plain "
+                             "version")
+    print(f"check pdl_race         (64, {c}, {m}) tied rows: bitwise=True",
+          flush=True)
     b, c, m = K5_SHAPES[-1]
     args = k5_inputs(torch, rng, b, c, m, integer=False)
     row = timed_row(torch, "pdl_race", lambda: k5(*args, T_RES),
@@ -993,6 +1103,7 @@ def main() -> int:
     kernels = check_kernels(torch, rt)
     kernels["train_deltas_keyed"] = check_train_deltas(torch, rt)
     per_call = profile_launches(torch, rt)
+    check_class_tiles(torch, rt)
     kernels["popcount_words"] = check_popcount(torch, rt)
     kernels["binary_matmul"] = check_binary_matmul(torch, rt)
     kernels["pdl_race"] = check_pdl_race(torch, rt)
@@ -1009,7 +1120,30 @@ def main() -> int:
             raise AssertionError(f"{backend} served "
                                  f"{runs[backend]['stats']['batches']} "
                                  f"batches but launched {name} {n} times")
-    learn = asyncio.run(serve_and_learn(torch, rt, ta))
+    # default routing: the trained-density state goes to sparse_csr, the
+    # ELL gather in plain tensor code (no kernel of its own)
+    default = asyncio.run(serve(torch, rt, None, ta))
+    if default["routes"] != {"sparse_csr"} or any(
+            default["launches"].values()):
+        raise AssertionError(f"default routing: routes "
+                             f"{default['routes']}, launches "
+                             f"{default['launches']}")
+    learn = asyncio.run(serve_and_learn(
+        torch, rt, ta, backend="mxu_fused", train_backend="fused",
+        expect=lambda st: {"train_deltas_keyed": N_UPDATES,
+                           "swar_fused_votes": N_UPDATES,
+                           "clause_votes": st["batches"]}))
+    # default routing: a trained-density state routes every bucket to
+    # sparse_csr (no kernel of its own: the ELL gather is torch ops), and
+    # the sparse train engine's deltas go through K2 alone
+    sparse = asyncio.run(serve_and_learn(
+        torch, rt, ta, backend=None, train_backend="sparse",
+        expect=lambda st: {"train_deltas_keyed": N_UPDATES,
+                           "swar_fused_votes": 0, "clause_votes": 0}))
+    if sparse["routes"] != {"sparse_csr"} or \
+            sparse["stats"]["sparse_layout"] is None:
+        raise AssertionError(f"default routing chose {sparse['routes']}, "
+                             f"layout {sparse['stats']['sparse_layout']}")
     asyncio.run(serve(torch, rt, "time_domain",
                       learn["state"].ta.cpu().numpy()))
     slice_run = time_domain_popcount(torch, rt, learn["state"])

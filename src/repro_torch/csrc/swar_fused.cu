@@ -55,6 +55,14 @@
 //   groups.  Clauses past CM never fire, and rows past B fire nothing to
 //   fold.  The fold walks each row's fired-clause bit mask over the
 //   staged vote rows.
+// - Any class count.  The (BB, C) partial, what a rank receives and the
+//   tile's vote rows grow with C (about 128 bytes a class in the serving
+//   tile).  Where they overrun a block's shared memory (past about 1,600
+//   classes), a second instantiation tiles the class axis: grid row y
+//   takes classes [y * CT, y * CT + CT), stages only those columns of
+//   the vote rows, and stores its own columns of the output.  The host
+//   picks the widest CT that fits; where the whole C fits, the kernel
+//   is the untiled one.
 // - No per-call device query: the SM count and the shared-memory limit
 //   are read once per device and cached.
 
@@ -129,14 +137,17 @@ __host__ __device__ inline int recv_len(int n, int cs) {
   return (cs * share(n, cs) + 3) / 4 * 4;
 }
 
+// C: the classes a block holds (the class tile's width CT when tiled,
+// then a multiple of 4, and the fired-clause lists follow the votes)
 template <class T>
-size_t smem_bytes(int C, int K4, int cs) {
+size_t smem_bytes(int C, int K4, int cs, bool tiled = false) {
   const int n = T::BB * C;
   return static_cast<size_t>(n) * sizeof(int32_t)              // partial
          + static_cast<size_t>(recv_len(n, cs)) * sizeof(int32_t)  // received
          + static_cast<size_t>(T::BB) * T::FW * sizeof(uint32_t)  // fired
          + static_cast<size_t>(T::BB + T::TQ) * K4 * 16        // words
-         + static_cast<size_t>(T::TQ) * C;                     // votes
+         + static_cast<size_t>(T::TQ) * C                      // votes
+         + (tiled ? static_cast<size_t>(T::BB) * (T::TQ + 4) : 0);  // lists
 }
 
 // Staging in two steps, so that every global load of a chunk (rows,
@@ -203,24 +214,78 @@ __device__ __forceinline__ void stage_votes(int8_t* dst,
     dst[p] = src[p];
 }
 
-template <class T>
+// a class tile's columns of tq vote rows: dst (tq rows of dp bytes) from
+// rows of C bytes of src, ct bytes each, in V-wide pieces (ct, dp and C
+// multiples of sizeof(V)); eight loads a thread in flight before its
+// stores
+template <class V>
+__device__ __forceinline__ void stage_columns(int8_t* dst,
+                                              const int8_t* __restrict__ src,
+                                              int tq, int ct, int dp, int C) {
+  constexpr int U = 8, w = sizeof(V);
+  const int per_row = ct / w, n = tq * per_row;
+  for (int p0 = threadIdx.x; p0 < n; p0 += U * kThreads) {
+    V t[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int p = p0 + u * kThreads, j = p / per_row;
+      if (p < n)
+        t[u] = *reinterpret_cast<const V*>(
+            src + static_cast<size_t>(j) * C + (p - j * per_row) * w);
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int p = p0 + u * kThreads, j = p / per_row;
+      if (p < n)
+        *reinterpret_cast<V*>(dst + j * dp + (p - j * per_row) * w) = t[u];
+    }
+  }
+}
+// the widest pieces the tile's rows allow (the host makes CT a multiple
+// of 16 where it can, so c0 is one, and so is every tile's width
+// wherever C is); rows padded with zeros to a multiple of 4 bytes
+__device__ __forceinline__ void stage_vote_columns(
+    int8_t* dst, const int8_t* __restrict__ src, int tq, int ct, int C) {
+  const auto a = reinterpret_cast<uintptr_t>(src);
+  const int dp = (ct + 3) / 4 * 4;
+  if (C % 16 == 0 && ct % 16 == 0 && a % 16 == 0)
+    stage_columns<uint4>(dst, src, tq, ct, dp, C);
+  else if (C % 8 == 0 && ct % 8 == 0 && a % 8 == 0)
+    stage_columns<uint2>(dst, src, tq, ct, dp, C);
+  else if (C % 4 == 0 && ct % 4 == 0 && a % 4 == 0)
+    stage_columns<uint32_t>(dst, src, tq, ct, dp, C);
+  else
+    stage_columns<int8_t>(dst, src, tq, ct, dp, C);
+  const int pad = dp - ct;
+  for (int p = threadIdx.x; p < tq * pad; p += kThreads)
+    dst[(p / pad) * dp + ct + p % pad] = 0;
+}
+
+// CTILE: this block takes classes [c0, c0 + ct) of grid row y (width CT);
+// otherwise all C, and gridDim.y is 1.
+template <class T, bool CTILE>
 __global__ void __launch_bounds__(kThreads)
 votes_kernel(const uint32_t* __restrict__ not_words,
              const uint32_t* __restrict__ inc_words,
              const int8_t* __restrict__ vote_matrix,
-             int32_t* __restrict__ out, int B, int CM, int W, int C, int K4,
-             int tiles_per_rank) {
+             int32_t* __restrict__ out, int B, int CM, int W, int C, int CT,
+             int K4, int tiles_per_rank) {
   extern __shared__ __align__(16) unsigned char smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int cs = static_cast<int>(cluster.num_blocks());
   const int rank = static_cast<int>(cluster.block_rank());
-  const int n_part = T::BB * C, per = share(n_part, cs);
+  const int c0 = CTILE ? static_cast<int>(blockIdx.y) * CT : 0;
+  const int ct = CTILE ? min(CT, C - c0) : C;  // classes of this block
+  const int n_part = T::BB * ct, per = share(n_part, cs);
   int32_t* part = reinterpret_cast<int32_t*>(smem);         // (BB, C)
   int32_t* recv = part + n_part;                            // (cs, per)
   uint32_t* fired = reinterpret_cast<uint32_t*>(recv + recv_len(n_part, cs));
   uint4* rows = reinterpret_cast<uint4*>(fired + T::BB * T::FW);
   uint4* cls = rows + T::BB * K4;
   int8_t* votes = reinterpret_cast<int8_t*>(cls + T::TQ * K4);
+  // CTILE: each row's fired clauses as a list, and their counts
+  uint8_t* flist = reinterpret_cast<uint8_t*>(votes + T::TQ * CT);
+  int32_t* fcount = reinterpret_cast<int32_t*>(flist + T::BB * T::TQ);
   uint32_t* rows_w = reinterpret_cast<uint32_t*>(rows);
   uint32_t* cls_w = reinterpret_cast<uint32_t*>(cls);
 
@@ -233,7 +298,7 @@ votes_kernel(const uint32_t* __restrict__ not_words,
   PHASE(0);
   cluster_arrive();  // this block has started (waited on before the push)
 
-  for (int p = tid; p < T::BB * C; p += kThreads) part[p] = 0;
+  for (int p = tid; p < n_part; p += kThreads) part[p] = 0;
   const int n_tiles = (CM + T::TQ - 1) / T::TQ;
   const int t_begin = rank * tiles_per_rank;
   const int t_end = min(n_tiles, t_begin + tiles_per_rank);
@@ -244,12 +309,17 @@ votes_kernel(const uint32_t* __restrict__ not_words,
     const int tq = min(T::TQ, CM - cm0);
     __syncthreads();  // the previous tile's fold has read fired / votes
     for (int p = tid; p < T::BB * T::FW; p += kThreads) fired[p] = 0u;
-    const int8_t* tile_votes = vote_matrix + static_cast<size_t>(cm0) * C;
+    const int8_t* tile_votes =
+        vote_matrix + static_cast<size_t>(cm0) * C + c0;
     if (n_chunks == 0) {  // W = 0: no chunk below stages or syncs
-      Votes vt;
-      vt.load(tile_votes, tq * C);
-      vt.store(votes, tq * C);
-      stage_votes(votes, tile_votes, tq * C);
+      if (CTILE) {
+        stage_vote_columns(votes, tile_votes, tq, ct, C);
+      } else {
+        Votes vt;
+        vt.load(tile_votes, tq * C);
+        vt.store(votes, tq * C);
+        stage_votes(votes, tile_votes, tq * C);
+      }
       __syncthreads();
     }
     uint32_t acc[T::R][T::Q];
@@ -271,12 +341,16 @@ votes_kernel(const uint32_t* __restrict__ not_words,
         rw.load(not_words + static_cast<size_t>(row0) * W + w0, W, kw,
                 B - row0);
       cw.load(inc_words + static_cast<size_t>(cm0) * W + w0, W, kw, tq);
-      if (ch == 0) vt.load(tile_votes, tq * C);
+      if (!CTILE && ch == 0) vt.load(tile_votes, tq * C);
       if (stage_rows) rw.store(rows_w, pitch, 4 * nv);
       cw.store(cls_w, pitch, 4 * nv);
       if (ch == 0) {
-        vt.store(votes, tq * C);
-        stage_votes(votes, tile_votes, tq * C);
+        if (CTILE) {
+          stage_vote_columns(votes, tile_votes, tq, ct, C);
+        } else {
+          vt.store(votes, tq * C);
+          stage_votes(votes, tile_votes, tq * C);
+        }
       }
       __syncthreads();
       if (t == t_begin && ch == 0) PHASE(1);  // staged
@@ -321,9 +395,50 @@ votes_kernel(const uint32_t* __restrict__ not_words,
         }
     }
     __syncthreads();
+    if (CTILE) {
+      // fold a wide class tile: a thread per row and 4 classes (one
+      // 32-bit word of each vote row) walks the row's fired-clause list,
+      // its loads independent; a thread per row builds the lists
+      for (int r = tid; r < T::BB; r += kThreads) {
+        int n = 0;
+#pragma unroll
+        for (int fw = 0; fw < T::FW; ++fw) {
+          uint32_t f = fired[r * T::FW + fw];
+          while (f) {
+            flist[r * T::TQ + n++] =
+                static_cast<uint8_t>(fw * 32 + __ffs(f) - 1);
+            f &= f - 1;
+          }
+        }
+        fcount[r] = n;
+      }
+      __syncthreads();
+      const int q4 = (ct + 3) / 4;  // words per staged vote row
+      const uint32_t* v32 = reinterpret_cast<const uint32_t*>(votes);
+      for (int p = tid; p < T::BB * q4; p += kThreads) {
+        const int r = p / q4, k = p - r * q4, n = fcount[r];
+        const uint8_t* fl = flist + r * T::TQ;
+        int32_t s0 = 0, s1 = 0, s2 = 0, s3 = 0;
+#pragma unroll 4
+        for (int i = 0; i < n; ++i) {
+          const uint32_t w = v32[fl[i] * q4 + k];
+          s0 += static_cast<int8_t>(w);
+          s1 += static_cast<int8_t>(w >> 8);
+          s2 += static_cast<int8_t>(w >> 16);
+          s3 += static_cast<int8_t>(w >> 24);
+        }
+        int32_t* dst = part + r * ct + 4 * k;
+        const int left = ct - 4 * k;  // classes of this word: 1 to 4
+        dst[0] += s0;
+        if (left > 1) dst[1] += s1;
+        if (left > 2) dst[2] += s2;
+        if (left > 3) dst[3] += s3;
+      }
+      continue;
+    }
     // fold: each (row, class) entry has one owner, across every tile
-    for (int p = tid; p < T::BB * C; p += kThreads) {
-      const int r = p / C, c = p - r * C;
+    for (int p = tid; p < n_part; p += kThreads) {
+      const int r = p / ct, c = p - r * ct;
       int32_t sum = 0;
 #pragma unroll
       for (int fw = 0; fw < T::FW; ++fw) {
@@ -331,7 +446,7 @@ votes_kernel(const uint32_t* __restrict__ not_words,
         while (f) {
           const int j = fw * 32 + __ffs(f) - 1;
           f &= f - 1;
-          sum += votes[j * C + c];
+          sum += votes[j * ct + c];
         }
       }
       part[p] += sum;
@@ -351,10 +466,11 @@ votes_kernel(const uint32_t* __restrict__ not_words,
   PHASE(4);
   for (int e = tid; e < per; e += kThreads) {
     const int p = rank * per + e;
-    if (p >= n_part || row0 + p / C >= B) break;  // the ragged row tile
+    const int r = p / ct;
+    if (p >= n_part || row0 + r >= B) break;  // the ragged row tile
     int32_t sum = 0;
     for (int q = 0; q < cs; ++q) sum += recv[q * per + e];
-    out[static_cast<size_t>(row0) * C + p] = sum;
+    out[static_cast<size_t>(row0 + r) * C + c0 + p - r * ct] = sum;
   }
   PHASE(5);
 }
@@ -362,7 +478,8 @@ votes_kernel(const uint32_t* __restrict__ not_words,
 struct DeviceInfo {
   std::atomic<int> n_sm{0};
   std::atomic<int> smem_optin{0};
-  std::atomic<bool> opted_in[2]{};  // per tile: the smem attribute is set
+  // per tile and class tiling: the smem attribute is set
+  std::atomic<bool> opted_in[4]{};
 };
 DeviceInfo g_devices[kMaxDevices];
 
@@ -387,35 +504,27 @@ cudaError_t device_info(int device, int* n_sm, int* smem_optin) {
   return cudaSuccess;
 }
 
-template <class T>
-cudaError_t launch_tile(int which, const uint32_t* not_words,
-                        const uint32_t* inc_words, const int8_t* vote_matrix,
-                        int32_t* out, int B, int CM, int W, int C, int device,
-                        int n_sm, int smem_optin, cudaStream_t stream) {
-  const int K4 = row_pitch<T>((std::min(W, kChunkWords) + 3) / 4);
-  std::atomic<bool>& opted = g_devices[device].opted_in[which];
+template <class T, bool CTILE>
+cudaError_t launch_kernel(int which, const uint32_t* not_words,
+                          const uint32_t* inc_words,
+                          const int8_t* vote_matrix, int32_t* out, int B,
+                          int CM, int W, int C, int CT, int K4,
+                          int tiles_per_rank, int row_tiles, int cs,
+                          size_t smem, int device, int smem_optin,
+                          cudaStream_t stream) {
+  std::atomic<bool>& opted =
+      g_devices[device].opted_in[2 * which + (CTILE ? 1 : 0)];
   if (!opted.load(std::memory_order_relaxed)) {
     // once per device: allow dynamic shared memory up to the opt-in limit
     const cudaError_t err = cudaFuncSetAttribute(
-        votes_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        votes_kernel<T, CTILE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         smem_optin);
     if (err != cudaSuccess) return err;
     opted.store(true, std::memory_order_relaxed);
   }
-  const int row_tiles = (B + T::BB - 1) / T::BB;
-  const int n_tiles = (CM + T::TQ - 1) / T::TQ;
-  // a cluster per row tile, as wide as it takes to give every SM about
-  // kBlocksPerSm blocks: the whole grid is then resident at once (four
-  // blocks per SM would overrun what clusters can pack: two waves)
-  int cs = (kBlocksPerSm * n_sm + row_tiles - 1) / row_tiles;
-  cs = std::max(1, std::min({cs, kMaxCluster, n_tiles}));
-  const int tiles_per_rank = n_tiles == 0 ? 0 : (n_tiles + cs - 1) / cs;
-  if (tiles_per_rank > 0) cs = (n_tiles + tiles_per_rank - 1) / tiles_per_rank;
-  const size_t smem = smem_bytes<T>(C, K4, cs);
-  if (smem > static_cast<size_t>(smem_optin)) return cudaErrorInvalidValue;
-
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(static_cast<unsigned>(row_tiles) * cs);
+  cfg.gridDim = dim3(static_cast<unsigned>(row_tiles) * cs,
+                     CTILE ? static_cast<unsigned>((C + CT - 1) / CT) : 1u);
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
@@ -426,11 +535,64 @@ cudaError_t launch_tile(int which, const uint32_t* not_words,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  const cudaError_t err =
-      cudaLaunchKernelEx(&cfg, votes_kernel<T>, not_words, inc_words,
-                         vote_matrix, out, B, CM, W, C, K4, tiles_per_rank);
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, votes_kernel<T, CTILE>, not_words, inc_words, vote_matrix, out,
+      B, CM, W, C, CT, K4, tiles_per_rank);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
+}
+
+template <class T>
+cudaError_t launch_tile(int which, const uint32_t* not_words,
+                        const uint32_t* inc_words, const int8_t* vote_matrix,
+                        int32_t* out, int B, int CM, int W, int C, int device,
+                        int n_sm, int smem_optin, cudaStream_t stream) {
+  const int K4 = row_pitch<T>((std::min(W, kChunkWords) + 3) / 4);
+  const int row_tiles = (B + T::BB - 1) / T::BB;
+  const int n_tiles = (CM + T::TQ - 1) / T::TQ;
+  // a cluster per row tile, as wide as it takes to give every SM about
+  // kBlocksPerSm blocks: the whole grid is then resident at once (four
+  // blocks per SM would overrun what clusters can pack: two waves)
+  int cs = (kBlocksPerSm * n_sm + row_tiles - 1) / row_tiles;
+  cs = std::max(1, std::min({cs, kMaxCluster, n_tiles}));
+  const int tiles_per_rank = n_tiles == 0 ? 0 : (n_tiles + cs - 1) / cs;
+  if (tiles_per_rank > 0) cs = (n_tiles + tiles_per_rank - 1) / tiles_per_rank;
+  const size_t limit = static_cast<size_t>(smem_optin);
+  const size_t smem = smem_bytes<T>(C, K4, cs);
+  if (smem <= limit)
+    return launch_kernel<T, false>(which, not_words, inc_words, vote_matrix,
+                                   out, B, CM, W, C, C, K4, tiles_per_rank,
+                                   row_tiles, cs, smem, device, smem_optin,
+                                   stream);
+  // class tiles: the widest that fits (the layout grows by about
+  // 8 BB + TQ bytes a class), then evened out over the tiles
+  const size_t fixed = smem_bytes<T>(0, K4, cs, true);
+  const size_t per_class = 8 * T::BB + T::TQ;
+  int CT = limit > fixed + 4 * cs + 16
+               ? static_cast<int>((limit - fixed - 4 * cs - 16) / per_class)
+               : 0;
+  CT = std::min(CT, C);
+  while (CT > 0 && smem_bytes<T>(CT, K4, cs, true) > limit) --CT;
+  // as few tiles as fit, evened out, each a multiple of 16 classes wide
+  // (whole 16-byte pieces of the vote rows), else of 4 (whole words)
+  for (int n_ct = (C + std::max(CT, 1) - 1) / std::max(CT, 1);; ++n_ct) {
+    const int even = (C + n_ct - 1) / n_ct;
+    const int w16 = (even + 15) / 16 * 16, w4 = (even + 3) / 4 * 4;
+    if (smem_bytes<T>(w16, K4, cs, true) <= limit) {
+      CT = w16;
+      break;
+    }
+    if (even <= 16) {
+      if (smem_bytes<T>(w4, K4, cs, true) > limit)
+        return cudaErrorInvalidValue;
+      CT = w4;
+      break;
+    }
+  }
+  return launch_kernel<T, true>(which, not_words, inc_words, vote_matrix,
+                                out, B, CM, W, C, CT, K4, tiles_per_rank,
+                                row_tiles, cs, smem_bytes<T>(CT, K4, cs, true),
+                                device, smem_optin, stream);
 }
 
 }  // namespace
@@ -438,10 +600,8 @@ cudaError_t launch_tile(int which, const uint32_t* not_words,
 // not_words (B, W) and inc_words (CM, W): 32-bit words; vote_matrix
 // (CM, C) int8; out (B, C) int32, every entry written once.  One launch
 // on `stream` of `device`; never synchronises.  Returns a cudaError_t
-// (0 = success): cudaErrorInvalidValue when the serving tile's shared
-// memory (about 128*C bytes plus the staged words) exceeds the device's
-// limit, and whatever cudaLaunchKernelEx or cudaGetLastError report for
-// a refused launch (a cluster shape included).
+// (0 = success), including what cudaLaunchKernelEx or cudaGetLastError
+// report for a refused launch (a cluster shape included).
 extern "C" int swar_fused_votes(const void* not_words, const void* inc_words,
                                 const void* vote_matrix, void* out, int B,
                                 int CM, int W, int C, int device,

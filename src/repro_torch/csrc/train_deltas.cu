@@ -59,6 +59,12 @@
 // - Classes beyond what the partials' shared-memory budget holds go in
 //   class tiles; rows in chunks of kRows.  Each item is drawn in the one
 //   class tile that holds its class.
+// - Any class count.  The include tile of every class takes C * TL / 8
+//   bytes (about 6,000 classes fill a block at tm-mnist-50's TL = 256).
+//   Past that, a second instantiation stages instead, per row chunk, the
+//   include bits of the one class each (row, side) item addresses, read
+//   from global memory (2 * kRows rows of the tile); where every class
+//   fits, the kernel is the one that stages them all once.
 // - Words are drawn only where a Type I mask selects them (threefry.cuh),
 //   so the two (B, M, L) uint32 word tensors of the JAX path (20 MB at
 //   B = 32) are never written.
@@ -119,18 +125,57 @@ struct RowStage {
 };
 
 // Shared-memory layout of a block: TL columns in TW = TL / 32 words.
+// The include bits are per class ([C][TW]) or, with item_inc, per (row,
+// side) item of the chunk ([2 kRows][TW]).
 struct Layout {
   int acc, inc, lit, flags, stage, bytes;
-  __host__ __device__ Layout(int C, int CT, int TL, int K) {
+  __host__ __device__ Layout(int C, int CT, int TL, int K, bool item_inc) {
     const int TW = TL / 32;
+    const long long inc_rows = item_inc ? 2 * kRows : C;
     acc = 0;                                              // int32 [c][TL]
-    inc = acc + CT * TL * 4;                              // u32 [C][TW]
-    lit = inc + (C * TW * 4 + 15) / 16 * 16;              // u32 [kRows][TW]
+    inc = acc + CT * TL * 4;                              // u32 [rows][TW]
+    const long long lit_at = inc + (inc_rows * TW * 4 + 15) / 16 * 16;
+    // a layout past the int range is refused by the host (bytes < 0)
+    lit = lit_at < (1LL << 30) ? static_cast<int>(lit_at) : -(1 << 30);
     flags = lit + kRows * TW * 4;                         // u8 [2][K][2 kRows]
     stage = flags + (2 * K * 2 * kRows + 15) / 16 * 16;   // RowStage
     bytes = stage + static_cast<int>(sizeof(RowStage));
   }
 };
+
+// label b of an int32 (y_bytes = 4) or int64 (y_bytes = 8) label vector
+__device__ __forceinline__ int32_t label(const void* y, int y_bytes, int b) {
+  return y_bytes == 8
+             ? static_cast<int32_t>(static_cast<const long long*>(y)[b])
+             : static_cast<const int32_t*>(y)[b];
+}
+
+// pack_rows over the include rows the items of a row chunk address: row
+// q = 2 row + side of the bits is the tile's row of class cls[side][row]
+__device__ __forceinline__ void pack_item_rows(uint32_t* bits,
+                                               const int8_t* inc_tile,
+                                               size_t class_stride,
+                                               const RowStage& st, int n,
+                                               int TW, int ncol) {
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int words = n * TW;
+  for (int w0 = warp; w0 < words; w0 += 8 * (kThreads / 32)) {
+    bool on[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int w = w0 + u * (kThreads / 32);
+      const int q = w / TW, col = (w - q * TW) * 32 + lane;
+      on[u] = w < words && col < ncol &&
+              inc_tile[st.cls[q % 2][q / 2] * class_stride + col] != 0;
+    }
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int w = w0 + u * (kThreads / 32);
+      const uint32_t word = __ballot_sync(0xffffffffu, on[u]);
+      if (lane == 0 && w < words) bits[w] = word;
+    }
+  }
+}
 
 // bits[w] of n rows of TW words: bit j of word w is src[32 w + j] != 0 for
 // columns below ncol; a warp packs a 32-column word per ballot, eight
@@ -224,7 +269,12 @@ __device__ __forceinline__ void pack_rest16(uint32_t* bits, const int8_t* src,
 
 // at most 64 registers: four blocks per SM, so every cluster of a
 // tm-mnist-50 call is resident at once (at two per SM only 32 clusters of
-// 7 fit, and the grid's 50 ran in two waves)
+// 7 fit, and the grid's 50 ran in two waves).  ITEM_INC: the include
+// bits are staged per item of each row chunk (Layout's item_inc).
+// TILES: C > CT, so class tiles that no row addresses are skipped (a
+// separate instantiation: the check's registers would make the one-tile
+// kernel spill under the 64-register cap).
+template <bool ITEM_INC, bool TILES>
 __global__ void __launch_bounds__(kThreads, 4)
 deltas_kernel(const int8_t* __restrict__ lits,
               const uint32_t* __restrict__ keys1,
@@ -241,7 +291,7 @@ deltas_kernel(const int8_t* __restrict__ lits,
   cg::cluster_group cluster = cg::this_cluster();
   const int K = static_cast<int>(cluster.num_blocks());
   const int rank = static_cast<int>(cluster.block_rank());
-  const Layout lay(C, CT, TL, K);
+  const Layout lay(C, CT, TL, K, ITEM_INC);
   int32_t* acc = reinterpret_cast<int32_t*>(smem + lay.acc);  // (CT, TL)
   uint32_t* inc_bits = reinterpret_cast<uint32_t*>(smem + lay.inc);
   uint32_t* lit_bits = reinterpret_cast<uint32_t*>(smem + lay.lit);
@@ -265,8 +315,21 @@ deltas_kernel(const int8_t* __restrict__ lits,
     __syncthreads();  // the previous class tile's sums are stored
     for (int p = tid; p < CT * TL / 4; p += kThreads)  // TL % 64 == 0
       reinterpret_cast<int4*>(acc)[p] = make_int4(0, 0, 0, 0);
+    // with several class tiles, one that no row addresses (as its class
+    // or its negative class) sums to zero: its row chunks are skipped.
+    // Every block of the cluster reads the same labels, so all skip
+    // alike and the cluster barriers stay matched.
+    bool live = true;
+    if (TILES) {
+      bool mine = false;
+      for (int b = tid; b < B; b += kThreads) {
+        const int yt = label(y, y_bytes, b), yn = label(y_neg, y_bytes, b);
+        mine |= (yt >= c0 && yt < c0 + ct) || (yn >= c0 && yn < c0 + ct);
+      }
+      live = __syncthreads_or(mine);
+    }
 
-    for (int b0 = 0; b0 < B; b0 += kRows, ++chunk) {
+    for (int b0 = 0; live && b0 < B; b0 += kRows, ++chunk) {
       const int nr = min(kRows, B - b0);
       const int8_t* lit_tile = lits + static_cast<size_t>(b0) * L + l0;
       // one round trip for the chunk: the row scalars, the first batch of
@@ -276,7 +339,8 @@ deltas_kernel(const int8_t* __restrict__ lits,
       Pack16<1> inc1;
       if (vec16) {
         lit2.load(lit_tile, L, nr, TW, ncol, tid);
-        if (first) inc1.load(inc_tile, inc_stride, C, TW, ncol, tid);
+        if (!ITEM_INC && first)
+          inc1.load(inc_tile, inc_stride, C, TW, ncol, tid);
       }
       const int row = tid;  // kRows <= kThreads: a row per thread
       int32_t yt = 0, yn = 0;
@@ -312,16 +376,21 @@ deltas_kernel(const int8_t* __restrict__ lits,
       if (vec16) {
         lit2.store(lit_bits, nr, TW, tid);
         pack_rest16(lit_bits, lit_tile, L, nr, TW, ncol, tid + 2 * kThreads);
-        if (first) {
+        if (!ITEM_INC && first) {
           inc1.store(inc_bits, C, TW, tid);
           pack_rest16(inc_bits, inc_tile, inc_stride, C, TW, ncol,
                       tid + kThreads);
         }
       } else {
         pack_rows(lit_bits, lit_tile, L, nr, TW, ncol);
-        if (first) pack_rows(inc_bits, inc_tile, inc_stride, C, TW, ncol);
+        if (!ITEM_INC && first)
+          pack_rows(inc_bits, inc_tile, inc_stride, C, TW, ncol);
       }
       __syncthreads();
+      if (ITEM_INC) {  // the addressed classes' include rows, this chunk's
+        pack_item_rows(inc_bits, inc_tile, inc_stride, st, 2 * nr, TW, ncol);
+        __syncthreads();
+      }
 
       if (chunk == 0) PHASE(1);  // the first chunk staged
       // this block's share of the clause pass — a violation is an
@@ -329,7 +398,8 @@ deltas_kernel(const int8_t* __restrict__ lits,
       uint8_t* buf = flags + (chunk % 2) * K * 2 * kRows;
       if (chunk == 0) cluster_wait();  // every block of the cluster started
       for (int q = tid; q < 2 * nr; q += kThreads) {
-        const uint32_t* inc_row = inc_bits + st.cls[q % 2][q / 2] * TW;
+        const uint32_t* inc_row =
+            inc_bits + (ITEM_INC ? q : st.cls[q % 2][q / 2]) * TW;
         const uint32_t* lit_row = lit_bits + (q / 2) * TW;
         uint32_t v = 0u;
         for (int w = 0; w < TW; ++w) v |= inc_row[w] & ~lit_row[w];
@@ -397,7 +467,7 @@ deltas_kernel(const int8_t* __restrict__ lits,
         const uint32_t k0 = st.keys[side][r][0], k1 = st.keys[side][r][1];
         int32_t* acc_row = acc + (c - c0) * TL;
         const uint32_t* lit_row = lit_bits + r * TW + tg / 32;
-        const uint32_t* inc_row = inc_bits + c * TW + tg / 32;
+        const uint32_t* inc_row = inc_bits + (ITEM_INC ? q : c) * TW + tg / 32;
         // the column's counter in the row's (M, L) draw: (0, m L + l),
         // as M L < 2^32 (the launcher checks)
         const uint32_t ctr0 = static_cast<uint32_t>(m) * L + l0 + tg;
@@ -461,7 +531,7 @@ deltas_kernel(const int8_t* __restrict__ lits,
 
 struct DeviceInfo {
   std::atomic<int> smem_optin{0};
-  std::atomic<bool> opted_in{false};
+  std::atomic<bool> opted_in[3]{};  // per instantiation
 };
 DeviceInfo g_devices[kMaxDevices];
 
@@ -500,13 +570,6 @@ extern "C" int train_deltas(const void* literals, const void* keys1,
     if (err != cudaSuccess) return static_cast<int>(err);
     dev.smem_optin.store(smem_optin, std::memory_order_relaxed);
   }
-  if (!dev.opted_in.load(std::memory_order_relaxed)) {
-    err = cudaFuncSetAttribute(deltas_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem_optin);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    dev.opted_in.store(true, std::memory_order_relaxed);
-  }
   // the literal tiles: at most kMaxCluster per clause, whole groups wide
   const int k0 = std::min(kMaxCluster, (L + kGroupThreads - 1) / kGroupThreads);
   const int per = (L + k0 - 1) / k0;
@@ -514,8 +577,27 @@ extern "C" int train_deltas(const void* literals, const void* keys1,
   const int K = (L + TL - 1) / TL;
   const int per_class = TL * static_cast<int>(sizeof(int32_t));
   const int CT = std::max(1, std::min(C, kAccBudget / per_class));
-  const size_t smem = Layout(C, CT, TL, K).bytes;
-  if (smem > static_cast<size_t>(smem_optin)) return cudaErrorInvalidValue;
+  // every class's include tile staged once where it fits, else each
+  // chunk's addressed rows
+  const auto fits = [&](const Layout& l) {
+    return l.bytes > 0 && l.bytes <= smem_optin;
+  };
+  const bool item_inc = !fits(Layout(C, CT, TL, K, false));
+  const Layout lay(C, CT, TL, K, item_inc);
+  if (!fits(lay)) return cudaErrorInvalidValue;
+  const size_t smem = lay.bytes;
+  const int which = item_inc ? 2 : C > CT ? 1 : 0;
+  const auto kernel = which == 2   ? deltas_kernel<true, true>
+                      : which == 1 ? deltas_kernel<false, true>
+                                   : deltas_kernel<false, false>;
+  std::atomic<bool>& opted = dev.opted_in[which];
+  if (!opted.load(std::memory_order_relaxed)) {
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem_optin);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    opted.store(true, std::memory_order_relaxed);
+  }
   const auto aligned = [](const void* p) {
     return reinterpret_cast<uintptr_t>(p) % 16 == 0;
   };
@@ -537,7 +619,7 @@ extern "C" int train_deltas(const void* literals, const void* keys1,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   err = cudaLaunchKernelEx(
-      &cfg, deltas_kernel, static_cast<const int8_t*>(literals),
+      &cfg, kernel, static_cast<const int8_t*>(literals),
       static_cast<const uint32_t*>(keys1), static_cast<const uint32_t*>(keys2),
       static_cast<const int8_t*>(include), static_cast<const uint8_t*>(m1_t),
       static_cast<const uint8_t*>(m2_t), static_cast<const uint8_t*>(m1_n),

@@ -12,6 +12,10 @@
                         (:func:`~repro_torch.kernels.swar_fused.
                         swar_fused_votes`): word AND + popcount + vote
                         product, the hit tensor never in device memory.
+``sparse_csr``          clause-indexed sparsity: each clause ANDs only its
+                        included literals' batch-packed words through the
+                        padded ELL index matrix (:mod:`~repro_torch.engine.
+                        sparse`); the default route for trained states.
 ``mxu_fused``           the dense int8 layout through CUDA kernel K3
                         (:func:`~repro_torch.kernels.clause_eval.
                         clause_votes`): clause matrix never in device
@@ -25,8 +29,8 @@ construction, so ``infer`` does only literal-dependent work, and all
 return identical ``prediction`` and ``class_sums`` (ties → lowest
 index), bit for bit equal to the JAX package's same-named backends.
 
-Not registered yet (see ROADMAP.md): ``sparse_csr`` and ``cascade``;
-asking for one raises the registry's unknown-backend error.
+Not registered yet (see ROADMAP.md): ``cascade``; asking for it raises
+the registry's unknown-backend error.
 The JAX ``block_b``/``block_cm`` tile options of the fused backends are
 TPU tiling and have no counterpart here.
 """
@@ -45,12 +49,14 @@ from repro_torch.core.time_domain import (PDLConfig, PDLDevice,
 from repro_torch.core.tm import (TMConfig, TMState, clause_polarity,
                                  include_mask)
 from repro_torch.kernels.clause_eval import clause_votes, make_vote_matrix
+from repro_torch.kernels.ell_gather import ell_clause_votes
 from repro_torch.kernels.swar_fused import swar_fused_votes
 
 from .base import EngineResult, as_literals, register_backend
+from .sparse import ell_from_include
 
 __all__ = ["OracleEngine", "AdderTreeEngine", "SwarPackedEngine",
-           "SwarFusedEngine", "MXUFusedEngine", "TimeDomainEngine",
+           "SwarFusedEngine", "SparseCSREngine", "MXUFusedEngine", "TimeDomainEngine",
            "swar_clauses_votes"]
 
 
@@ -164,6 +170,48 @@ class SwarFusedEngine:
         not_words = pack_bits(1 - lits)                          # (B, Wl)
         return _result(swar_fused_votes(not_words, self._inc_words,
                                         self._vm))
+
+
+@register_backend("sparse_csr")
+class SparseCSREngine:
+    """Clause-indexed sparsity (padded CSR/ELL gather).
+
+    Build time: the include mask compresses to one ``(C·M, K)`` index
+    matrix over only the included literals (K = max includes per clause,
+    ≈ 5% of L for trained machines).  Infer: literals bit-pack over the
+    batch axis, each clause gathers its K rows and AND-reduces
+    (:func:`~repro_torch.kernels.ell_gather.ell_clause_votes`), so
+    clause-eval work scales with the include density instead of L.
+
+    ``ell=`` injects a prebuilt :class:`~repro_torch.engine.sparse.
+    EllLayout` — the ``TMServer`` publish path passes its incrementally
+    refreshed layout.  The caller guarantees that it matches ``state``'s
+    include mask; only shapes are checked.  A layout holds tensors, so an
+    ``ell=`` build bypasses the keyed engine cache.
+    """
+
+    def __init__(self, cfg: TMConfig, state: TMState, *, ell=None):
+        self.cfg = cfg
+        self.device = state.ta.device
+        r = cfg.n_classes * cfg.n_clauses
+        if ell is None:
+            ell = ell_from_include(
+                include_mask(cfg, state).reshape(r, cfg.n_literals))
+        elif (ell.indices.shape[0] != r
+                or ell.n_literals != cfg.n_literals):
+            raise ValueError(
+                f"ell layout is ({ell.indices.shape[0]} rows, "
+                f"L={ell.n_literals}); cfg needs ({r}, "
+                f"L={cfg.n_literals})")
+        self.ell = ell
+        self._pol = clause_polarity(cfg.n_clauses, self.device)
+
+    def infer(self, literals) -> EngineResult:
+        """(B, 2F) {0,1} literals → :class:`EngineResult` (bit-exact)."""
+        _, sums = ell_clause_votes(
+            self.ell.indices, self._pol, as_literals(literals, self.device),
+            c=self.cfg.n_classes, m=self.cfg.n_clauses)
+        return _result(sums)
 
 
 @register_backend("mxu_fused")

@@ -30,6 +30,12 @@ package's backend of the same name.
                         neither the per-sample deltas nor the uniform words
                         reach device memory.  On CPU tensors both wrappers
                         run their plain versions.
+``sparse``              class sums from the ELL gather over the include
+                        indices (:func:`~repro_torch.kernels.ell_gather.
+                        ell_clause_votes`), then the ``fused`` tail through
+                        kernel K2.  The index matrix is kept up to date by
+                        an :class:`~repro_torch.engine.sparse.
+                        IncrementalEll`.
 ======================  ====================================================
 
 A step runs on the state's device; literals, labels and key may come as
@@ -37,7 +43,7 @@ numpy arrays or tensors on any device.  The key's small draws (offsets,
 feedback uniforms, row keys) run where the key lies, so a CPU key keeps
 some hundred tiny threefry ops off the card.
 
-Not ported yet (see ROADMAP.md): ``sparse`` and ``sharded``, and the
+Not ported yet (see ROADMAP.md): ``sharded``, and the
 autotune consult (``get_train_engine`` uses the constructor defaults or
 explicit opts, as ``get_engine`` does).  ``block_b``/``block_m`` are the
 Pallas tiles; the port keeps them only so an engine's options round-trip.
@@ -56,6 +62,7 @@ from repro_torch.core.tm import TMConfig, TMState, clause_polarity
 from repro_torch.core.tm_train import (feedback_masks, feedback_update,
                                        train_step)
 from repro_torch.kernels.clause_eval import make_vote_matrix
+from repro_torch.kernels.ell_gather import ell_clause_votes
 from repro_torch.kernels.swar_fused import swar_fused_votes
 from repro_torch.kernels.train_fused import (DEFAULT_BLOCK_B,
                                              DEFAULT_BLOCK_M,
@@ -64,11 +71,13 @@ from repro_torch.kernels.train_fused import (DEFAULT_BLOCK_B,
 
 from .backends import swar_clauses_votes
 from .base import KeyedEngineCache, Registry, _cache_key
+from .sparse import DEFAULT_K_SLACK, DEFAULT_REBUILD_THRESHOLD, IncrementalEll
 
 __all__ = ["TrainEngine", "register_train_backend", "get_train_engine",
            "available_train_backends", "clear_train_engine_cache",
            "train_engine_cache_info", "DEFAULT_TRAIN_BACKEND",
            "ReferenceTrainEngine", "PackedTrainEngine", "FusedTrainEngine",
+           "SparseTrainEngine",
            "export_key_cursor", "import_key_cursor", "train_engine_opts"]
 
 DEFAULT_TRAIN_BACKEND = "reference"
@@ -183,9 +192,9 @@ def _packed_clauses_votes(cfg, state, x, pos_mask, neg_mask):
 
 
 def _deltas_from_votes(cfg, state, key, x, y, votes, inc8, *, boost_tpf):
-    """Shared tail of the fused step: feedback masks → kernel K2 (the
-    threefry words, Type I/II and the per-class scatter) → clipped new
-    state."""
+    """Shared tail of the fused and sparse steps: feedback masks → kernel
+    K2 (the threefry words, Type I/II and the per-class scatter) →
+    clipped new state."""
     y_neg, fb_t, fb_n, k1s, k2s = feedback_masks(cfg, key, votes, y)
     pos = (clause_polarity(cfg.n_clauses, x.device) > 0)[None, :]
     masks = feedback_polarity_masks(fb_t, fb_n, pos)
@@ -280,4 +289,79 @@ class FusedTrainEngine:
         """Constructor opts to persist, the JAX package's keys (see
         :func:`train_engine_opts`)."""
         return {"boost_tpf": self.boost_tpf,
+                "block_b": self._blocks[0], "block_m": self._blocks[1]}
+
+
+@register_train_backend("sparse")
+class SparseTrainEngine:
+    """Clause-indexed training: ELL-gathered class sums, fused deltas.
+
+    Class sums come from the batch-bit-packed gather over the ELL index
+    matrix (:func:`~repro_torch.kernels.ell_gather.ell_clause_votes`),
+    O(R·K) per 32-sample word instead of the dense O(R·L), and the shared
+    fused tail (feedback masks, then kernel K2) applies feedback, so the
+    backend is delta-exact against ``reference``/``packed``/``fused`` for
+    the same key.  The index matrix is state-derived: the engine carries
+    an :class:`~repro_torch.engine.sparse.IncrementalEll` and refreshes
+    it from each step's input state by include deltas (at most 2·M rows
+    change per update), with a full rebuild only on K overflow or
+    ``rebuild_threshold`` cumulative drift.  PyTorch runs eagerly, so
+    every step sees a concrete state and needs no traced fallback.
+
+    ``k_slack``/``rebuild_threshold`` tune the layout refresh policy;
+    ``block_b``/``block_m`` are kept for the JAX package's engine options
+    and do not change the CUDA kernels' tiling.
+    """
+
+    def __init__(self, cfg: TMConfig, *, boost_tpf: bool = True,
+                 k_slack: int = DEFAULT_K_SLACK,
+                 rebuild_threshold: float = DEFAULT_REBUILD_THRESHOLD,
+                 block_b: int = DEFAULT_BLOCK_B,
+                 block_m: int = DEFAULT_BLOCK_M):
+        self.cfg = cfg
+        self.boost_tpf = boost_tpf
+        self.k_slack = int(k_slack)
+        self.rebuild_threshold = float(rebuild_threshold)
+        self._blocks = (block_b, block_m)
+        self._ell: IncrementalEll | None = None
+
+    def _refresh(self, state: TMState,
+                 inc8: torch.Tensor | None = None) -> torch.Tensor:
+        """Sync the incremental layout to ``state``'s include mask
+        (``inc8``, when the caller has it) → the index matrix on the
+        state's device."""
+        cfg = self.cfg
+        if inc8 is None:
+            inc8 = state.ta > cfg.n_states
+        inc = inc8.reshape(cfg.n_classes * cfg.n_clauses, cfg.n_literals)
+        if self._ell is None or self._ell.device != state.ta.device:
+            self._ell = IncrementalEll(
+                inc, k_slack=self.k_slack,
+                rebuild_threshold=self.rebuild_threshold)
+        else:
+            self._ell.refresh(inc)
+        return self._ell.layout.indices
+
+    def step(self, state: TMState, key, x_literals, y) -> TMState:
+        """One clause-indexed update (see :class:`TrainEngine`)."""
+        cfg = self.cfg
+        key, x, y = _batch(cfg, state, key, x_literals, y)
+        inc8 = (state.ta > cfg.n_states).to(torch.int8)           # (C, M, L)
+        indices = self._refresh(state, inc8)
+        _, votes = ell_clause_votes(
+            indices, clause_polarity(cfg.n_clauses, x.device), x,
+            c=cfg.n_classes, m=cfg.n_clauses)
+        return _deltas_from_votes(cfg, state, key, x, y, votes, inc8,
+                                  boost_tpf=self.boost_tpf)
+
+    def layout_stats(self) -> dict | None:
+        """Refresh counters of the engine's :class:`IncrementalEll`
+        (``None`` before the first step)."""
+        return None if self._ell is None else self._ell.stats()
+
+    def lifecycle_opts(self) -> dict:
+        """Constructor opts to persist, the JAX package's keys (see
+        :func:`train_engine_opts`)."""
+        return {"boost_tpf": self.boost_tpf, "k_slack": self.k_slack,
+                "rebuild_threshold": self.rebuild_threshold,
                 "block_b": self._blocks[0], "block_m": self._blocks[1]}

@@ -18,9 +18,11 @@ the minimum (its ``top_k`` gap is 0 there); the port keeps that oracle as
 :func:`pdl_race_plain` follows the kernel.
 
 On a CUDA tensor :func:`pdl_race` launches the hand-written kernel in
-``csrc/pdl_race.cu`` (a warp per (row, class) sums the delays, one
-thread per row reduces over the classes; the (B, C) delays stay in
-shared memory); on a CPU tensor it runs :func:`pdl_race_plain`.  Nothing
+``csrc/pdl_race.cu`` (the delay tables staged once per block in shared
+memory; a warp per row copies the row's selects with 16-byte loads, sums
+each class in registers and reduces first arrival, winner and next
+distinct arrival with warp-wide min reductions, so the per-class delays
+never leave registers); on a CPU tensor it runs :func:`pdl_race_plain`.  Nothing
 falls back: a CUDA build or launch failure raises.
 
 Float32 sums run in another order on the card than in torch or XLA, so

@@ -1,14 +1,16 @@
-"""Where a block's time goes in kernels K1 and K2, on the card.
+"""Where a block's time goes in kernels K1, K2 and K5, on the card.
 
     python -m repro_torch.kernels.phase_clocks [--out FILE]
 
 ``ncu`` and ``nsys`` may be missing where the card is, and CUDA events
-time a launch only as a whole.  This probe builds ``csrc/swar_fused.cu``
-and ``csrc/train_deltas.cu`` with ``-DREPRO_PHASE_CLOCKS``
-(``csrc/phase_clocks.cuh``) into ``build/repro_torch/phase_clocks/`` —
-never the libraries the port loads — and runs each kernel at the shapes
-``chip_smoke.py`` times: K1 at B in (1, 64, 4096) at tm-mnist-50 widths,
-K2 at B in (32, 64, 512) on a ``fused`` step's inputs.  For each it
+time a launch only as a whole.  This probe builds ``csrc/swar_fused.cu``,
+``csrc/train_deltas.cu`` and ``csrc/pdl_race.cu`` with
+``-DREPRO_PHASE_CLOCKS`` (``csrc/phase_clocks.cuh``) into
+``build/repro_torch/phase_clocks/`` — never the libraries the port loads
+— and runs each kernel at the shapes ``chip_smoke.py`` times: K1 at B in
+(1, 64, 4096) at tm-mnist-50 widths, K2 at B in (32, 64, 512) on a
+``fused`` step's inputs, K5 at B in (1, 1024) with C = 10, M = 100 (its
+marks time each block's first row, on warp 0).  For each it
 prints the median per-call device time (CUDA events) and, for one call,
 the median and maximum over blocks of the SM clocks each phase took
 (between the ``PHASE`` marks of the source), the clock rate, the span
@@ -30,7 +32,7 @@ import torch
 
 from . import ops
 
-__all__ = ["K1_PHASES", "K2_PHASES", "summarize", "main"]
+__all__ = ["K1_PHASES", "K2_PHASES", "K5_PHASES", "summarize", "main"]
 
 # what each kernel does between PHASE(i) and PHASE(i + 1)
 K1_PHASES = ("stage rows, clauses and vote rows", "first tile's logic ops",
@@ -38,6 +40,9 @@ K1_PHASES = ("stage rows, clauses and vote rows", "first tile's logic ops",
              "sum and store")
 K2_PHASES = ("stage scalars and bit tiles", "clause pass, cluster barrier",
              "list items", "deltas (all chunks)", "store")
+K5_PHASES = ("stage tables, first row's loads", "first row into shared",
+             "first row's class sums", "arbiter shuffles, store",
+             "later rows")
 _MARKS, _BLOCKS = 8, 8192           # csrc/phase_clocks.cuh
 
 
@@ -148,6 +153,22 @@ def _k2_cases(seed: int):
                 uniform_threshold(1 / 7)))
 
 
+def _k5_cases(seed: int):
+    c, m = 10, 100
+    rng = np.random.default_rng(seed)
+    ed = torch.as_tensor(rng.normal(500.0, 50.0, (c, m, 2))
+                         .astype(np.float32), device="cuda")
+    skew = torch.as_tensor(rng.normal(0.0, 1.0, (c,)).astype(np.float32),
+                           device="cuda")
+    for b in (1, 1024):
+        sel = torch.as_tensor(rng.integers(0, 2, (b, c, m), dtype=np.int8),
+                              device="cuda")
+        outs = (torch.empty((b,), dtype=torch.int32, device="cuda"),
+                torch.empty((b,), dtype=torch.float32, device="cuda"),
+                torch.empty((b,), dtype=torch.bool, device="cuda"))
+        yield f"B={b} C={c} M={m}", (sel, ed, skew, *outs), (b, c, m, 10.0)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the JSON results here")
@@ -163,7 +184,8 @@ def main(argv=None) -> int:
     results = {"card": card}
     for name, phases, cases in (
             ("swar_fused_votes", K1_PHASES, _k1_cases(0)),
-            ("train_deltas", K2_PHASES, _k2_cases(1))):
+            ("train_deltas", K2_PHASES, _k2_cases(1)),
+            ("pdl_race", K5_PHASES, _k5_cases(2))):
         lib = _load(name)
         for label, tensors, scalars in cases:
             r = _probe(lib, name, tensors, scalars, len(phases))

@@ -15,9 +15,10 @@ the blocks of a thread block cluster split the clauses of a row tile and
 sum their vote partials through distributed shared memory); on a CPU
 tensor it runs the plain version
 :func:`repro_torch.kernels.ref.ref_swar_fused_votes`.  Nothing falls
-back: a CUDA build or launch failure raises, and so does a class count
-whose vote tile exceeds the device's shared memory (about 1,600 classes
-on an H100).
+back: a CUDA build or launch failure raises.  Any class count launches:
+past what a block's shared memory holds for the whole class axis (about
+1,600 classes on an H100) the kernel tiles it, a grid row per class
+tile.
 
 Words are int32 tensors holding the JAX package's uint32 bits (see
 :mod:`repro_torch.core.popcount`); the kernel reads them as uint32.

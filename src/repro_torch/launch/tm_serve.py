@@ -16,11 +16,13 @@ p50/p99 latency.
         --backend mxu_fused --train-backend fused --label-rate 10 \\
         --probe-every 2 --clients 8 --duration 4
     PYTHONPATH=src python -m repro_torch.launch.tm_serve --device cpu \\
+        --train-backend sparse --label-rate 10 --clients 8 --duration 4
+    PYTHONPATH=src python -m repro_torch.launch.tm_serve --device cpu \\
         --backend time_domain --features 784 --clauses 50 --clients 8
 
 ``--backend`` pins one backend.  Without it, buckets route by include
-density, which picks ``sparse_csr`` at the default 5% density — a
-backend the port does not have yet, so every batch then fails.
+density, which picks ``sparse_csr`` at the default 5% density, as the
+JAX launcher does.
 ``--deadline-us N`` attaches an N-microsecond completion deadline to a
 ``--priority-mix`` fraction of the predicts (the rest are best-effort);
 the live line then gains ``miss=``/``adm=`` fields.
@@ -230,7 +232,8 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--max-wait-us", type=int, default=2000)
     ap.add_argument("--queue-depth", type=int, default=1024)
     ap.add_argument("--train-backend", default=None,
-                    help="TrainEngine name (reference/packed/fused): serve "
+                    help="TrainEngine name (reference/packed/fused/"
+                         "sparse): serve "
                          "and learn concurrently from a label feeder")
     ap.add_argument("--label-rate", type=float, default=10.0,
                     help="labeled feedback batches per second")

@@ -10,8 +10,11 @@ throughput comes from decoupling arrival from evaluation:
 - bucketing — each coalesced batch pads (all-zero neutral rows) to the
   smallest configured bucket that fits.
 - routing — each bucket maps to a backend name (:func:`route_buckets`):
-  an explicit choice or the include-density heuristic.  Engines come from
-  ``get_engine``, so buckets sharing a backend share one cached engine.
+  an explicit choice or the include-density heuristic (``sparse_csr`` for
+  trained, sparse states).  Engines come from ``get_engine``, so buckets
+  sharing a backend share one cached engine; the newest state's
+  ``sparse_csr`` engine is prebuilt at publish from an incrementally
+  refreshed layout (:meth:`TMServer._refresh_serving`).
 
 **Pipelined dispatch** (``pipeline_depth``, default 2):
 
@@ -29,7 +32,9 @@ throughput comes from decoupling arrival from evaluation:
 
 Every request is pinned to the ``(version, state)`` pair current at
 arrival; :meth:`publish` swaps in a new pair and keeps it in a bounded
-history ring (:meth:`rollback` targets).
+history ring (:meth:`rollback` targets), re-resolves density routes,
+refreshes the sparse serving layout and evicts the superseded state's
+cached engines.
 
 **Deadline scheduling** — :meth:`submit` takes ``deadline_us`` /
 ``priority``: waiting requests are served by ``(priority, absolute
@@ -59,9 +64,10 @@ no ``set_device`` and kernels launch on that device's current stream.
 
 Not ported yet (see ROADMAP.md): checkpoint/restore and rollback from
 disk (``checkpoint_dir``, ``checkpoint_every_updates``,
-``checkpoint_keep``), ``mesh=``, the overload shed tier, the measured
-autotune routes and the sparse layout half of the publish refresh.
-Passing one of those options raises ``NotImplementedError``.
+``checkpoint_keep``), ``mesh=``, the overload shed tier and the measured
+autotune routes (so the density heuristic decides wherever the JAX
+server's autotune cache has no entry).  Passing one of those options
+raises ``NotImplementedError``.
 
 >>> async with TMServer(cfg, state, ServePolicy(max_batch=64,
 ...                     backend="mxu_fused")) as srv:
@@ -91,6 +97,7 @@ from repro_torch.core.tm import TMConfig, TMState, include_mask
 from repro_torch.engine import (EngineResult, ServiceStats,
                                 engine_cache_info, evict_engines_for_state,
                                 get_engine, get_train_engine, infer_padded)
+from repro_torch.engine.sparse import IncrementalEll
 from repro_torch.kernels.ops import resolve_device
 
 from .loadgen import DeadlineExceeded, percentiles_ms
@@ -176,15 +183,16 @@ def route_buckets(cfg: TMConfig, state: TMState,
 
     An explicit ``backend`` wins; otherwise the include-density heuristic
     (trained machines are ~5% include-dense → ``sparse_csr``, denser →
-    ``swar_packed``).  ``sparse_csr`` is not ported yet, so a sparse state
-    served without an explicit backend fails loudly at engine build
-    rather than being re-routed (measured autotune routes are not ported
-    either).
+    ``swar_packed``) — the JAX server's route wherever its autotune cache
+    has no measured entry (measured routes are not ported).  ``density``
+    short-circuits the include-mask reduction when the caller knows it;
+    it is a float64 mean, as numpy's in the JAX server, so a state right
+    at the 0.10 boundary routes the same way in both.
     """
     if backend is not None:
         return {b: backend for b in buckets}
     if density is None:
-        density = float(include_mask(cfg, state).float().mean())
+        density = float(include_mask(cfg, state).to(torch.float64).mean())
     fallback = "sparse_csr" if density <= 0.10 else "swar_packed"
     return {b: fallback for b in buckets}
 
@@ -295,6 +303,13 @@ class TMServer:
             route_buckets(cfg, state, self.buckets,
                           backend=self.policy.backend)
         self._n_routing_updates = 0
+        # publish-path sparse serving maintenance: an IncrementalEll mirror
+        # of the served state's include mask plus a one-slot (state,
+        # engine) pair prebuilt for the newest state (a layout holds
+        # tensors, so it cannot key the engine cache); swapped as one
+        # tuple so lock-free readers see a matched pair
+        self._serve_ell: IncrementalEll | None = None
+        self._sparse_serving: tuple[TMState, object] | None = None
         self._on_publish = on_publish
         self._n_publish_hook_errors = 0
         self._n_rollbacks = 0
@@ -374,21 +389,14 @@ class TMServer:
     def _publish(self, version: int, state: TMState) -> None:
         """Swap in a ``(version, state)`` pair (the state moved to the
         server's device) atomically and remember it in the history ring;
-        then re-resolve density routes and evict the superseded state's
-        cached engines."""
+        then re-resolve serving against it (:meth:`_refresh_serving`)."""
         state = TMState(ta=torch.as_tensor(state.ta, device=self.device))
         with self._mu:
             prev = getattr(self, "_current", None)
             self._current = (version, state)
             self._history.append((version, state))
-        if not self._routing_pinned:
-            new_routes = route_buckets(self.cfg, state, self.buckets)
-            if new_routes != self.routing:
-                self.routing = new_routes
-                with self._mu:
-                    self._n_routing_updates += 1
-        if prev is not None and prev[1].ta is not state.ta:
-            evict_engines_for_state(prev[1])
+        self._refresh_serving(
+            state, superseded=prev[1] if prev is not None else None)
         if self._on_publish is not None:
             try:
                 self._on_publish(version, state)
@@ -403,6 +411,47 @@ class TMServer:
         version = self._current[0] + 1
         self._publish(version, state)
         return version
+
+    def _refresh_serving(self, state: TMState, *,
+                         superseded: TMState | None = None) -> None:
+        """Publish-path serving maintenance, on the event-loop thread
+        after each ``(version, state)`` swap:
+
+        1. re-resolve density-heuristic routes against the new state's
+           include density (unless routing is pinned by an explicit table
+           or ``policy.backend``), so a model drifting across the 0.10
+           boundary flips between ``swar_packed`` and ``sparse_csr``;
+        2. refresh the :class:`IncrementalEll` mirror by include deltas
+           and prebuild the newest state's ``sparse_csr`` engine from it:
+           O(changed rows) per publish, not a from-scratch build;
+        3. evict the superseded state's engines from the keyed cache
+           (in-flight predicts pinned to it rebuild on a miss).
+        """
+        cfg = self.cfg
+        if self._routing_pinned and "sparse_csr" not in self.routing.values():
+            inc = None      # pinned dense routes: no include mask to read
+        else:
+            inc = (state.ta > cfg.n_states).reshape(
+                cfg.n_classes * cfg.n_clauses, cfg.n_literals).cpu().numpy()
+        if not self._routing_pinned:
+            new_routes = route_buckets(cfg, state, self.buckets,
+                                       density=float(inc.mean()))
+            if new_routes != self.routing:
+                self.routing = new_routes
+                with self._mu:
+                    self._n_routing_updates += 1
+        if "sparse_csr" in self.routing.values():
+            if self._serve_ell is None:
+                self._serve_ell = IncrementalEll(inc, device=self.device)
+            else:
+                self._serve_ell.refresh(inc)
+            engine = get_engine("sparse_csr", cfg, state, cache=False,
+                                ell=self._serve_ell.layout)
+            self._sparse_serving = (state, engine)
+        else:
+            self._sparse_serving = None
+        if superseded is not None and superseded.ta is not state.ta:
+            evict_engines_for_state(superseded)
 
     def rollback(self, version: int) -> int:
         """Re-publish a state from the history ring → the new (bumped)
@@ -480,10 +529,19 @@ class TMServer:
 
     def engine_for(self, bucket: int, state: TMState | None = None):
         """The (cached) engine serving this bucket; ``state`` pins a state
-        version (default: the newest)."""
+        version (default: the newest).  ``sparse_csr`` for the newest
+        state is the one-slot engine the publish path prebuilt from the
+        incrementally refreshed layout."""
         st = self.state if state is None else state
         backend = self.routing.get(bucket) or \
             self.routing.get(self.buckets[-1], "oracle")
+        if backend == "sparse_csr":
+            # one read of the (state, engine) pair: publishes swap the
+            # whole tuple, so a racing reader sees a matched pair or misses
+            # the identity check and builds its own
+            pair = self._sparse_serving
+            if pair is not None and pair[0] is st:
+                return pair[1]
         return get_engine(backend, self.cfg, st)
 
     async def warmup(self, *, train_batches: tuple[int, ...] = ()) -> None:
@@ -979,8 +1037,9 @@ class TMServer:
     def stats(self) -> dict:
         """Serving counters in one consistent snapshot, with the JAX
         package's key set; blocks for planes the port does not have yet
-        (checkpoint, mesh, sparse layout, shed tier) read ``None`` or
-        zero.  ``device`` names where the engines run.  In online-learning
+        (checkpoint, mesh, shed tier) read ``None`` or zero.
+        ``sparse_layout`` holds the serving ``IncrementalEll``'s refresh
+        counters (``None`` until a ``sparse_csr`` route exists).  ``device`` names where the engines run.  In online-learning
         mode ``state_version``/``updates``/``update_rows`` track the
         learning stream; ``probe`` is ``None`` without a probe, else the
         latest and best accuracy, ``drift`` = best − latest, ``delta`` =
@@ -1052,7 +1111,8 @@ class TMServer:
             "routing": {str(k): v for k, v in sorted(self.routing.items())},
             "routing_updates": snap["routing_updates"],
             "mesh": None,
-            "sparse_layout": None,
+            "sparse_layout": (None if self._serve_ell is None
+                              else self._serve_ell.stats()),
             "device": str(self.device),
             "pipeline": {
                 "depth": self.policy.pipeline_depth,

@@ -152,16 +152,34 @@ def test_swar_fused_kernel_many_classes(cuda, case):
     assert bool(want.any())
 
 
-def test_swar_fused_kernel_raises_past_its_shared_memory(cuda):
-    """3000 classes need a (8, 3000) int32 vote partial and 64 vote rows
-    of 3000 bytes per block, more than an H100 block's 227 KB: the launch
-    is refused and the wrapper raises; nothing falls back."""
-    lits, inc = _inputs(cuda, 4, 3000, 1, 40, 0.1, seed=6)
-    vm = make_vote_matrix(3000, 1, cuda)
+# (B, C, M, L, density): class counts whose whole (8, C) vote partial and
+# 64 vote rows of C bytes overrun an H100 block's 227 KB (about 128 bytes
+# a class beside the staged words), so K1 tiles the class axis: 3,000
+# classes in two tiles at a serving and at a bulk-sized batch (the bulk
+# tile does not fit, so the serving tile runs tiled), 1,901 (odd: byte
+# loads of the vote rows, and a last tile of 941 classes, not a whole
+# number of words), and 5,000 classes over two 64-word chunks of Wl = 65
+@pytest.mark.parametrize("case", [(4, 3000, 1, 40, 0.1),
+                                  (1100, 3000, 1, 40, 0.1),
+                                  (9, 1901, 2, 130, 0.05),
+                                  (33, 5000, 1, 2080, 0.002)],
+                         ids=lambda c: "B{}C{}M{}L{}-d{}".format(*c))
+def test_swar_fused_kernel_past_its_old_shared_memory_limit(cuda, case):
+    """Once refused (the launch failed and the wrapper raised at 3,000
+    classes); now bitwise equal to the plain version."""
+    b, c, m, lit, density = case
+    lits, inc = _inputs(cuda, b, c, m, lit, density, seed=6 + b + c)
+    g = torch.Generator().manual_seed(c)
+    vm = torch.randint(-3, 4, (c * m, c), generator=g,
+                       dtype=torch.int8).to(cuda)
+    not_words, inc_words = pack_bits(1 - lits), pack_bits(inc)
     n = swar_fused_votes.launches
-    with pytest.raises(RuntimeError, match="swar_fused_votes failed"):
-        swar_fused_votes(pack_bits(1 - lits), pack_bits(inc), vm)
-    assert swar_fused_votes.launches == n
+    got = swar_fused_votes(not_words, inc_words, vm)
+    torch.cuda.synchronize()
+    assert swar_fused_votes.launches == n + 1
+    want = swar_fused_votes_plain(not_words, inc_words, vm)
+    assert torch.equal(got, want)
+    assert bool(want.any())
 
 
 def test_kernels_take_an_arbitrary_vote_matrix(cuda):
@@ -194,7 +212,8 @@ def test_empty_batch(cuda):
 
 
 @pytest.mark.parametrize("backend", ["adder_tree", "mxu_fused", "oracle",
-                                     "swar_fused", "swar_packed"])
+                                     "sparse_csr", "swar_fused",
+                                     "swar_packed"])
 def test_engines_on_cuda_match_cpu_oracle(cuda, backend):
     assert backend in available_backends()
     rng = np.random.default_rng(7)
@@ -252,8 +271,8 @@ def _k2_inputs(dev, b, c, m, lit, density, seed, masks="masks"):
 # edges of the batch split (4 groups, 128-row chunks: B = 2, 31, 33, 128,
 # 129, 257, 512), class counts around the class tile the partials' budget
 # holds at L = 1568 (24 classes: C = 13 and 24 in one tile, 25 just
-# above, 49 in three), every mask on, and L = 2049 / 4096 (two steps of
-# four columns per thread)
+# above, 49 in three), every mask on, L = 2049 / 4096 (two steps of
+# four columns per thread), and class tiles that no row addresses
 K2_CASES = [(32, 10, 50, 1568, 0.05, "masks"),
             (37, 10, 50, 1568, 1.0, "masks"),
             (1, 10, 50, 1568, 0.0, "masks"), (64, 3, 7, 18, 0.3, "masks"),
@@ -268,7 +287,9 @@ K2_CASES = [(32, 10, 50, 1568, 0.05, "masks"),
             (40, 13, 5, 1568, 0.2, "masks"), (33, 25, 3, 1568, 0.1, "masks"),
             (30, 24, 3, 1568, 0.1, "masks"), (33, 49, 2, 1568, 0.1, "masks"),
             (32, 10, 50, 1568, 0.05, "all"), (37, 4, 6, 130, 0.3, "all"),
-            (20, 4, 3, 2049, 0.01, "masks"), (20, 3, 3, 4096, 0.01, "all")]
+            (20, 4, 3, 2049, 0.01, "masks"), (20, 3, 3, 4096, 0.01, "all"),
+            # three class tiles and two rows: a tile no row addresses
+            (2, 49, 2, 1568, 0.1, "all")]
 
 
 @pytest.mark.parametrize("case", K2_CASES,
@@ -289,6 +310,29 @@ def test_train_deltas_kernel_bitwise_vs_plain(cuda, case):
         assert torch.equal(want.cpu(), train_deltas_keyed_plain(
             *[t.cpu() for t in args], **kw))
         assert bool(got.any()) == (masks != "off" and b > 0)
+
+
+# (B, C, M, L, density, masks): class counts past what K2 stages for every
+# class at once (the include tiles, C * TL / 8 bytes, beside the partials
+# and the row stage: about 25,000 classes at L = 64 (TL = 64) and 6,100
+# at L = 1568 (TL = 256, a 7-block cluster)), so it stages each chunk's
+# addressed include rows instead
+@pytest.mark.parametrize("case", [(8, 26000, 2, 64, 0.05, "masks"),
+                                  (33, 6200, 2, 1568, 0.02, "all")],
+                         ids=lambda c: "B{}C{}M{}L{}-d{}-{}".format(*c))
+def test_train_deltas_kernel_past_its_old_class_limit(cuda, case):
+    b, c, m, lit, density, masks = case
+    args = _k2_inputs(cuda, b, c, m, lit, density, seed=b + m,
+                      masks=masks)
+    kw = dict(n_classes=c, p_inc=6 / 7, p_dec=1 / 7)
+    n = train_deltas_keyed.launches
+    got = train_deltas_keyed(*args, **kw)
+    torch.cuda.synchronize()
+    assert train_deltas_keyed.launches == n + 1
+    want = train_deltas_keyed_plain(*args, **kw)
+    assert got.shape == (c, m, lit)
+    assert torch.equal(got, want)
+    assert bool(got.any())
 
 
 def test_train_deltas_kernel_reads_int64_labels(cuda):
@@ -324,6 +368,36 @@ def test_fused_on_cuda_equals_reference_on_cpu(cuda):
         cpu = ref.step(cpu, k, lits, y)
         assert gpu.ta.device.type == "cuda"
         assert torch.equal(gpu.ta.cpu(), cpu.ta)
+    assert not np.array_equal(cpu.ta.numpy(), ta)
+
+
+def test_sparse_on_cuda_equals_reference_on_cpu(cuda):
+    """The sparse engine on the card (ELL votes + K2) over a 5-step chain
+    at tm-mnist-50 width: each state equals the CPU reference's and the
+    CPU sparse engine's, and its layout tracks the state on the card."""
+    rng = np.random.default_rng(13)
+    cfg = TMConfig(10, 50, 784, T=5, s=7.0)
+    ta = np.where(rng.random((10, 50, 1568)) < 0.05, 129, 128)
+    gpu = state_from_numpy(ta)
+    cpu = cpu_sp = state_from_numpy(ta, device="cpu")
+    sparse, ref = get_train_engine("sparse", cfg, cache=False), \
+        get_train_engine("reference", cfg)
+    sparse_cpu = get_train_engine("sparse", cfg, cache=False)
+    chain = prng.key(4)
+    n = train_deltas_keyed.launches
+    for _ in range(5):
+        lits = rng.integers(0, 2, (32, 1568), dtype=np.int8)
+        y = rng.integers(0, 10, (32,), dtype=np.int32)
+        chain, k = prng.split(chain)
+        gpu = sparse.step(gpu, k, lits, y)
+        cpu = ref.step(cpu, k, lits, y)
+        cpu_sp = sparse_cpu.step(cpu_sp, k, lits, y)
+        assert gpu.ta.device.type == "cuda"
+        assert torch.equal(gpu.ta.cpu(), cpu.ta)
+        assert torch.equal(cpu_sp.ta, cpu.ta)
+    assert train_deltas_keyed.launches == n + 5
+    assert sparse._ell.layout.indices.device.type == "cuda"
+    assert sparse.layout_stats() == sparse_cpu.layout_stats()
     assert not np.array_equal(cpu.ta.numpy(), ta)
 
 
@@ -454,9 +528,19 @@ def _race_args(dev, b, c, m, seed, integer):
     return [t.to(dev) for t in (sel, ed, skew)]
 
 
+# (B, C, M): the kernel_bench shape and B = 1; C = 1 (32 lanes a class),
+# 10 (3), 16 (2), 17 and 32 (a lane a class), 33 and 100 (lanes walk
+# several classes) and 3,000; M = 0, 1 and not a multiple of 4 or 16
+# (rows start off 16-byte alignment: head and tail bytes); C * M = 20,000
+# (tables and row buffers past shared memory: read from global memory);
+# and more rows than warps in the grid (a warp takes several rows)
 @pytest.mark.parametrize("b,c,m", [(1, 10, 50), (37, 10, 50),
                                    (1024, 10, 100), (37, 1, 50),
-                                   (20, 3000, 4), (9, 33, 1)])
+                                   (20, 3000, 4), (9, 33, 1),
+                                   (1, 10, 100), (33, 10, 7), (5, 3, 101),
+                                   (64, 16, 13), (64, 17, 13), (40, 32, 5),
+                                   (16, 100, 9), (6, 5, 0), (9, 1, 1),
+                                   (3, 100, 200), (5000, 4, 6)])
 def test_pdl_race_kernel_bitwise_on_integer_delays(cuda, b, c, m):
     args = _race_args(cuda, b, c, m, b + c + m, integer=True)
     n = pdl_race.launches
@@ -469,6 +553,34 @@ def test_pdl_race_kernel_bitwise_on_integer_delays(cuda, b, c, m):
         assert torch.equal(g_, w_)
     for g_, w_ in zip(want, pdl_race_plain(*[t.cpu() for t in args], 10.0)):
         assert torch.equal(g_.cpu(), w_)
+    if not m:
+        return
+    # selects one byte off 16-byte alignment: every row's head and tail
+    got = pdl_race(_shifted(args[0]), *args[1:], 10.0)
+    torch.cuda.synchronize()
+    for g_, w_ in zip(got, want):
+        assert torch.equal(g_, w_)
+
+
+@pytest.mark.parametrize("c", [1, 3, 10, 40])
+def test_pdl_race_kernel_ties_keep_the_kernel_rule(cuda, c):
+    """Tied minima on integer delays: the winner is the lowest tied class
+    and the gap runs to the next distinct arrival (0, so metastable, when
+    every class ties or C = 1), bit for bit with the plain version."""
+    sel, ed, skew = _race_args(cuda, 64, c, 9, 7 + c, integer=True)
+    if c > 1:
+        sel[:, c - 1] = sel[:, 0]          # class c-1 ties class 0 ...
+        ed[c - 1] = ed[0]
+        skew[c - 1] = skew[0]
+        sel[:8] = sel[:8, :1].clone()      # ... and every class ties here
+        ed[:] = ed[:1].clone()
+        skew[:] = skew[:1].clone()
+        sel[8:, 1:c - 1] = 1 - sel[8:, :1]  # elsewhere the others differ
+    got = pdl_race(sel, ed, skew, 10.0)
+    want = pdl_race_plain(sel, ed, skew, 10.0)
+    for g_, w_ in zip(got, want):
+        assert torch.equal(g_, w_)
+    assert bool(got[2][:8].all())          # all arrive together: gap 0
 
 
 def test_pdl_race_kernel_float_delays_and_tied_minimum(cuda):

@@ -26,8 +26,8 @@ from repro_torch.engine import (EngineResult, ServiceStats,
 # torch's default of one intra-op thread per core oversubscribes the CPU
 torch.set_num_threads(2)
 
-PORTED = ["adder_tree", "mxu_fused", "oracle", "swar_fused", "swar_packed",
-          "time_domain"]
+PORTED = ["adder_tree", "mxu_fused", "oracle", "sparse_csr", "swar_fused",
+          "swar_packed", "time_domain"]
 SHAPES = [(2, 6, 9), (3, 10, 12), (4, 8, 40)]
 
 
@@ -58,7 +58,7 @@ def test_registry_holds_the_ported_backends():
     assert available_backends() == PORTED
 
 
-@pytest.mark.parametrize("name", ["sparse_csr", "cascade"])
+@pytest.mark.parametrize("name", ["cascade"])
 def test_unported_backends_raise(name):
     _, _, cfg, st = _both(2, 4, 3, _random_tm(2, 4, 3)[0])
     with pytest.raises(KeyError, match="unknown VoteEngine backend"):

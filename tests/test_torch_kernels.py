@@ -306,14 +306,16 @@ def test_phase_clocks_summarize():
         summarize(clk, ns, 5)
 
 
-@pytest.mark.parametrize("name", ["swar_fused_votes", "train_deltas"])
+@pytest.mark.parametrize("name", ["swar_fused_votes", "train_deltas",
+                                  "pdl_race"])
 def test_phase_marks_match_the_probe(name):
     """Each probed source marks PHASE(0) .. PHASE(n) in order, one mark
     per boundary of the probe's phase names, and takes the marks from the
     header that compiles them out unless REPRO_PHASE_CLOCKS is set."""
     from repro_torch.kernels import phase_clocks
     phases = {"swar_fused_votes": phase_clocks.K1_PHASES,
-              "train_deltas": phase_clocks.K2_PHASES}[name]
+              "train_deltas": phase_clocks.K2_PHASES,
+              "pdl_race": phase_clocks.K5_PHASES}[name]
     text = (ops._CSRC / ops.KERNEL_SOURCES[name]).read_text()
     marks = [int(i) for i in re.findall(r"PHASE\((\d+)\)", text)]
     assert marks == list(range(len(phases) + 1))

@@ -116,7 +116,8 @@ def test_submit_labeled_validation():
     _run(go())
 
 
-@pytest.mark.parametrize("backend", ["reference", "packed", "fused"])
+@pytest.mark.parametrize("backend", ["reference", "packed", "fused",
+                                     "sparse"])
 def test_update_chain_replays_bit_exactly(backend):
     """Applied updates advance the version by one each and publish the
     states of the offline replay — which equal the JAX TMServer's states

@@ -181,25 +181,33 @@ def test_bucket_for_and_default_buckets():
 
 
 def test_routing_explicit_and_heuristic_fails_loudly():
-    """Explicit routes win; the density heuristic still names sparse_csr
-    at <=10% density, and — sparse_csr not being ported — the batch fails
-    with the registry's error instead of being re-routed."""
+    """Explicit routes win; the density heuristic names sparse_csr at
+    <=10% density, and a server built without ``backend=`` serves such a
+    state through it, bit-exact against the oracle (this test once pinned
+    the registry's unknown-backend error, before sparse_csr was ported)."""
     cfg, sparse = _tm(seed=6, density=0.05)
     assert route_buckets(cfg, sparse, (1, 8), backend="mxu_fused") == \
         {1: "mxu_fused", 8: "mxu_fused"}
     assert set(route_buckets(cfg, sparse, (1, 8)).values()) == {"sparse_csr"}
     _, dense = _tm(seed=6, density=0.5)
     assert set(route_buckets(cfg, dense, (1, 8)).values()) == {"swar_packed"}
+    reqs = _requests([1, 4, 2, 3, 1], seed=7)
 
     async def go():
         async with TMServer(cfg, sparse, ServePolicy(max_batch=4),
                             device="cpu") as srv:
-            with pytest.raises(KeyError, match="unknown VoteEngine backend "
-                                               "'sparse_csr'"):
-                await srv.submit(np.zeros((1, 2 * F), np.int8))
-            assert srv.stats()["errors"] == 1
+            assert set(srv.routing.values()) == {"sparse_csr"}
+            results = [await srv.submit(lits) for _, _, lits in reqs]
+            return results, srv.stats()
 
-    _run(go())
+    results, stats = _run(go())
+    oracle = get_engine("oracle", cfg, sparse)
+    for (_, _, lits), res in zip(reqs, results):
+        want = oracle.infer(lits)
+        np.testing.assert_array_equal(res.prediction, want.prediction.numpy())
+        np.testing.assert_array_equal(res.class_sums, want.class_sums.numpy())
+    assert stats["errors"] == 0 and stats["requests"] == len(reqs)
+    assert stats["sparse_layout"]["rebuilds"] == 1
 
 
 def test_failing_batch_fails_only_its_requests():

@@ -33,7 +33,7 @@ from repro_torch.kernels import train_fused as tfused
 # torch's default of one intra-op thread per core oversubscribes the CPU
 torch.set_num_threads(2)
 
-PORTED = ["fused", "packed", "reference"]
+PORTED = ["fused", "packed", "reference", "sparse"]
 # (C, M, F): odd M (unequal polarity halves), C=2 (forced negative class)
 SHAPES = [(2, 6, 9), (3, 10, 12), (5, 7, 33), (4, 12, 5), (10, 25, 49)]
 
@@ -355,7 +355,7 @@ def test_registry():
     assert set(PORTED) <= set(available_train_backends())
     assert DEFAULT_TRAIN_BACKEND in available_train_backends()
     with pytest.raises(KeyError, match="unknown TrainEngine backend"):
-        get_train_engine("sparse", TMConfig(2, 4, 3))
+        get_train_engine("sharded", TMConfig(2, 4, 3))
 
 
 @pytest.mark.parametrize("shape", SHAPES[::2],
@@ -394,7 +394,7 @@ def test_engine_density_extremes_and_no_boost(backend, density):
 
 def test_engines_at_tm_mnist_width():
     """tm-mnist-50 (C=10, M=50, F=784, T=5, s=7) at a 32-row labeled
-    batch: the three engines agree with JAX train_step."""
+    batch: every port engine agrees with JAX train_step."""
     jcfg, tcfg, ta, lits, y = _random_tm(10, 50, 784, density=0.05, seed=4,
                                          batch=32, s=7.0)
     key, tkey = _keys(6)
@@ -433,7 +433,7 @@ def test_engine_opts_match_jax():
         want = jtrain_engine_opts(jget_train_engine(backend, jcfg,
                                                     cache=False))
         got = train_engine_opts(get_train_engine(backend, tcfg, cache=False))
-        if backend == "fused":
+        if backend in ("fused", "sparse"):
             want = {**want, "block_b": 64, "block_m": 128}
         assert got == want, backend
     assert train_engine_opts(object()) == {}
