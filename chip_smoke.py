@@ -6,7 +6,9 @@ against its plain PyTorch version, serves tm-mnist-50 through
 ``time_domain`` race, serves while it learns online through the
 ``fused`` train engine and, with default routing, through ``sparse_csr``
 and the ``sparse`` train engine, drives the time-domain popcount and PDL
-race kernels on the served state, and trains and runs the paper's BNN.
+race kernels on the served state, trains and runs the paper's BNN, kills,
+restores and rolls back a learning server through checkpoints, and
+serves through the early-exit cascade as the overload shed tier.
 
     python3 chip_smoke.py
 
@@ -92,7 +94,34 @@ package.  Phases, each on its own lines:
 8. the BNN: ``launch.bnn_popcount.run(device="cuda")`` trains the
    784-128-10 BNN and runs its int8 inference through K6, checked
    against an int32 matmul; K6's counter zeroed before, read after;
-9. a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
+9. the state lifecycle: a cuda ``TMServer`` (``mxu_fused``, ``fused``
+   training, ``train_seed=0``, checkpoints every 4 versions in a
+   temporary directory, 2 kept, a history ring of 2) takes 8 of phase
+   5's labeled batches under the predict clients and stops; a fresh
+   cuda server ``restore()``s (with another ``train_seed``: the saved
+   cursor must drive the chain) and takes the other 8, then rolls back
+   to version 12, which only the disk holds, and serves it.  Every
+   published version must equal the CPU ``reference`` replay of the 16
+   batches on one key chain, every response the CPU oracle at its
+   pinned version, the newest manifest must read back through the port's
+   msgpack reader with ``dtypes == ["uint32", "int32"]`` and the JAX
+   ``treedef``, and the counters (zeroed just before each server's
+   traffic) must show K2 = K1 = updates and K3 = predict batches; the
+   host-clock times of a blocking ``checkpoint()`` and of the
+   ``restore()`` are printed;
+10. the shed tier: a cuda ``TMServer`` with ``backend="mxu_fused"``,
+   ``shed_backend="cascade"``, ``shed_qdepth=0`` and
+   ``shed_opts={"full_backend": "mxu_fused"}`` serves phase 4's traffic
+   on the learned state (predictions, and escalated rows' sums, == CPU
+   oracle), then the indicator machine of ``tests/test_cascade.py`` at
+   full width with its one-hot rows (no row may escalate), then phase
+   4's traffic through ``routing={b: "cascade"}`` with exact sums (== the
+   oracle's class sums), and the indicator machine's rows that way too
+   (its settled rows take the exact-sums completion pass).  In each run K1 = stage-1 + completion passes
+   and K3 = escalated sub-batches (0 when routed: the default escalation
+   backend ``swar_packed`` has no kernel); ``stats()["tiers"]`` and
+   request p50/p99 are printed;
+11. a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero; without a CUDA device it exits 1
@@ -110,6 +139,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -285,10 +315,39 @@ def check_kernels(torch, rt) -> dict:
     return out
 
 
-async def serve(torch, rt, backend, ta: np.ndarray) -> dict:
-    """Phase 4: one TMServer run on cuda (``backend=None``: default
-    routing); every response checked against the CPU oracle → the run's
-    stats, kernel launch counts and routes."""
+def random_rows(rng) -> np.ndarray:
+    """Phase 4's requests: 1-16 random literal rows."""
+    return rng.integers(0, 2, (int(rng.integers(1, 17)), 2 * F),
+                        dtype=np.int8)
+
+
+def cascade_passes(server) -> dict:
+    """Summed ``passes`` of the cascade engines serving ``server``'s
+    buckets (routed or shed tier): stage-1 and completion passes (one K1
+    call each) and escalated sub-batches."""
+    engines = {}
+    for b in server.buckets:
+        tier = [server.shed_engine_for(b)] \
+            if server.policy.shed_backend else []
+        for eng in [server.engine_for(b)] + tier:
+            if hasattr(eng, "passes"):
+                engines[id(eng)] = eng
+    total = dict.fromkeys(("stage1", "completion", "escalation"), 0)
+    for eng in engines.values():
+        for k in total:
+            total[k] += eng.passes[k]
+    return total
+
+
+async def serve(torch, rt, backend, ta: np.ndarray, *, label=None,
+                policy_kw=None, routing=None, make_lits=random_rows,
+                exact_sums=True) -> dict:
+    """Phases 4 and 10: one TMServer run on cuda (``backend=None``:
+    default routing; ``policy_kw`` / ``routing`` add the shed tier or
+    routed cascades); every response checked against the CPU oracle —
+    predictions, and class sums where the path computes them exactly
+    (``exact_sums``; else on escalated rows only) → the run's stats,
+    kernel launch counts, cascade passes and routes."""
     from repro_torch.convert import state_from_numpy
     from repro_torch.core.tm import TMConfig
     from repro_torch.engine import get_engine
@@ -302,16 +361,17 @@ async def serve(torch, rt, backend, ta: np.ndarray) -> dict:
               if backend == "time_domain" else None)
     server = TMServer(cfg, state_from_numpy(ta),
                       ServePolicy(max_batch=SERVE_BATCH, max_wait_us=500,
-                                  backend=backend))
+                                  backend=backend, **(policy_kw or {})),
+                      routing=routing)
     answered = []
     routes = set(server.routing.values())
-    label = backend or "default(" + "/".join(sorted(routes)) + ")"
+    label = label or backend or \
+        "default(" + "/".join(sorted(routes)) + ")"
 
     async def client(cid: int) -> None:
         rng = np.random.default_rng(SEED + 100 + cid)
         for i in range(PER_CLIENT):
-            lits = rng.integers(0, 2, (int(rng.integers(1, 17)), 2 * F),
-                                dtype=np.int8)
+            lits = make_lits(rng)
             kw = {"deadline_us": 2_000_000} if i % 3 == 0 else {}
             res = await server.submit(lits, client=cid, **kw)
             answered.append((cid, i, lits, res))
@@ -322,18 +382,27 @@ async def serve(torch, rt, backend, ta: np.ndarray) -> dict:
         warm = time.perf_counter() - t0
         rt["clause_votes"].launches = 0
         rt["swar_fused_votes"].launches = 0
+        passes0 = cascade_passes(server)
         t0 = time.perf_counter()
         await asyncio.gather(*[client(c) for c in range(N_CLIENTS)])
         wall = time.perf_counter() - t0
         launches = {"clause_votes": rt["clause_votes"].launches,
                     "swar_fused_votes": rt["swar_fused_votes"].launches}
+        passes = {k: n - passes0[k]
+                  for k, n in cascade_passes(server).items()}
         stats = server.stats()
     # checked after the traffic, so the CPU oracle's work on the event
     # loop stays out of the measured latencies
     for cid, i, lits, res in answered:
         want = oracle.infer(lits)
+        sums = want.class_sums.numpy()
+        if not exact_sums:
+            esc = res.aux["escalated"]
+            res_sums, sums = res.class_sums[esc], sums[esc]
+        else:
+            res_sums = res.class_sums
         if not (np.array_equal(res.prediction, want.prediction.numpy())
-                and np.array_equal(res.class_sums, want.class_sums.numpy())):
+                and np.array_equal(res_sums, sums)):
             raise AssertionError(f"{label}: response differs from the "
                                  f"CPU oracle (client {cid}, request {i})")
         if td_cpu is not None:
@@ -368,7 +437,8 @@ async def serve(torch, rt, backend, ta: np.ndarray) -> dict:
     if checked != N_CLIENTS * PER_CLIENT or stats["errors"]:
         raise AssertionError(f"{label}: {checked} checked, "
                              f"{stats['errors']} errors")
-    return {"stats": stats, "launches": launches, "routes": routes}
+    return {"stats": stats, "launches": launches, "routes": routes,
+            "passes": passes}
 
 
 def k2_inputs(torch, rt, cfg, ta: np.ndarray, b: int, seed: int,
@@ -572,6 +642,35 @@ def profile_launches(torch, rt) -> dict:
     return counts
 
 
+def label_feed(rt, cfg) -> tuple:
+    """Phase 5's labeled stream: N_UPDATES batches of LABEL_BATCH random
+    rows, labeled by a fixed teacher machine (seed SEED + 2) → (feed,
+    labels)."""
+    from repro_torch.convert import state_from_numpy
+    from repro_torch.engine import get_engine
+    rng = np.random.default_rng(SEED + 3)
+    feed = rng.integers(0, 2, (N_UPDATES, LABEL_BATCH, 2 * F), dtype=np.int8)
+    teacher = get_engine("oracle", cfg, state_from_numpy(
+        make_ta(np.random.default_rng(SEED + 2), DENSITY)))
+    return feed, [teacher.infer(lits).prediction.cpu().numpy()
+                  for lits in feed]
+
+
+def reference_replay(rt, cfg, ta: np.ndarray, feed, labels) -> list:
+    """The CPU ``reference`` engine over the labeled stream on one key
+    chain from ``prng.key(SEED)`` → [state_0, ..., state_N] on the CPU."""
+    from repro_torch.convert import state_from_numpy
+    from repro_torch.engine import get_train_engine
+    prng, ref = rt["prng"], get_train_engine("reference", cfg)
+    chain, state = prng.key(SEED), state_from_numpy(ta, device="cpu")
+    replay = [state]
+    for lits, y in zip(feed, labels):
+        chain, k = prng.split(chain)
+        state = ref.step(state, k, lits, y)
+        replay.append(state)
+    return replay
+
+
 async def serve_and_learn(torch, rt, ta: np.ndarray, *, backend,
                           train_backend: str, expect) -> dict:
     """Phases 5 and 5b: predicts and labeled updates through one TMServer
@@ -586,11 +685,7 @@ async def serve_and_learn(torch, rt, ta: np.ndarray, *, backend,
 
     prng = rt["prng"]
     cfg = rt["TMConfig"](n_classes=C, n_clauses=M, n_features=F, T=T, s=S)
-    rng = np.random.default_rng(SEED + 3)
-    feed = rng.integers(0, 2, (N_UPDATES, LABEL_BATCH, 2 * F), dtype=np.int8)
-    teacher = get_engine("oracle", cfg, state_from_numpy(
-        make_ta(np.random.default_rng(SEED + 2), DENSITY)))
-    labels = [teacher.infer(lits).prediction.cpu().numpy() for lits in feed]
+    feed, labels = label_feed(rt, cfg)
     published = {}
     server = TMServer(cfg, state_from_numpy(ta),
                       ServePolicy(max_batch=SERVE_BATCH, max_wait_us=500,
@@ -640,13 +735,7 @@ async def serve_and_learn(torch, rt, ta: np.ndarray, *, backend,
     # checked after the traffic: the CPU replay and oracle stay off the
     # event loop the server shares
     t0 = time.perf_counter()
-    ref = get_train_engine("reference", cfg)
-    chain, state = prng.key(SEED), state_from_numpy(ta, device="cpu")
-    replay = [state]
-    for lits, y in zip(feed, labels):
-        chain, k = prng.split(chain)
-        state = ref.step(state, k, lits, y)
-        replay.append(state)
+    replay = reference_replay(rt, cfg, ta, feed, labels)
     for v, want in enumerate(replay):
         if not torch.equal(published[v].ta.cpu(), want.ta):
             raise AssertionError(f"learn: published version {v} differs "
@@ -709,6 +798,233 @@ async def serve_and_learn(torch, rt, ta: np.ndarray, *, backend,
           flush=True)
     return {"stats": stats, "launches": launches, "routes": routes,
             "state": published[N_UPDATES]}
+
+
+async def lifecycle(torch, rt, ta: np.ndarray, directory: str) -> dict:
+    """Phase 9: kill, restart and roll back a learning cuda TMServer
+    (``mxu_fused`` serving, ``fused`` training) through checkpoints in
+    ``directory``: server A takes phase 5's first 8 labeled batches under
+    the predict clients and stops (its snapshots); a fresh server B
+    restores and takes the other 8, then rolls back to a version only the
+    disk holds.  Every published state must equal the CPU reference
+    replay on one key chain, every response the CPU oracle at its pinned
+    version; the counters (zeroed just before each server's traffic) must
+    show K2 = K1 = updates and K3 = predict batches."""
+    from repro_torch import checkpoint as ckpt
+    from repro_torch.checkpoint._msgpack import unpackb
+    from repro_torch.convert import state_from_numpy
+    from repro_torch.engine import get_engine
+    from repro_torch.serve import ServePolicy, TMServer
+
+    cfg = rt["TMConfig"](n_classes=C, n_clauses=M, n_features=F, T=T, s=S)
+    feed, labels = label_feed(rt, cfg)
+    half = N_UPDATES // 2
+    published, answered, update_s = [], [], []
+    names = ("clause_votes", "swar_fused_votes", "train_deltas_keyed")
+    launches = collections.Counter()
+    batches = 0
+
+    def server(seed: int):
+        return TMServer(cfg, state_from_numpy(ta),
+                        ServePolicy(max_batch=SERVE_BATCH, max_wait_us=500,
+                                    backend="mxu_fused"),
+                        train_backend="fused", train_seed=seed,
+                        checkpoint_dir=directory, checkpoint_every_updates=4,
+                        checkpoint_keep=2, history_size=2,
+                        on_publish=lambda v, st: published.append((v, st)))
+
+    async def client(srv, cid: int, n: int) -> None:
+        rng = np.random.default_rng(SEED + 300 + cid)
+        for i in range(n):
+            lits = random_rows(rng)
+            version = srv.state_version
+            res = await srv.submit(lits, client=cid)
+            answered.append((version, cid, i, lits, res))
+
+    async def traffic(srv, lo: int, hi: int) -> list:
+        nonlocal batches
+        for name in names:
+            rt[name].launches = 0
+        n0 = srv.stats()["batches"]
+
+        async def feeder() -> list:
+            versions = []
+            for i in range(lo, hi):
+                t0 = time.perf_counter()
+                versions.append(await srv.submit_labeled(feed[i], labels[i]))
+                update_s.append(time.perf_counter() - t0)
+            return versions
+
+        versions, *_ = await asyncio.gather(
+            feeder(), *[client(srv, c, PER_CLIENT // 2)
+                        for c in range(N_CLIENTS)])
+        launches.update({name: rt[name].launches for name in names})
+        batches += srv.stats()["batches"] - n0
+        return versions
+
+    async def first() -> list:
+        async with server(SEED) as srv:
+            await srv.warmup(train_batches=(LABEL_BATCH,))
+            return await traffic(srv, 0, half)
+
+    t0 = time.perf_counter()
+    versions = await first()        # the server stops: its snapshots land
+    srv = server(SEED + 1)          # the restored cursor, not this seed
+    t1 = time.perf_counter()
+    restored = srv.restore()
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t1
+    if restored != half or srv.state.ta.device.type != "cuda":
+        raise AssertionError(f"lifecycle: restored version {restored} on "
+                             f"{srv.state.ta.device}")
+    async with srv:
+        await srv.warmup(train_batches=(LABEL_BATCH,))
+        versions += await traffic(srv, half, N_UPDATES)
+        ckpt.wait_for_complete(directory, 12, timeout=60)
+        if 12 in srv.history_versions:
+            raise AssertionError(f"lifecycle: the ring {srv.history_versions}"
+                                 f" still holds version 12")
+        for name in names:
+            rt[name].launches = 0
+        n0 = srv.stats()["batches"]
+        rolled = srv.rollback(12)
+        await asyncio.gather(*[client(srv, c, 4) for c in range(N_CLIENTS)])
+        launches.update({name: rt[name].launches for name in names})
+        stats = srv.stats()
+        batches += stats["batches"] - n0
+    wall = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    srv.checkpoint(os.path.join(directory, "blocking"))
+    checkpoint_s = time.perf_counter() - t1
+    if versions != list(range(1, N_UPDATES + 1)) or rolled != N_UPDATES + 1:
+        raise AssertionError(f"lifecycle: versions {versions}, rollback "
+                             f"{rolled}")
+    replay = reference_replay(rt, cfg, ta, feed, labels)
+    replay.append(replay[12])       # the rollback republished version 12
+    for v, st in published:
+        if not torch.equal(st.ta.cpu(), replay[v].ta):
+            raise AssertionError(f"lifecycle: published version {v} differs "
+                                 f"from the CPU reference replay")
+    if sorted({v for v, _ in published}) != list(range(N_UPDATES + 2)):
+        raise AssertionError(f"lifecycle: published "
+                             f"{sorted({v for v, _ in published})}")
+    oracles = {}
+    for version, cid, i, lits, res in answered:
+        if version not in oracles:
+            oracles[version] = get_engine("oracle", cfg, replay[version])
+        want = oracles[version].infer(lits)
+        if not (np.array_equal(res.prediction, want.prediction.numpy())
+                and np.array_equal(res.class_sums, want.class_sums.numpy())):
+            raise AssertionError(f"lifecycle: response differs from the CPU "
+                                 f"oracle at version {version} (client "
+                                 f"{cid}, request {i})")
+    if not any(v == N_UPDATES + 1 for v, *_ in answered):
+        raise AssertionError("lifecycle: no response served the rollback")
+    step = ckpt.latest_step(directory)
+    with open(os.path.join(directory, f"step_{step}", "manifest.msgpack"),
+              "rb") as f:
+        manifest = unpackb(f.read())
+    if manifest["dtypes"] != ["uint32", "int32"] or \
+            manifest["treedef"] != "PyTreeDef({'cursor': *, 'ta': *})" or \
+            manifest["extra"]["train_backend"] != "fused":
+        raise AssertionError(f"lifecycle: manifest {manifest}")
+    want_launches = {"clause_votes": batches, "swar_fused_votes": N_UPDATES,
+                     "train_deltas_keyed": N_UPDATES}
+    if dict(launches) != want_launches:
+        raise AssertionError(f"lifecycle: launches {dict(launches)}, "
+                             f"expected {want_launches}")
+    print(f"lifecycle fused+mxu_fused: {N_UPDATES} updates across a kill/"
+          f"restore at version {half} == CPU reference replay; "
+          f"{len(answered)} responses == CPU oracle at their versions "
+          f"({len(oracles)} versions seen) in {wall:.3f}s; rollback(12) "
+          f"from disk -> version {rolled}; steps on disk "
+          f"{ckpt.valid_steps(directory)}; manifest dtypes "
+          f"{manifest['dtypes']} treedef {manifest['treedef']}  "
+          f"launches={dict(launches)}  p50={stats['p50_ms']}ms  "
+          f"p99={stats['p99_ms']}ms", flush=True)
+    print(f"lifecycle host clock: blocking checkpoint() "
+          f"{checkpoint_s * 1e3:.3f} ms, restore() {restore_s * 1e3:.3f} ms "
+          f"of the ({C}, {M}, {2 * F}) int32 state; update latency around "
+          f"submit_labeled p50={statistics.median(update_s) * 1e3:.3f} ms "
+          f"max={max(update_s) * 1e3:.3f} ms, versions 4, 8, 12, 16 (each "
+          f"snapshotted): {[round(update_s[v - 1] * 1e3, 3) for v in (4, 8, 12, 16)]}"
+          f" ms", flush=True)
+    return {"launches": dict(launches), "checkpoint_ms": checkpoint_s * 1e3,
+            "restore_ms": restore_s * 1e3}
+
+
+def indicator_machine() -> tuple:
+    """The wide-margin machine of ``tests/test_cascade.py`` at tm-mnist-50
+    width: class k's +clauses include x_k, its -clauses not-x_k → (ta,
+    its C one-hot rows)."""
+    ta = np.full((C, M, 2 * F), 128, np.int32)
+    for k in range(C):
+        ta[k, 0::2, k] = 129
+        ta[k, 1::2, F + k] = 129
+    rows = np.zeros((C, 2 * F), np.int8)
+    rows[np.arange(C), np.arange(C)] = 1
+    rows[:, F:] = 1 - rows[:, :F]
+    return ta, rows
+
+
+async def shed_tier(torch, rt, ta: np.ndarray) -> dict:
+    """Phase 10: the overload tier on cuda.  Phase 4's traffic on the
+    learned state through ``shed_backend="cascade"`` at ``shed_qdepth=0``
+    (escalation on ``mxu_fused``), then the indicator machine's one-hot
+    rows (every row must settle), then the same traffic through
+    ``routing={b: "cascade"}`` with exact sums.  Predictions (and every
+    exact sum) == CPU oracle; K1 = stage-1 + completion passes, K3 =
+    escalated sub-batches."""
+    from repro_torch.serve import default_buckets
+    tier = {"shed_backend": "cascade", "shed_qdepth": 0,
+            "shed_opts": {"full_backend": "mxu_fused"}}
+    ind_ta, onehot = indicator_machine()
+    routed = {b: "cascade" for b in default_buckets(SERVE_BATCH)}
+
+    def onehot_rows(rng):
+        return onehot[rng.integers(0, C, int(rng.integers(1, 17)))]
+
+    runs = {
+        "shed": await serve(torch, rt, "mxu_fused", ta, label="shed tier",
+                            policy_kw=tier, exact_sums=False),
+        "indicator": await serve(torch, rt, "mxu_fused", ind_ta,
+                                 label="shed indicator", policy_kw=tier,
+                                 make_lits=onehot_rows, exact_sums=False),
+        "routed": await serve(torch, rt, None, ta, label="routed cascade",
+                              routing=routed),
+        # the exact-sums completion pass runs only on rows that settle
+        "routed indicator": await serve(
+            torch, rt, None, ind_ta, label="routed indicator",
+            routing=routed, make_lits=onehot_rows),
+    }
+    for name, run in runs.items():
+        st, passes, got = run["stats"], run["passes"], run["launches"]
+        tiers = st["tiers"]
+        shed = not name.startswith("routed")
+        want = {"swar_fused_votes": passes["stage1"] + passes["completion"],
+                "clause_votes": passes["escalation"] if shed else 0}
+        if got != want or passes["stage1"] != st["batches"] or \
+                tiers["cascade_rows"] != st["rows"]:
+            raise AssertionError(f"shed tier {name}: launches {got}, "
+                                 f"expected {want}; passes {passes}, "
+                                 f"{st['batches']} batches, tiers {tiers}")
+        if shed and (tiers["shed_batches"] != st["batches"]
+                     or passes["completion"]):
+            raise AssertionError(f"shed tier {name}: tiers {tiers}, "
+                                 f"passes {passes}")
+        print(f"shed {name}: tiers={json.dumps(tiers)}  passes={passes}  "
+              f"launches={got}  p50={st['p50_ms']}ms  p99={st['p99_ms']}ms",
+              flush=True)
+    for name in ("indicator", "routed indicator"):
+        if runs[name]["stats"]["tiers"]["escalated_rows"] != 0:
+            raise AssertionError(f"shed tier: the indicator machine "
+                                 f"escalated rows ({name})")
+    if not runs["routed indicator"]["passes"]["completion"]:
+        raise AssertionError("shed tier: no exact-sums completion pass ran")
+    return {"launches": {k: sum(r["launches"][k] for r in runs.values())
+                         for k in ("swar_fused_votes", "clause_votes")},
+            "escalation_rate":
+                runs["shed"]["stats"]["tiers"]["escalation_rate"]}
 
 
 def timed_row(torch, name, kern, plain, nbytes, t_ops, label,
@@ -1148,6 +1464,9 @@ def main() -> int:
                       learn["state"].ta.cpu().numpy()))
     slice_run = time_domain_popcount(torch, rt, learn["state"])
     bnn = bnn_phase(torch, rt)
+    with tempfile.TemporaryDirectory() as tmp:
+        life = asyncio.run(lifecycle(torch, rt, ta, tmp))
+    shed = asyncio.run(shed_tier(torch, rt, learn["state"].ta.cpu().numpy()))
 
     meta = {
         "swar_fused_votes": ("src/repro_torch/csrc/swar_fused.cu",
@@ -1179,6 +1498,12 @@ def main() -> int:
                 "popcount_words": "{}x{}".format(*K4_SHAPES[-1]),
                 "pdl_race": "B={} C={} M={}".format(*K5_SHAPES[-1]),
                 "binary_matmul": "{}x{}x{}".format(*K6_MAIN)}
+    # launches in the later paths, each counted from 0 around its traffic:
+    # phase 9 (lifecycle) and phase 10 (shed tier)
+    by_phase = {name: {ph: run["launches"][name]
+                       for ph, run in (("9", life), ("10", shed))
+                       if name in run["launches"]}
+                for name in meta}
     rows = []
     for name, (source, replaces, pallas) in meta.items():
         k = kernels[name]
@@ -1191,6 +1516,8 @@ def main() -> int:
                      "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
                      "library_ms": k.get("library_ms"),
                      "shape": shape_of[name],
+                     **({"launches_by_phase": by_phase[name]}
+                        if by_phase[name] else {}),
                      **({"device_kernels_per_call": per_call[name]}
                         if name in per_call else {}),
                      **({"at_1024^3": k["at_1024^3"]} if "at_1024^3" in k

@@ -29,10 +29,10 @@ construction, so ``infer`` does only literal-dependent work, and all
 return identical ``prediction`` and ``class_sums`` (ties → lowest
 index), bit for bit equal to the JAX package's same-named backends.
 
-Not registered yet (see ROADMAP.md): ``cascade``; asking for it raises
-the registry's unknown-backend error.
-The JAX ``block_b``/``block_cm`` tile options of the fused backends are
-TPU tiling and have no counterpart here.
+The early-exit ``cascade`` backend lives in
+:mod:`repro_torch.engine.cascade`.  The JAX ``block_b``/``block_cm`` tile
+options of the fused backends are TPU tiling and have no counterpart
+here.
 """
 
 from __future__ import annotations

@@ -1,5 +1,6 @@
 """TM serving launcher: micro-batching scheduler under synthetic traffic
-(port of ``repro.launch.tm_serve``: predict and learning flags).
+(port of ``repro.launch.tm_serve``: predict, learning, lifecycle and
+shed-tier flags).
 
 Builds a TM at trained-machine include density on ``--device`` (default
 cuda), warms up every bucket's engine (building the CUDA kernels at first
@@ -32,8 +33,33 @@ the live line then gains ``miss=``/``adm=`` fields.
 a fixed random teacher machine built from ``--seed``, and the live line
 gains ``ver=``.  ``--probe-every N`` scores ``--probe-size`` held-out
 teacher-labeled rows every N applied updates (``acc=``/``drift=``);
-``--history-size`` bounds the ring of rollback targets.  The checkpoint,
-fleet and mesh flags are not ported yet (see ROADMAP.md).
+``--history-size`` bounds the ring of rollback targets.
+
+``--shed-backend cascade`` arms the overload tier: batches dispatched
+while the queue holds at least ``--shed-qdepth`` waiting items (0: every
+batch) route to the exact early-exit cascade (``exact_sums=False``); the
+live line gains ``shed=`` and ``esc=`` (the escalation rate):
+
+    PYTHONPATH=src python -m repro_torch.launch.tm_serve --device cpu \
+        --backend mxu_fused --shed-backend cascade --clients 8
+
+State lifecycle, in the JAX package's on-disk format (a snapshot either
+launcher writes, the other resumes):
+
+    PYTHONPATH=src python -m repro_torch.launch.tm_serve --device cpu \
+        --train-backend fused --checkpoint-dir /tmp/tm-ckpt \
+        --checkpoint-every 20 --label-rate 10 --clients 8
+    # kill it, then resume the update chain from the newest snapshot:
+    PYTHONPATH=src python -m repro_torch.launch.tm_serve --device cpu \
+        --train-backend fused --checkpoint-dir /tmp/tm-ckpt --restore
+
+``--checkpoint-every N`` snapshots every N applied updates on a writer
+thread (``--checkpoint-keep`` newest kept; the live line shows
+``ckpt@``); ``--restore`` resumes from the newest valid step;
+``--ckpt-role follower`` waits up to ``--ckpt-wait`` seconds for a
+leader's valid snapshot in a shared ``--checkpoint-dir``, restores it
+and never writes.  The fleet and mesh flags are not ported yet (see
+ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -73,6 +99,14 @@ async def _stats_printer(server, every: float) -> None:
         if probe is not None and probe["accuracy"] is not None:
             extra += (f"  acc={probe['accuracy']:.3f}"
                       f"  drift={probe['drift']:+.3f}")
+        ckpt = s["checkpoint"]
+        if ckpt is not None and ckpt["last_step"] is not None:
+            extra += f"  ckpt@{ckpt['last_step']}"
+        tiers = s["tiers"]
+        if tiers["shed_backend"] is not None or tiers["cascade_rows"]:
+            extra += f"  shed={tiers['shed_batches']}"
+            if tiers["cascade_rows"]:
+                extra += f"  esc={tiers['escalation_rate']:.2f}"
         dl = s["deadline"]
         if dl["requests"] or dl["admission_rejects"]:
             extra += (f"  miss={dl['miss_rate']:.3f}"
@@ -132,6 +166,8 @@ async def _run(args) -> None:
                          max_wait_us=args.max_wait_us,
                          queue_depth=args.queue_depth,
                          backend=args.backend,
+                         shed_backend=args.shed_backend,
+                         shed_qdepth=args.shed_qdepth,
                          pipeline_depth=args.pipeline_depth)
     rng = np.random.default_rng(args.seed + 1)
     pool = rng.integers(0, 2, (4096, cfg.n_literals), dtype=np.int8)
@@ -143,10 +179,34 @@ async def _run(args) -> None:
             probe_lits = np.random.default_rng(args.seed + 4).integers(
                 0, 2, (args.probe_size, cfg.n_literals), dtype=np.int8)
             probe = (probe_lits, _teacher_labels(cfg, args, probe_lits))
+    follower = args.ckpt_role == "follower"
+    if follower and not args.checkpoint_dir:
+        raise SystemExit("--ckpt-role follower needs --checkpoint-dir")
+    if args.restore and not args.checkpoint_dir:
+        raise SystemExit("--restore needs --checkpoint-dir")
     server = TMServer(cfg, state, policy, device=args.device,
                       train_backend=args.train_backend or None,
-                      train_seed=args.seed, history_size=args.history_size,
+                      train_seed=args.seed,
+                      checkpoint_dir=None if follower
+                      else args.checkpoint_dir,
+                      checkpoint_every_updates=0 if follower
+                      else args.checkpoint_every,
+                      checkpoint_keep=args.checkpoint_keep,
+                      history_size=args.history_size,
                       probe=probe, probe_every_updates=args.probe_every)
+    if follower:
+        # a follower never writes to the shared directory: it waits for
+        # the leader's atomic rename to land a .complete marker
+        from repro_torch import checkpoint as ckpt
+        step = ckpt.wait_for_complete(args.checkpoint_dir,
+                                      timeout=args.ckpt_wait)
+        version = server.restore(args.checkpoint_dir)
+        print(f"follower: restored step_{step} from {args.checkpoint_dir} "
+              f"at state version {version} (read-only)")
+    elif args.restore:
+        version = server.restore()
+        print(f"restored from {args.checkpoint_dir} at state version "
+              f"{version} (resuming the deterministic update chain)")
     async with server:
         print(f"TM C={cfg.n_classes} M={cfg.n_clauses} F={cfg.n_features} "
               f"density={args.density}  device={server.device}  "
@@ -201,13 +261,26 @@ async def _run(args) -> None:
                   f"{args.pipeline_depth}): {dl['requests']} deadline "
                   f"requests, {dl['misses']} missed "
                   f"(rate {dl['miss_rate']:.3f}); "
-                  f"{len(rejects)} rejected at admission")
+                  f"{len(rejects)} rejected at admission; "
+                  f"{dl['slack_shed_batches']} batches slack-shed")
+        if s["checkpoint"] is not None:
+            c = s["checkpoint"]
+            print(f"checkpoints: dir={c['dir']}  last_step={c['last_step']}"
+                  f"  restored_from={c['restored_from']}  "
+                  f"history={s['history']['versions']}")
         if s["probe"] is not None and s["probe"]["accuracy"] is not None:
             p = s["probe"]
             print(f"drift probe: acc={p['accuracy']:.3f}  "
                   f"best={p['best']:.3f}  drift={p['drift']:+.3f}  "
                   f"({p['evals']} evals, last at v{p['at_version']})")
-        cache = s["engine_cache"]
+        tiers, cache = s["tiers"], s["engine_cache"]
+        if tiers["shed_backend"] is not None:
+            print(f"shed tier ({tiers['shed_backend']}, qdepth>="
+                  f"{tiers['shed_qdepth']}): {tiers['shed_batches']} "
+                  f"batches / {tiers['shed_rows']} rows shed; "
+                  f"escalated {tiers['escalated_rows']}/"
+                  f"{tiers['cascade_rows']} rows "
+                  f"(rate {tiers['escalation_rate']:.3f})")
         print(f"engine cache: {cache['hits']} hits  {cache['misses']} "
               f"misses  {cache['evictions']} evictions  "
               f"(size {cache['size']}/{cache['maxsize']})")
@@ -231,6 +304,13 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--max-batch", type=int, default=64)
     ap.add_argument("--max-wait-us", type=int, default=2000)
     ap.add_argument("--queue-depth", type=int, default=1024)
+    ap.add_argument("--shed-backend", default=None,
+                    help="overload-tier backend (typically 'cascade'): "
+                         "batches shed here when qdepth crosses "
+                         "--shed-qdepth")
+    ap.add_argument("--shed-qdepth", type=int, default=0,
+                    help="queue depth at dispatch that triggers shedding "
+                         "(0 = shed every batch when --shed-backend set)")
     ap.add_argument("--train-backend", default=None,
                     help="TrainEngine name (reference/packed/fused/"
                          "sparse): serve "
@@ -239,6 +319,26 @@ def main(argv: list[str] | None = None) -> None:
                     help="labeled feedback batches per second")
     ap.add_argument("--label-batch", type=int, default=32,
                     help="rows per labeled feedback batch")
+    ap.add_argument("--checkpoint-dir", default=None,
+                    help="persist lifecycle snapshots here (the JAX "
+                         "package's on-disk format)")
+    ap.add_argument("--checkpoint-every", type=int, default=0,
+                    help="async snapshot every N applied updates "
+                         "(0 = only on graceful stop; needs "
+                         "--checkpoint-dir)")
+    ap.add_argument("--checkpoint-keep", type=int, default=3,
+                    help="newest valid snapshots retained on disk")
+    ap.add_argument("--restore", action="store_true",
+                    help="resume from the newest valid snapshot in "
+                         "--checkpoint-dir before serving")
+    ap.add_argument("--ckpt-role", choices=("leader", "follower"),
+                    default="leader",
+                    help="shared --checkpoint-dir discipline: the leader "
+                         "writes, a follower waits for a valid snapshot, "
+                         "restores it and never writes")
+    ap.add_argument("--ckpt-wait", type=float, default=60.0,
+                    help="follower: seconds to wait for the leader's "
+                         "first valid checkpoint")
     ap.add_argument("--history-size", type=int, default=8,
                     help="bounded in-memory ring of recent (version, "
                          "state) rollback targets")

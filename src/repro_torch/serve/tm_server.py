@@ -1,5 +1,6 @@
 """TM serving: async micro-batching scheduler over the VoteEngine registry
-(port of ``repro.serve.tm_server``: predict and learning planes).
+(port of ``repro.serve.tm_server``: the predict, learning and lifecycle
+planes and the overload shed tier).
 
 Requests arrive one at a time — variable-size, asynchronous, bursty — and
 throughput comes from decoupling arrival from evaluation:
@@ -43,6 +44,16 @@ default on) rejects with :class:`~repro_torch.serve.loadgen.
 DeadlineExceeded` at submit (deadline below the bucket's fastest observed
 service time) and reaps already-expired queue heads at dispatch.
 
+**Overload shedding** (opt-in via ``shed_backend=``) — a batch dispatched
+while the backlog holds at least ``shed_qdepth`` waiting items, or whose
+tightest deadline is inside the bucket's EWMA service time, routes to the
+shed tier's engine instead of the bucket's routed backend.  The intended
+tier is the exact early-exit ``cascade``
+(:mod:`repro_torch.engine.cascade`, built with ``exact_sums=False``):
+predictions stay bit-exact while wide-margin rows skip most clause work.
+``stats()["tiers"]`` counts shed batches and rows and, whenever a cascade
+served a batch (shed or routed), its escalated rows.
+
 A failing batch (bad routing entry, backend error) fails its own
 requests' futures only; the scheduler outlives engine errors.
 
@@ -58,16 +69,25 @@ same seed and batches the published states equal the JAX server's bit for
 bit.  ``probe=(literals, labels)`` with ``probe_every_updates`` scores a
 held-out stream every N applied updates (``stats()["probe"]``).
 
+**State lifecycle** (``checkpoint_dir=``) — :meth:`checkpoint` snapshots
+``(version, TMState, update-key-chain cursor, train backend + opts)``
+through :mod:`repro_torch.checkpoint` in the JAX package's on-disk format
+(atomic, ``.complete``-marked), so a snapshot moves between the two
+packages either way; ``checkpoint_every_updates=`` takes them
+periodically (``save_async`` on a writer thread, ``checkpoint_keep``
+newest retained), ``stop()`` takes a final one and joins the writers,
+and :meth:`restore` resumes a killed server bit-exactly.
+:meth:`rollback` re-publishes a state from the history ring or, failing
+that, from the checkpoint directory.
+
 The server runs on ``device`` (``None`` → cuda, and it raises where no
 GPU is visible); tensors carry their device, so the worker thread needs
 no ``set_device`` and kernels launch on that device's current stream.
 
-Not ported yet (see ROADMAP.md): checkpoint/restore and rollback from
-disk (``checkpoint_dir``, ``checkpoint_every_updates``,
-``checkpoint_keep``), ``mesh=``, the overload shed tier and the measured
+Not ported yet (see ROADMAP.md): ``mesh=`` (and ``restore``'s ``mesh=`` /
+``shardings=``), which raise ``NotImplementedError``, and the measured
 autotune routes (so the density heuristic decides wherever the JAX
-server's autotune cache has no entry).  Passing one of those options
-raises ``NotImplementedError``.
+server's autotune cache has no entry).
 
 >>> async with TMServer(cfg, state, ServePolicy(max_batch=64,
 ...                     backend="mxu_fused")) as srv:
@@ -77,6 +97,9 @@ raises ``NotImplementedError``.
 >>> async with TMServer(cfg, state, train_backend="fused",
 ...                     train_seed=0) as srv:
 ...     version = await srv.submit_labeled(literals, labels)
+>>> srv = TMServer(cfg, state, train_backend="fused",
+...                checkpoint_dir="ckpt", checkpoint_every_updates=50)
+>>> srv.restore()                                 # newest valid snapshot
 """
 
 from __future__ import annotations
@@ -92,11 +115,15 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from repro_torch import checkpoint as ckpt
 from repro_torch.core import prng
 from repro_torch.core.tm import TMConfig, TMState, include_mask
 from repro_torch.engine import (EngineResult, ServiceStats,
-                                engine_cache_info, evict_engines_for_state,
-                                get_engine, get_train_engine, infer_padded)
+                                available_backends, engine_cache_info,
+                                evict_engines_for_state, export_key_cursor,
+                                get_engine, get_train_engine,
+                                import_key_cursor, infer_padded,
+                                train_engine_opts)
 from repro_torch.engine.sparse import IncrementalEll
 from repro_torch.kernels.ops import resolve_device
 
@@ -108,8 +135,7 @@ __all__ = ["ServePolicy", "TMServer", "DeadlineExceeded", "bucket_for",
 _STOP = object()        # queue sentinel: wakes the scheduler for shutdown
 _NOT_PORTED = ("ROADMAP.md lists it among the TMServer options the port "
                "does not have yet")
-_UNPORTED_OPTIONS = ("mesh", "checkpoint_dir", "checkpoint_every_updates",
-                     "checkpoint_keep")
+_UNPORTED_OPTIONS = ("mesh",)
 
 
 def default_buckets(max_batch: int) -> tuple[int, ...]:
@@ -146,10 +172,14 @@ class ServePolicy:
     to one backend; ``None`` routes by the density heuristic.
     ``pipeline_depth``: dispatched batches in flight at once (``1`` is the
     serial scheduler).  ``admission_control``: reject provably late
-    requests instead of serving a guaranteed miss.  ``shed_backend`` /
-    ``shed_qdepth`` / ``shed_opts`` configure the overload tier, which the
-    port does not have yet: a ``TMServer`` given a ``shed_backend``
-    raises ``NotImplementedError``.
+    requests instead of serving a guaranteed miss.
+
+    ``shed_backend``: the overload tier's backend (``None`` turns shedding
+    off).  A batch dispatched while the backlog holds at least
+    ``shed_qdepth`` waiting items — or whose tightest deadline is inside
+    the bucket's EWMA service time — routes there; ``shed_qdepth=0``
+    sheds every batch.  ``shed_opts`` go to the tier engine's
+    constructor; a ``cascade`` tier defaults to ``exact_sums=False``.
     """
 
     max_batch: int = 64
@@ -173,6 +203,15 @@ class ServePolicy:
         if self.buckets is not None:
             return tuple(sorted(set(self.buckets)))
         return default_buckets(self.max_batch)
+
+    def resolved_shed_opts(self) -> dict:
+        """Constructor opts for the shed tier engine: ``shed_opts``, and
+        for a ``cascade`` tier ``exact_sums=False`` unless given (the
+        tier skips the remainder pass; predictions stay exact)."""
+        opts = dict(self.shed_opts or {})
+        if self.shed_backend == "cascade":
+            opts.setdefault("exact_sums", False)
+        return opts
 
 
 def route_buckets(cfg: TMConfig, state: TMState,
@@ -255,6 +294,11 @@ class TMServer:
     0`` scores the held-out probe stream every N applied updates, keeping
     the last ``probe_window`` scores.
 
+    Lifecycle knobs: ``checkpoint_dir`` names where :meth:`checkpoint` /
+    :meth:`restore` persist snapshots; ``checkpoint_every_updates > 0``
+    snapshots asynchronously every that many versions
+    (``checkpoint_keep`` newest retained on disk).
+
     ``device``: where the state lives and the engines run (``None`` →
     cuda; raises where no GPU is visible — pass ``device="cpu"`` for the
     CPU).  ``history_size`` bounds the ring of recent ``(version,
@@ -268,6 +312,9 @@ class TMServer:
                  routing: dict[int, str] | None = None,
                  device=None,
                  train_backend: str | None = None, train_seed: int = 0,
+                 checkpoint_dir: str | None = None,
+                 checkpoint_every_updates: int = 0,
+                 checkpoint_keep: int = 3,
                  history_size: int = 8,
                  probe: tuple | None = None,
                  probe_every_updates: int = 0,
@@ -284,9 +331,11 @@ class TMServer:
             raise NotImplementedError(
                 f"TMServer option(s) {sorted(unported)}: {_NOT_PORTED}")
         self.policy = policy or ServePolicy()
-        if self.policy.shed_backend is not None:
-            raise NotImplementedError(f"ServePolicy.shed_backend (the "
-                                      f"overload tier): {_NOT_PORTED}")
+        if (self.policy.shed_backend is not None
+                and self.policy.shed_backend not in available_backends()):
+            raise ValueError(
+                f"unknown shed_backend {self.policy.shed_backend!r}; "
+                f"available: {available_backends()}")
         self.cfg = cfg
         self.device = resolve_device(device)
         # one lock for every counter stats() reads, so a snapshot is
@@ -316,6 +365,7 @@ class TMServer:
         self._publish(0, state)
         self._train_engine = None
         self._train_key = None
+        self._train_backend = train_backend
         self._train_pool: ThreadPoolExecutor | None = None
         if train_backend is not None:
             self._train_engine = get_train_engine(train_backend, cfg)
@@ -327,6 +377,15 @@ class TMServer:
             # predict compute (stage B) instead of serialising behind it
             self._train_pool = ThreadPoolExecutor(
                 max_workers=1, thread_name_prefix="tm-serve-train")
+        # -- lifecycle: checkpointing, rollback, drift probe ----------
+        self._ckpt_dir = checkpoint_dir
+        self._ckpt_every = int(checkpoint_every_updates)
+        self._ckpt_keep = int(checkpoint_keep)
+        if self._ckpt_every and checkpoint_dir is None:
+            raise ValueError("checkpoint_every_updates needs checkpoint_dir=")
+        self._ckpt_threads: list[threading.Thread] = []   # live writers
+        self._last_ckpt_version: int | None = None
+        self._restored_from: int | None = None
         self._probe = None
         if probe is not None:
             lits, labels = probe
@@ -385,6 +444,14 @@ class TMServer:
         self._n_deadline_misses = 0
         self._n_admission_rejects = 0
         self._n_expired_drops = 0
+        self._n_slack_shed_batches = 0
+        # tier counters: shed decisions are per batch; escalation splits
+        # per row, from any engine whose aux carries an "escalated" mask
+        # (the cascade, shed or routed)
+        self._n_shed_batches = 0
+        self._n_shed_rows = 0
+        self._n_cascade_rows = 0
+        self._n_escalated_rows = 0
 
     def _publish(self, version: int, state: TMState) -> None:
         """Swap in a ``(version, state)`` pair (the state moved to the
@@ -454,15 +521,23 @@ class TMServer:
             evict_engines_for_state(superseded)
 
     def rollback(self, version: int) -> int:
-        """Re-publish a state from the history ring → the new (bumped)
-        version.  Versions stay monotonic; in-flight predicts pinned to
+        """Re-publish a historical state → the new (bumped) version.
+
+        Looks the target up in the history ring first, then — when a
+        checkpoint directory is configured — on disk at ``step ==
+        version``.  Versions stay monotonic; in-flight predicts pinned to
         other versions are untouched.  Rollback restores the state only:
-        the update-key chain keeps advancing from its cursor.  Rollback
-        from a checkpoint on disk is not ported yet (see ROADMAP.md)."""
+        the update-key chain keeps advancing from its cursor.  Call from
+        the event-loop thread."""
         state = next((s for v, s in self._history if v == version), None)
+        if state is None and self._ckpt_dir is not None \
+                and version in ckpt.valid_steps(self._ckpt_dir):
+            _, tree, _ = ckpt.restore_tm_lifecycle(self._ckpt_dir, version)
+            state = TMState(ta=torch.from_numpy(tree["ta"]))
         if state is None:
-            raise KeyError(f"version {version} is not in the history ring "
-                           f"{list(self.history_versions)}")
+            raise KeyError(
+                f"version {version} is in neither the history ring "
+                f"{list(self.history_versions)} nor the checkpoint dir")
         new_version = self._current[0] + 1
         self._publish(new_version, state)
         self._n_rollbacks += 1
@@ -484,15 +559,99 @@ class TMServer:
         """Versions retained in the bounded history ring (oldest first)."""
         return tuple(v for v, _ in self._history)
 
-    # -- planes that are not ported yet ---------------------------------
+    # -- state lifecycle: checkpoint / restore -----------------------
 
-    def checkpoint(self, directory: str | None = None, **_) -> int:
-        """Checkpointing is not ported yet (see ROADMAP.md)."""
-        raise NotImplementedError(f"checkpoint: {_NOT_PORTED}")
+    def _directory(self, directory: str | None) -> str:
+        directory = self._ckpt_dir if directory is None else directory
+        if directory is None:
+            raise ValueError("no checkpoint directory: pass directory= or "
+                             "construct TMServer with checkpoint_dir=")
+        return directory
 
-    def restore(self, directory: str | None = None, **_) -> int:
-        """Restoring from a checkpoint is not ported yet (see ROADMAP.md)."""
-        raise NotImplementedError(f"restore: {_NOT_PORTED}")
+    def checkpoint(self, directory: str | None = None, *,
+                   block: bool = True) -> int:
+        """Snapshot the serving lifecycle → the step number written.
+
+        Persists ``(version, TMState, update-key-chain cursor, train
+        backend + opts)`` at ``step == state_version`` in the JAX
+        package's format and ``extra`` schema (``version``,
+        ``has_cursor``, ``cfg``, ``train_backend``, ``train_opts``,
+        ``updates``, ``rollbacks``, ``mesh_devices``, ``key_impl``), so
+        the JAX ``TMServer.restore`` resumes it too.  ``block=False``
+        copies the state to the host here and serializes on a writer
+        thread (``save_async``); either way ``gc_keep`` retention follows.
+        Call from the event-loop thread, or on a stopped server.
+        """
+        directory = self._directory(directory)
+        version, state = self._current
+        cursor = None
+        extra = {"version": version, "has_cursor": False,
+                 "cfg": dataclasses.asdict(self.cfg),
+                 "train_backend": self._train_backend,
+                 "train_opts": {}, "updates": self._n_updates,
+                 "rollbacks": self._n_rollbacks,
+                 "mesh_devices": None}
+        if self._train_key is not None:
+            data, impl = export_key_cursor(self._train_key)
+            cursor, extra["has_cursor"], extra["key_impl"] = data, True, impl
+            extra["train_opts"] = train_engine_opts(self._train_engine)
+        tree = ckpt.tm_lifecycle_tree(state.ta, cursor)
+        if block:
+            ckpt.save(directory, version, tree, extra=extra)
+        else:
+            self._ckpt_threads = [t for t in self._ckpt_threads
+                                  if t.is_alive()]
+            self._ckpt_threads.append(
+                ckpt.save_async(directory, version, tree, extra=extra))
+        ckpt.gc_keep(directory, self._ckpt_keep)
+        self._last_ckpt_version = version
+        return version
+
+    def restore(self, directory: str | None = None, *,
+                step: int | None = None, mesh=None,
+                shardings=None) -> int:
+        """Resume from a checkpoint (this package's or the JAX package's)
+        → the restored state version.
+
+        Loads the newest valid step (or ``step=``), checks the saved
+        ``TMConfig`` against this server's, publishes the snapshot's
+        ``(version, state)`` on the server's device and adopts its
+        update-key-chain cursor and train backend with its saved opts, so
+        a killed and restarted server replays bit-exactly against the
+        uninterrupted run.  The history ring restarts at the restored
+        pair.  Must run before :meth:`start`.  ``mesh=`` / ``shardings=``
+        (the elastic multi-device restore) are not ported yet.
+        """
+        if mesh is not None or shardings is not None:
+            raise NotImplementedError(
+                f"restore(mesh=, shardings=): {_NOT_PORTED}")
+        if self._task is not None and not self._closed:
+            raise RuntimeError("restore() must run before start()")
+        directory = self._directory(directory)
+        step, tree, extra = ckpt.restore_tm_lifecycle(directory, step)
+        saved_cfg = extra.get("cfg")
+        if saved_cfg and saved_cfg != dataclasses.asdict(self.cfg):
+            raise ValueError(f"checkpoint step_{step} was written for "
+                             f"cfg {saved_cfg}, not {self.cfg}")
+        version = int(extra.get("version", step))
+        self._history.clear()
+        self._publish(version, TMState(ta=torch.from_numpy(tree["ta"])))
+        if extra.get("has_cursor"):
+            backend = extra.get("train_backend")
+            if backend:
+                # the checkpoint's backend and opts win: restore means
+                # resume *that* run
+                self._train_engine = get_train_engine(
+                    backend, self.cfg, **dict(extra.get("train_opts", {})))
+                self._train_backend = backend
+                if self._train_pool is None:
+                    self._train_pool = ThreadPoolExecutor(
+                        max_workers=1, thread_name_prefix="tm-serve-train")
+            self._train_key = import_key_cursor(tree["cursor"],
+                                                extra["key_impl"])
+        self._restored_from = step
+        self._last_ckpt_version = version
+        return version
 
     # -- lifecycle ----------------------------------------------------
 
@@ -509,7 +668,10 @@ class TMServer:
 
     async def stop(self) -> None:
         """Graceful shutdown: drain queued requests and in-flight
-        pipeline stages, then shut down the worker thread it owns."""
+        pipeline stages, shut down the worker threads it owns, take a
+        final checkpoint when a checkpoint directory is set and the state
+        moved past the last snapshot, then join the checkpoint writers so
+        no snapshot is torn by process exit."""
         if self._closed:
             return
         self._closed = True
@@ -520,6 +682,12 @@ class TMServer:
             self._pool.shutdown(wait=True)
         if self._train_pool is not None:
             self._train_pool.shutdown(wait=True)
+        if (self._ckpt_dir is not None
+                and self._current[0] != self._last_ckpt_version):
+            self.checkpoint()
+        for t in self._ckpt_threads:
+            t.join()
+        self._ckpt_threads.clear()
 
     async def __aenter__(self) -> "TMServer":
         return await self.start()
@@ -544,6 +712,16 @@ class TMServer:
                 return pair[1]
         return get_engine(backend, self.cfg, st)
 
+    def shed_engine_for(self, bucket: int, state: TMState | None = None):
+        """The (cached) overload-tier engine (``policy.shed_backend``) on
+        ``state`` (default: the newest); ``bucket`` is kept for symmetry
+        with :meth:`engine_for`."""
+        if self.policy.shed_backend is None:
+            raise RuntimeError("no shed tier configured (shed_backend=)")
+        return get_engine(self.policy.shed_backend, self.cfg,
+                          self.state if state is None else state,
+                          **self.policy.resolved_shed_opts())
+
     async def warmup(self, *, train_batches: tuple[int, ...] = ()) -> None:
         """Build every bucket's engine (the probe's bucket too), and on
         cuda its kernel library, on the worker thread before taking
@@ -558,9 +736,14 @@ class TMServer:
             if probe_bucket not in buckets:
                 buckets.append(probe_bucket)
         for bucket in buckets:
-            eng = self.engine_for(bucket)
-            await loop.run_in_executor(
-                self._pool, lambda e=eng, b=bucket: infer_padded(e, zeros, b))
+            engines = [self.engine_for(bucket)]
+            if self.policy.shed_backend is not None:
+                # the overload tier must be warm before the overload
+                engines.append(self.shed_engine_for(bucket))
+            for eng in engines:
+                await loop.run_in_executor(
+                    self._pool,
+                    lambda e=eng, b=bucket: infer_padded(e, zeros, b))
         for n in train_batches:
             if self._train_engine is None:
                 raise RuntimeError("train_batches warmup needs online "
@@ -892,27 +1075,45 @@ class TMServer:
         self._next_slot = (slot + 1) % self.policy.pipeline_depth
         bucket = bucket_for(rows, self.buckets)
         lits = self._assemble(batch, rows, bucket, slot)
+        # shed decision at dispatch: backlog depth (arrivals outpace
+        # compute) or slack exhaustion (the batch's tightest deadline is
+        # inside the bucket's expected service time)
+        slack_shed = False
+        if self.policy.shed_backend is not None:
+            deadlines = [r.deadline for r in batch if r.deadline is not None]
+            if deadlines:
+                ewma = self._svc.ewma(bucket)
+                slack_shed = (ewma is not None and
+                              min(deadlines) - time.monotonic() < ewma)
+        shed = (self.policy.shed_backend is not None
+                and (self._qdepth() >= self.policy.shed_qdepth
+                     or slack_shed))
         fut = asyncio.get_running_loop().run_in_executor(
-            self._pool, self._compute, lits, bucket, batch[0].state)
+            self._pool, self._compute, lits, bucket, batch[0].state, shed)
         with self._mu:
             self._inflight += 1
             v = batch[0].version
             self._inflight_versions[v] = \
                 self._inflight_versions.get(v, 0) + 1
-        self._completions.put_nowait((batch, rows, bucket, fut))
+            if shed and slack_shed:
+                self._n_slack_shed_batches += 1
+        self._completions.put_nowait((batch, rows, bucket, shed, fut))
         if self.policy.pipeline_depth == 1:
             # serial semantics: this batch retires before the next opens
             await self._completions.join()
 
     # -- stage B: device compute (worker thread) ----------------------
 
-    def _compute(self, lits: np.ndarray, bucket: int,
-                 state: TMState) -> EngineResult:
-        """One padded engine call on the server's device, materialised to
-        numpy (worker thread).  The wall time feeds the per-bucket
-        service ring that admission control reads."""
+    def _compute(self, lits: np.ndarray, bucket: int, state: TMState,
+                 shed: bool) -> EngineResult:
+        """One padded engine call on the server's device (the shed tier's
+        engine when ``shed``), materialised to numpy (worker thread).
+        The wall time feeds the per-bucket service ring that admission
+        control and slack shedding read."""
         t0 = time.perf_counter()
-        res = infer_padded(self.engine_for(bucket, state), lits, bucket)
+        engine = (self.shed_engine_for(bucket, state) if shed
+                  else self.engine_for(bucket, state))
+        res = infer_padded(engine, lits, bucket)
         self._svc.observe(bucket, time.perf_counter() - t0)
         return res
 
@@ -925,7 +1126,7 @@ class TMServer:
             if item is _STOP:
                 self._completions.task_done()
                 return
-            batch, rows, bucket, fut = item
+            batch, rows, bucket, shed, fut = item
             try:
                 try:
                     res = await fut
@@ -937,7 +1138,7 @@ class TMServer:
                     with self._mu:
                         self._n_errors += len(batch)
                 else:
-                    self._fan_out(batch, rows, bucket, res)
+                    self._fan_out(batch, rows, bucket, shed, res)
             finally:
                 with self._mu:
                     self._inflight -= 1
@@ -951,7 +1152,7 @@ class TMServer:
                 self._completions.task_done()
 
     def _fan_out(self, batch: list[_Request], rows: int, bucket: int,
-                 res: EngineResult) -> None:
+                 shed: bool, res: EngineResult) -> None:
         """Slice one completed batch back per request and settle counters
         (one locked update)."""
         done = time.monotonic()
@@ -970,6 +1171,7 @@ class TMServer:
                 n_dead += 1
                 if done > req.deadline:
                     n_miss += 1
+        esc = res.aux.get("escalated")
         with self._mu:
             self._latencies.extend(lats)
             self._n_requests += len(batch)
@@ -978,6 +1180,13 @@ class TMServer:
             self._n_padded_rows += bucket
             self._n_deadline_reqs += n_dead
             self._n_deadline_misses += n_miss
+            if shed:
+                self._n_shed_batches += 1
+                self._n_shed_rows += rows
+            if esc is not None:         # a cascade served this batch
+                # the mask is bucket-shaped: pad rows are not traffic
+                self._n_cascade_rows += rows
+                self._n_escalated_rows += int(esc[:rows].sum())
 
     # -- online learning ----------------------------------------------
 
@@ -1010,6 +1219,11 @@ class TMServer:
             self._n_update_rows += upd.lits.shape[0]
         if not upd.future.done():
             upd.future.set_result(version)
+        if (self._ckpt_dir is not None and self._ckpt_every
+                and version % self._ckpt_every == 0):
+            # the host copy is taken here on the loop; serialization runs
+            # on a writer thread
+            self.checkpoint(block=False)
         if (self._probe is not None and self._probe_every
                 and self._n_updates % self._probe_every == 0):
             try:
@@ -1036,10 +1250,13 @@ class TMServer:
 
     def stats(self) -> dict:
         """Serving counters in one consistent snapshot, with the JAX
-        package's key set; blocks for planes the port does not have yet
-        (checkpoint, mesh, shed tier) read ``None`` or zero.
-        ``sparse_layout`` holds the serving ``IncrementalEll``'s refresh
-        counters (``None`` until a ``sparse_csr`` route exists).  ``device`` names where the engines run.  In online-learning
+        package's key set; ``mesh``, which the port does not have yet,
+        reads ``None``.  ``sparse_layout`` holds the serving
+        ``IncrementalEll``'s refresh counters (``None`` until a
+        ``sparse_csr`` route exists).  ``device`` names where the engines
+        run.  ``checkpoint`` is ``None`` without a checkpoint directory,
+        else the directory, the last step written, the writers still
+        pending and the step restored from.  In online-learning
         mode ``state_version``/``updates``/``update_rows`` track the
         learning stream; ``probe`` is ``None`` without a probe, else the
         latest and best accuracy, ``drift`` = best − latest, ``delta`` =
@@ -1049,7 +1266,10 @@ class TMServer:
         a sliding window of per-request latencies (ms).  ``pipeline``
         shows batches in flight (per state version); ``deadline`` the SLO
         policy's counters; ``buckets`` the per-bucket service-time ring
-        that admission control decides on.
+        that admission control decides on.  ``tiers`` tracks the overload
+        path: the shed backend and threshold, batches and rows shed, and
+        — whenever a cascade served a batch (shed or routed) — its rows,
+        the escalated ones and the ``escalation_rate``.
         """
         with self._mu:
             lats = list(self._latencies)
@@ -1069,10 +1289,23 @@ class TMServer:
                 "deadline_misses": self._n_deadline_misses,
                 "admission_rejects": self._n_admission_rejects,
                 "expired_drops": self._n_expired_drops,
+                "slack_shed": self._n_slack_shed_batches,
+                "shed_batches": self._n_shed_batches,
+                "shed_rows": self._n_shed_rows,
+                "cascade_rows": self._n_cascade_rows,
+                "escalated_rows": self._n_escalated_rows,
                 "routing_updates": self._n_routing_updates,
                 "publish_hook_errors": self._n_publish_hook_errors,
             }
         p50_ms, p90_ms, p99_ms = percentiles_ms(lats, (0.50, 0.90, 0.99))
+        ckpt_stats = None
+        if self._ckpt_dir is not None:
+            ckpt_stats = {
+                "dir": self._ckpt_dir,
+                "last_step": self._last_ckpt_version,
+                "pending": sum(t.is_alive() for t in self._ckpt_threads),
+                "restored_from": self._restored_from,
+            }
         probe_stats = None
         if self._probe is not None:
             probe_stats = {"evals": self._n_probe_evals, "accuracy": None,
@@ -1106,7 +1339,7 @@ class TMServer:
             "history": {"versions": snap["history"],
                         "capacity": self._history.maxlen},
             "rollbacks": self._n_rollbacks,
-            "checkpoint": None,
+            "checkpoint": ckpt_stats,
             "probe": probe_stats,
             "routing": {str(k): v for k, v in sorted(self.routing.items())},
             "routing_updates": snap["routing_updates"],
@@ -1130,18 +1363,20 @@ class TMServer:
                                    / max(snap["deadline_reqs"], 1), 6),
                 "admission_rejects": snap["admission_rejects"],
                 "expired_drops": snap["expired_drops"],
-                "slack_shed_batches": 0,
+                "slack_shed_batches": snap["slack_shed"],
             },
             "buckets": {str(k): v
                         for k, v in sorted(self._svc.snapshot().items())},
             "tiers": {
-                "shed_backend": None,
+                "shed_backend": self.policy.shed_backend,
                 "shed_qdepth": self.policy.shed_qdepth,
-                "shed_batches": 0,
-                "shed_rows": 0,
-                "cascade_rows": 0,
-                "escalated_rows": 0,
-                "escalation_rate": 0.0,
+                "shed_batches": snap["shed_batches"],
+                "shed_rows": snap["shed_rows"],
+                "cascade_rows": snap["cascade_rows"],
+                "escalated_rows": snap["escalated_rows"],
+                "escalation_rate": round(
+                    snap["escalated_rows"]
+                    / max(snap["cascade_rows"], 1), 6),
             },
             "engine_cache": engine_cache_info(),
         }

@@ -15,12 +15,14 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import checkpoint as ckpt
 from repro_torch.convert import state_from_numpy
 from repro_torch.core import prng
 from repro_torch.core.popcount import pack_bits
 from repro_torch.core.tm import TMConfig
 from repro_torch.engine import (available_backends, get_engine,
                                 get_train_engine)
+from repro_torch.engine.cascade import subsample_mask
 from repro_torch.kernels.clause_eval import (clause_votes,
                                              clause_votes_plain,
                                              make_vote_matrix)
@@ -211,8 +213,8 @@ def test_empty_batch(cuda):
                             vm).shape == (0, 2)
 
 
-@pytest.mark.parametrize("backend", ["adder_tree", "mxu_fused", "oracle",
-                                     "sparse_csr", "swar_fused",
+@pytest.mark.parametrize("backend", ["adder_tree", "cascade", "mxu_fused",
+                                     "oracle", "sparse_csr", "swar_fused",
                                      "swar_packed"])
 def test_engines_on_cuda_match_cpu_oracle(cuda, backend):
     assert backend in available_backends()
@@ -624,3 +626,118 @@ def test_bnn_launcher_on_cuda(cuda):
     out = run(device="cuda")
     assert binary_matmul.launches == n + 1
     assert out["h_shape"] == (120, 128)
+
+
+# --- the cascade on K1, and checkpoints across devices -------------------
+
+def _indicator_rows(rng, c, m, f, n_random):
+    """tm-mnist-width indicator machine (class k's +clauses include x_k,
+    its -clauses not-x_k) with its one-hot rows, which settle in stage 1,
+    and random rows, whose tied indicator sums escalate."""
+    ta = np.full((c, m, 2 * f), 128, np.int32)
+    for k in range(c):
+        ta[k, 0::2, k] = 129
+        ta[k, 1::2, f + k] = 129
+    x = np.zeros((c + n_random, f), np.int8)
+    x[np.arange(c), np.arange(c)] = 1
+    x[c:] = rng.integers(0, 2, (n_random, f), dtype=np.int8)
+    return ta, np.concatenate([x, 1 - x], axis=1)
+
+
+@pytest.mark.parametrize("fraction", [0.625, 0.01, 1.0],
+                         ids=["M1=31", "M1=1", "M1=M"])
+@pytest.mark.parametrize("exact_sums", [True, False])
+def test_cascade_on_cuda_equals_cpu(cuda, fraction, exact_sums):
+    """The cascade on the card (stage 1 and the completion pass on K1 at
+    the subsampled C*M1, escalation on K3) against its CPU run, bitwise:
+    prediction, class sums and the escalated mask; K1 launches once per
+    pass, K3 once per escalated sub-batch."""
+    c, m, f = 10, 50, 784
+    ta, lits = _indicator_rows(np.random.default_rng(21), c, m, f, 54)
+    cfg = TMConfig(c, m, f)
+    opts = dict(stage1_fraction=fraction, exact_sums=exact_sums,
+                full_backend="mxu_fused", cache=False)
+    want = get_engine("cascade", cfg, state_from_numpy(ta, device="cpu"),
+                      **opts).infer(lits)
+    eng = get_engine("cascade", cfg, state_from_numpy(ta), **opts)
+    k1, k3 = swar_fused_votes.launches, clause_votes.launches
+    got = eng.infer(lits)
+    torch.cuda.synchronize()
+    assert got.prediction.device.type == "cuda"
+    for a, b in ((got.prediction, want.prediction),
+                 (got.class_sums, want.class_sums),
+                 (got.aux["escalated"], want.aux["escalated"])):
+        assert torch.equal(a.cpu(), b)
+    assert eng._s1[0].shape[0] == c * int(subsample_mask(m, fraction).sum())
+    assert swar_fused_votes.launches - k1 == \
+        eng.passes["stage1"] + eng.passes["completion"]
+    assert clause_votes.launches - k3 == eng.passes["escalation"]
+    oracle = get_engine("oracle", cfg, state_from_numpy(ta, device="cpu")) \
+        .infer(lits)
+    assert torch.equal(got.prediction.cpu(), oracle.prediction)
+    esc = got.aux["escalated"].cpu()
+    if fraction == 1.0:                 # a zero-width bound: all settle
+        assert not esc.any()
+    elif fraction > 0.5:                # one-hot rows settle, ties do not
+        assert not esc[:c].any() and esc[c:].any()
+    else:                               # one clause per class: all escalate
+        assert esc.all()
+
+
+def test_checkpoint_of_cuda_tensors_restores_on_cpu(cuda, tmp_path):
+    rng = np.random.default_rng(22)
+    ta = rng.integers(1, 257, (10, 50, 1568)).astype(np.int32)
+    key = prng.key(2**31 + 9).to(cuda)
+    d = str(tmp_path / "ck")
+    t = ckpt.save_async(d, 5, ckpt.tm_lifecycle_tree(
+        torch.as_tensor(ta, device=cuda), key),
+        extra={"version": 5, "has_cursor": True, "key_impl": prng.IMPL})
+    t.join(timeout=60)
+    assert not t.is_alive()
+    step, tree, extra = ckpt.restore_tm_lifecycle(d)
+    assert step == 5 and tree["ta"].dtype == np.int32
+    np.testing.assert_array_equal(tree["ta"], ta)
+    assert tree["cursor"].dtype == np.uint32
+    np.testing.assert_array_equal(tree["cursor"], [0, 2**31 + 9])
+
+
+def test_cpu_snapshot_restores_onto_cuda(cuda, tmp_path):
+    """A snapshot a CPU server wrote resumes on a cuda server: the state
+    publishes on the card and the next fused update (K1 + K2) equals the
+    CPU reference replay of the same key chain."""
+    rng = np.random.default_rng(23)
+    cfg = TMConfig(3, 8, 20, T=5, s=3.9)
+    ta = rng.integers(128, 130, (3, 8, 40)).astype(np.int32)
+    batches = [(rng.integers(0, 2, (16, 40), dtype=np.int8),
+                rng.integers(0, 3, (16,), dtype=np.int32)) for _ in range(4)]
+    d = str(tmp_path / "ck")
+
+    async def cpu_run():
+        async with TMServer(cfg, state_from_numpy(ta, device="cpu"),
+                            ServePolicy(max_batch=16, backend="oracle"),
+                            device="cpu", train_backend="fused",
+                            train_seed=6, checkpoint_dir=d) as srv:
+            for b in batches[:2]:
+                await srv.submit_labeled(*b)
+
+    async def cuda_run():
+        srv = TMServer(cfg, state_from_numpy(np.full_like(ta, 128)),
+                       ServePolicy(max_batch=16, backend="mxu_fused"),
+                       train_backend="fused", checkpoint_dir=d)
+        assert srv.restore() == 2
+        assert srv.state.ta.device.type == "cuda"
+        async with srv:
+            for b in batches[2:]:
+                await srv.submit_labeled(*b)
+            return srv.state
+
+    asyncio.run(cpu_run())
+    k2 = train_deltas_keyed.launches
+    state = asyncio.run(cuda_run())
+    assert train_deltas_keyed.launches - k2 == 2
+    chain, want = prng.key(6), state_from_numpy(ta, device="cpu")
+    ref = get_train_engine("reference", cfg)
+    for lits, y in batches:
+        chain, k = prng.split(chain)
+        want = ref.step(want, k, lits, y)
+    assert torch.equal(state.ta.cpu(), want.ta)

@@ -281,28 +281,46 @@ def test_warmup_and_stats_key_set_matches_jax():
     assert got["updates"] == 0 and got["tiers"]["shed_batches"] == 0
 
 
-@pytest.mark.parametrize("option", [
-    {"checkpoint_keep": 2}, {"checkpoint_dir": "ckpt"},
-    {"checkpoint_every_updates": 4}, {"mesh": 2}])
+@pytest.mark.parametrize("option", [{"mesh": 2}, {"mesh": 1}])
 def test_unported_options_raise(option):
     cfg, state = _tm(seed=2)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         TMServer(cfg, state, device="cpu", **option)
 
 
-def test_unported_planes_raise_and_typos_are_type_errors():
+@pytest.mark.parametrize("option", [
+    {"checkpoint_keep": 2}, {"checkpoint_dir": "ckpt"},
+    {"checkpoint_dir": "ckpt", "checkpoint_every_updates": 4}])
+def test_checkpoint_options_are_accepted(option, tmp_path):
+    """The lifecycle options the JAX server takes build a server; with a
+    directory, ``stats()["checkpoint"]`` reports it."""
     cfg, state = _tm(seed=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        TMServer(cfg, state, ServePolicy(shed_backend="cascade"),
-                 device="cpu")
+    if "checkpoint_dir" in option:
+        option = dict(option, checkpoint_dir=str(tmp_path / "ckpt"))
+    srv = TMServer(cfg, state, device="cpu", **option)
+    ck = srv.stats()["checkpoint"]
+    if "checkpoint_dir" in option:
+        assert ck == {"dir": option["checkpoint_dir"], "last_step": None,
+                      "pending": 0, "restored_from": None}
+    else:
+        assert ck is None
+
+
+def test_unported_planes_raise_and_typos_are_type_errors(tmp_path):
+    cfg, state = _tm(seed=2)
+    with pytest.raises(ValueError, match="shed_backend"):
+        TMServer(cfg, state, ServePolicy(shed_backend="fpga"), device="cpu")
     with pytest.raises(TypeError, match="unexpected"):
         TMServer(cfg, state, device="cpu", polcy=None)
     srv = TMServer(cfg, state, ServePolicy(backend="oracle"), device="cpu")
     with pytest.raises(RuntimeError, match="online learning is off"):
         _run(srv.submit_labeled(np.zeros((1, 2 * F)), [0]))
-    for call in (srv.checkpoint, srv.restore):
+    d = str(tmp_path / "somewhere")
+    assert srv.checkpoint(d) == 0
+    for kw in ({"mesh": 2}, {"shardings": {}}):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            call("somewhere")
+            srv.restore(d, **kw)
+    assert srv.restore(d) == 0
 
 
 def test_publish_history_and_rollback():
@@ -414,7 +432,8 @@ def test_port_imports_no_jax_and_no_repro():
             "repro_torch.core.booleanize, repro_torch.data, "
             "repro_torch.kernels.popcount, repro_torch.kernels.pdl_race, "
             "repro_torch.kernels.binary_matmul, "
-            "repro_torch.launch.bnn_popcount\n"
+            "repro_torch.launch.bnn_popcount, repro_torch.checkpoint, "
+            "repro_torch.checkpoint._msgpack, repro_torch.engine.cascade\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.'))\n"
