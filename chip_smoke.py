@@ -7,8 +7,10 @@ against its plain PyTorch version, serves tm-mnist-50 through
 ``fused`` train engine and, with default routing, through ``sparse_csr``
 and the ``sparse`` train engine, drives the time-domain popcount and PDL
 race kernels on the served state, trains and runs the paper's BNN, kills,
-restores and rolls back a learning server through checkpoints, and
-serves through the early-exit cascade as the overload shed tier.
+restores and rolls back a learning server through checkpoints, serves
+through the early-exit cascade as the overload shed tier, and serves a
+multi-tenant ``TMFleet`` of 69 models packed into fused planes and, as
+the control, each model solo.
 
     python3 chip_smoke.py
 
@@ -38,7 +40,11 @@ package.  Phases, each on its own lines:
    then K1 at 3,000 classes (B = 1 and 64, timed at 64) and K2 at
    6,200 classes (B = 33), past the class counts whose whole class axis
    fits a block's shared memory (the class-tiled and per-item paths),
-   bitwise;
+   bitwise; then (3f) K3 and K1 at the fleet's fused shape (640 classes
+   of M=50, F=784) for B in {1, 64} on a 0.2% and a 5% include state,
+   bitwise, timed at B=64 on each state beside their plain versions
+   and bounds (the bounds count only the vote-matrix rows of clauses
+   that fire on the timed batch: none on the 5% state);
    then the paper-surface kernels: K4 (``popcount_words``) at (1, 1),
    (37, 129) and (4096, 512) words with all-ones and all-zero rows, and
    K6 (``binary_matmul``) at (1, 784)x(784, 128), (37, 129)x(129, 65),
@@ -121,7 +127,28 @@ package.  Phases, each on its own lines:
    and K3 = escalated sub-batches (0 when routed: the default escalation
    backend ``swar_packed`` has no kernel); ``stats()["tiers"]`` and
    request p50/p99 are printed;
-11. a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
+11. the multi-tenant fleet: a cuda ``TMFleet`` with
+   ``ServePolicy(max_batch=64, max_wait_us=500, backend="mxu_fused")``
+   over 64 tm-mnist-50 members (one pack group of 640 classes), 4
+   tm-mnist-100 members (a group of 40) and a tm-iris-50 model (solo),
+   each on its own seeded state (0.2% includes for the tm-mnist
+   members, 5% for tm-iris-50: densities at which random rows fire
+   clauses); two tm-mnist-50 members learn
+   (``train_backend="fused"``, their own ``train_seed``), 8
+   teacher-labeled batches of 32 rows each, while 16 closed-loop clients
+   send 1-16-row requests whose model is drawn Zipf-skewed (exponent
+   1.1), every third with a deadline.  Every response must equal the CPU
+   oracle of its model under the member version its request pinned,
+   every published member version the CPU ``reference`` replay of its
+   key chain; in each model family at least half the response rows must
+   carry nonzero class sums and the predictions must differ; and the
+   counters (zeroed just before the traffic) must show K3 = the batches
+   the group planes and the solo model served and K2 = K1 = updates.  The same traffic then runs with ``pack=False``
+   and 80 engine-cache entries (the control arm: under-filled launches,
+   not cache thrash at the default 16); both arms print K3 launches per
+   1,000 requests, rows per batch, batch fill, request p50/p99 and the
+   device worker's busy time (host clock around each of its calls);
+12. a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero; without a CUDA device it exits 1
@@ -196,6 +223,27 @@ K5_EDGES = ((1, 10, 100), (33, 10, 7), (16, 40, 9), (3, 100, 200),
 K1_MANY_C, K2_MANY_C = 3000, 6200
 T_RES = 10.0                      # PDLConfig().t_res, ps
 K5_ROWS = 1024                    # served-state rows raced through K5
+# phase 11, the multi-tenant fleet: 64 tm-mnist-50 members pack into one
+# plane of 640 classes (FLEET_C, the shape phase 3f checks and times K1
+# and K3 at), 4 tm-mnist-100 members (src/repro/configs/tm_paper.py:17:
+# M=100, s=10.0) into one of 40, and one tm-iris-50 model (:15: C=3,
+# M=50, F=12, T=7, s=6.5) serves solo.  The first FLEET_LEARNERS
+# tm-mnist-50 members learn, FLEET_UPDATES labeled batches each.  16
+# closed-loop clients draw each request's model Zipf-skewed (exponent
+# FLEET_ZIPF over a seeded ranking): a few hot models, most trickling
+FLEET_M50, FLEET_M100 = 64, 4
+# the tm-mnist members' include density: a clause then holds about three
+# literals and a random row fires about a fifth of the clauses, so class
+# sums are far from zero and differ between classes (at 5% none fires)
+FLEET_DENSITY = 0.002
+FLEET_C = FLEET_M50 * C
+FLEET_LEARNERS, FLEET_UPDATES = 2, 8
+FLEET_CLIENTS, FLEET_PER_CLIENT = 16, 40
+FLEET_ZIPF = 1.1
+# the control arm's engine-cache entries: every solo model's engine fits,
+# so it measures under-filled launches and not cache thrash at the
+# default budget of 16
+FLEET_SOLO_CACHE = 80
 
 
 def smi(query: str) -> str:
@@ -212,29 +260,43 @@ def device_ms(fn, reps: int) -> float:
     return timed(fn, reps)
 
 
-def bound(kernel: str, b: int) -> tuple[float, str]:
+def bound(kernel: str, b: int, fired: int,
+          c: int = C) -> tuple[float, str]:
     """Least time (ms) the card could take for the kernel's work at batch
-    ``b``: each input read once, the output written once, vs its
-    operations at the peak rate of their type.  Neither kernel exits
-    early.  K1: a clause fires iff every word of inc & not-literal is
-    zero, so one three-input logic op (acc | a & b) per (row, clause,
-    word) computes it; the adds that fold fired clauses into votes depend
-    on the data and are not counted, so the bound stays a lower one."""
-    lit, cm = 2 * F, C * M
+    ``b`` and ``c`` classes of M clauses: each input read once — of the
+    (C·M, C) int8 vote matrix only the ``fired`` rows of clauses that fire
+    on some row of this batch, the rest being needed by no vote — and the
+    output written once, vs its operations at the peak rate of their
+    type.  Neither kernel exits early.  K3: the int8 violation product on
+    the tensor cores; K1: a clause fires iff every word of inc &
+    not-literal is zero, so one three-input logic op (acc | a & b) per
+    (row, clause, word) computes it.  The adds that fold fired clauses
+    into votes are not counted, so the bound stays a lower one."""
+    lit, cm = 2 * F, c * M
     if kernel == "clause_votes":
-        nbytes = b * lit + cm * lit + cm * C + 4 * b * C
-        t_ops = (2 * b * cm * lit + 2 * b * cm * C) / INT8_OPS
+        nbytes = b * lit + cm * lit + fired * c + 4 * b * c
+        t_ops = 2 * b * cm * lit / INT8_OPS
     else:
         wl = -(-lit // 32)
-        nbytes = 4 * b * wl + 4 * cm * wl + cm * C + 4 * b * C
+        nbytes = 4 * b * wl + 4 * cm * wl + fired * c + 4 * b * c
         t_ops = b * cm * wl / INT32_OPS
     t_bytes = nbytes / HBM_BPS
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
 
-def make_ta(rng, density: float) -> np.ndarray:
-    return np.where(rng.random((C, M, 2 * F)) < density, 129, 128) \
+def fired_clauses(torch, lit, inc) -> int:
+    """How many clauses (rows of ``inc``, and of the vote matrix) fire on
+    some row of the {0,1} literals ``lit``: none of their included
+    literals is 0.  The float32 products of 0/1 values and their sums
+    (at most 2F) are exact."""
+    viol = (1 - lit).float() @ inc.float().T
+    return int((viol == 0).any(0).sum())
+
+
+def make_ta(rng, density: float, c: int = C, m: int = M,
+            f: int = F) -> np.ndarray:
+    return np.where(rng.random((c, m, 2 * f)) < density, 129, 128) \
         .astype(np.int32)
 
 
@@ -292,6 +354,7 @@ def check_kernels(torch, rt) -> dict:
         lit = torch.as_tensor(rng.integers(0, 2, (b, 2 * F), dtype=np.int8),
                               device="cuda")
         not_words = pack_bits(1 - lit)
+        fired = fired_clauses(torch, lit, inc)
         calls = {
             "clause_votes": (
                 lambda: rt["clause_votes"](lit, inc, vm),
@@ -304,10 +367,11 @@ def check_kernels(torch, rt) -> dict:
         for name, (kern, plain) in calls.items():
             ms = device_ms(kern, reps=50)
             plain_ms = device_ms(plain, reps=5)
-            bound_ms, bound_by = bound(name, b)
+            bound_ms, bound_by = bound(name, b, fired)
             print(f"time  {name:16s} B={b:5d}: kernel {ms:.6f} ms  plain "
                   f"{plain_ms:.6f} ms  bound {bound_ms:.6f} ms "
-                  f"({bound_by})", flush=True)
+                  f"({bound_by}; {fired} of {C * M} vote rows read)",
+                  flush=True)
             if b == SERVE_BATCH:
                 out[name] = {"max_abs_err": err[name], "ms": ms,
                              "plain_ms": plain_ms, "bound_ms": bound_ms,
@@ -607,6 +671,66 @@ def check_class_tiles(torch, rt) -> None:
           f"{plain_ms:.6f} ms", flush=True)
 
 
+def check_fleet_shape(torch, rt) -> dict:
+    """Phase 3f: K3 and K1 at the fleet's fused shape (FLEET_C classes of
+    tm-mnist-50's M and F), bitwise against their plain versions for B in
+    (1, SERVE_BATCH) on the fleet members' FLEET_DENSITY include state (a
+    random row fires about a fifth of the clauses) and on a 5% one (on
+    which a random row fires none), each timed at SERVE_BATCH beside its
+    bound → {kernel: {"density=<d>": timing row}}."""
+    rng = np.random.default_rng(SEED + 95)
+    c = FLEET_C
+    vm = rt["make_vote_matrix"](c, M, "cuda")
+    out = {"clause_votes": {}, "swar_fused_votes": {}}
+    for density in (FLEET_DENSITY, DENSITY):
+        inc = torch.as_tensor((rng.random((c * M, 2 * F)) < density)
+                              .astype(np.int8), device="cuda")
+        inc_words = rt["pack_bits"](inc)
+        for b in (1, SERVE_BATCH):
+            lit = torch.as_tensor(rng.integers(0, 2, (b, 2 * F),
+                                               dtype=np.int8),
+                                  device="cuda")
+            not_words = rt["pack_bits"](1 - lit)
+            pairs = {
+                "clause_votes": (rt["clause_votes"](lit, inc, vm),
+                                 rt["clause_votes_plain"](lit, inc, vm)),
+                "swar_fused_votes": (
+                    rt["swar_fused_votes"](not_words, inc_words, vm),
+                    rt["swar_fused_votes_plain"](not_words, inc_words,
+                                                 vm)),
+            }
+            torch.cuda.synchronize()
+            for name, (got, want) in pairs.items():
+                exact_err(torch, name, got, want,
+                          f"C={c} B={b} density={density}")
+            if density == FLEET_DENSITY and not bool(
+                    pairs["clause_votes"][1].any()):
+                raise AssertionError(f"fleet shape C={c}: no vote cast")
+            print(f"check fleet shape C={c} M={M} B={b:3d} density="
+                  f"{density}: clause_votes bitwise=True  swar_fused_votes "
+                  f"bitwise=True", flush=True)
+        # timed on the last (B = SERVE_BATCH) inputs
+        fired = fired_clauses(torch, lit, inc)
+        for name, kern, plain in (
+                ("clause_votes", lambda: rt["clause_votes"](lit, inc, vm),
+                 lambda: rt["clause_votes_plain"](lit, inc, vm)),
+                ("swar_fused_votes",
+                 lambda: rt["swar_fused_votes"](not_words, inc_words, vm),
+                 lambda: rt["swar_fused_votes_plain"](not_words, inc_words,
+                                                      vm))):
+            ms = device_ms(kern, reps=50)
+            plain_ms = device_ms(plain, reps=5)
+            bound_ms, bound_by = bound(name, SERVE_BATCH, fired, c)
+            print(f"time  {name:16s} C={c} B={SERVE_BATCH} density="
+                  f"{density}: kernel {ms:.6f} ms  plain {plain_ms:.6f} ms"
+                  f"  bound {bound_ms:.6f} ms ({bound_by}; {fired} of "
+                  f"{c * M} vote rows read)", flush=True)
+            out[name][f"density={density}"] = {
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "vote_rows_read": fired}
+    return out
+
+
 def profile_launches(torch, rt) -> dict:
     """Phase 3d: the device activities of one K1 call (B=SERVE_BATCH) and
     of one K2 call (B=LABEL_BATCH on a fused step's inputs, int64 labels
@@ -656,13 +780,14 @@ def label_feed(rt, cfg) -> tuple:
                   for lits in feed]
 
 
-def reference_replay(rt, cfg, ta: np.ndarray, feed, labels) -> list:
+def reference_replay(rt, cfg, ta: np.ndarray, feed, labels,
+                     seed: int = SEED) -> list:
     """The CPU ``reference`` engine over the labeled stream on one key
-    chain from ``prng.key(SEED)`` → [state_0, ..., state_N] on the CPU."""
+    chain from ``prng.key(seed)`` → [state_0, ..., state_N] on the CPU."""
     from repro_torch.convert import state_from_numpy
     from repro_torch.engine import get_train_engine
     prng, ref = rt["prng"], get_train_engine("reference", cfg)
-    chain, state = prng.key(SEED), state_from_numpy(ta, device="cpu")
+    chain, state = prng.key(seed), state_from_numpy(ta, device="cpu")
     replay = [state]
     for lits, y in zip(feed, labels):
         chain, k = prng.split(chain)
@@ -1025,6 +1150,256 @@ async def shed_tier(torch, rt, ta: np.ndarray) -> dict:
                          for k in ("swar_fused_votes", "clause_votes")},
             "escalation_rate":
                 runs["shed"]["stats"]["tiers"]["escalation_rate"]}
+
+
+def fleet_models() -> dict:
+    """Phase 11's models → {name: (TMConfig, numpy ta, TMServer kw)},
+    each state a random draw from its own seed: FLEET_DENSITY for the
+    tm-mnist members, 5% for tm-iris-50 (24 literals: a clause holds about
+    one), densities at which a random row fires clauses."""
+    from repro_torch.core.tm import TMConfig
+    models = {}
+    for i in range(FLEET_M50):
+        kw = ({"train_backend": "fused", "train_seed": SEED + 1 + i}
+              if i < FLEET_LEARNERS else {})
+        models[f"mnist50-{i:02d}"] = (
+            TMConfig(n_classes=C, n_clauses=M, n_features=F, T=T, s=S),
+            make_ta(np.random.default_rng(SEED + 1000 + i),
+                    FLEET_DENSITY), kw)
+    for i in range(FLEET_M100):
+        models[f"mnist100-{i}"] = (
+            TMConfig(n_classes=10, n_clauses=100, n_features=784, T=5,
+                     s=10.0),
+            make_ta(np.random.default_rng(SEED + 1100 + i), FLEET_DENSITY,
+                    10, 100, 784), {})
+    models["iris50"] = (
+        TMConfig(n_classes=3, n_clauses=50, n_features=12, T=7, s=6.5),
+        make_ta(np.random.default_rng(SEED + 1200), DENSITY, 3, 50, 12), {})
+    return models
+
+
+def fleet_learning(rt, models) -> dict:
+    """Each learning member's labeled batches (phase 5's teacher stream,
+    FLEET_UPDATES batches apiece) and their CPU ``reference`` replay on
+    the member's key chain → {name: (batches, replay)}."""
+    learners = [n for n, (_, _, kw) in models.items() if kw]
+    cfg = models[learners[0]][0]
+    feed, labels = label_feed(rt, cfg)
+    out = {}
+    for j, name in enumerate(learners):
+        sl = slice(j * FLEET_UPDATES, (j + 1) * FLEET_UPDATES)
+        _, ta, kw = models[name]
+        out[name] = (list(zip(feed[sl], labels[sl])),
+                     reference_replay(rt, cfg, ta, feed[sl], labels[sl],
+                                      seed=kw["train_seed"]))
+    return out
+
+
+async def fleet_arm(torch, rt, models, learning, *, pack: bool,
+                    cache_entries=None) -> dict:
+    """Phase 11, one arm: a cuda TMFleet (``pack`` or the solo control)
+    under FLEET_CLIENTS closed-loop clients of 1-16-row requests, each
+    model drawn Zipf-skewed, every third with a deadline, while each
+    learning member takes its labeled batches.  Every response must equal
+    the CPU oracle of its model under the member version its request
+    pinned, every published member version the CPU replay; the counters,
+    zeroed just before the traffic, must show K3 = batches served by the
+    serving servers (group planes and solo models) and K2 = K1 =
+    updates → launch counts, batching and latency numbers."""
+    from repro_torch.convert import state_from_numpy
+    from repro_torch.engine import engine_cache_info, get_engine
+    from repro_torch.serve import ServePolicy, TMFleet, percentiles_ms
+
+    specs = {name: {"cfg": cfg, "state": state_from_numpy(ta), **kw}
+             for name, (cfg, ta, kw) in models.items()}
+    fleet = TMFleet(specs, ServePolicy(max_batch=SERVE_BATCH,
+                                       max_wait_us=500, backend="mxu_fused"),
+                    pack=pack, cache_entries=cache_entries)
+    # the device worker's busy time: the host clock around each call the
+    # fleet's one worker thread runs (the serving batches' engine calls)
+    busy = [0.0]
+    submit = fleet._pool.submit
+
+    def timed_submit(fn, *args, **kw):
+        def run():
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                busy[0] += time.perf_counter() - t
+        return submit(run)
+
+    fleet._pool.submit = timed_submit
+    names = list(models)
+    rank = np.random.default_rng(SEED + 7).permutation(len(names))
+    p = 1.0 / (rank + 1.0) ** FLEET_ZIPF
+    p /= p.sum()
+    answered, lat, published = [], [], {}
+
+    async def client(cid: int) -> None:
+        rng = np.random.default_rng(SEED + 300 + cid)
+        for i in range(FLEET_PER_CLIENT):
+            name = names[rng.choice(len(names), p=p)]
+            lits = rng.integers(0, 2, (int(rng.integers(1, 17)),
+                                       models[name][0].n_literals),
+                                dtype=np.int8)
+            kw = {"deadline_us": 2_000_000} if i % 3 == 0 else {}
+            # the submit below pins the group (or solo) version current
+            # now, with no await in between while the queue has room; a
+            # member publish re-stacks its group inside the publish
+            version = fleet.server_for(name).state_version
+            t0 = time.perf_counter()
+            res = await fleet.submit(name, lits, client=cid, **kw)
+            lat.append(time.perf_counter() - t0)
+            answered.append((name, version, cid, i, lits, res))
+
+    async def feeder(name: str) -> None:
+        srv = fleet.server_for(name)
+        for lits, y in learning[name][0]:
+            v = await fleet.submit_labeled(name, lits, y)
+            if srv.state_version != v or (name, v) in published:
+                raise AssertionError(f"fleet: {name} published v{v} at "
+                                     f"v{srv.state_version}")
+            published[(name, v)] = srv.state.ta
+
+    counters = ("clause_votes", "swar_fused_votes", "train_deltas_keyed")
+    async with fleet:
+        t0 = time.perf_counter()
+        await fleet.warmup(train_batches=(LABEL_BATCH,))
+        warm = time.perf_counter() - t0
+        for k in counters:
+            rt[k].launches = 0
+        cache0 = engine_cache_info()
+        busy[0] = 0.0
+        t0 = time.perf_counter()
+        await asyncio.gather(*[feeder(n) for n in learning],
+                             *[client(c) for c in range(FLEET_CLIENTS)])
+        wall = time.perf_counter() - t0
+        busy_s = busy[0]
+        launches = {k: rt[k].launches for k in counters}
+        stats = fleet.stats()
+        cache = {k: v - cache0[k] for k, v in stats["engine_cache"].items()
+                 if k in ("hits", "misses", "evictions", "superseded")}
+        # the servers that answered predicts: the group planes (whose
+        # batching counters the fleet's group rows summarise) and the solo
+        # models
+        serving = [g.server.stats() for g in fleet._groups] + \
+            [m["server"] for m in stats["models"].values()
+             if not m["packed"]]
+    arm = "packed" if pack else "solo"
+    # checked after the traffic: the CPU oracles and replays stay off the
+    # event loop the fleet shares
+    for (name, v), ta in published.items():
+        if not torch.equal(ta.cpu(), learning[name][1][v].ta):
+            raise AssertionError(f"fleet {arm}: {name} published v{v} "
+                                 f"differs from the CPU reference replay")
+    oracles = {}
+    for name, version, cid, i, lits, res in answered:
+        if (name, version) not in oracles:
+            cfg, ta, _ = models[name]
+            state = (learning[name][1][version] if name in learning
+                     else state_from_numpy(ta, device="cpu"))
+            oracles[name, version] = get_engine("oracle", cfg, state,
+                                                cache=False)
+        want = oracles[name, version].infer(lits)
+        if not (np.array_equal(res.prediction, want.prediction.numpy())
+                and np.array_equal(res.class_sums,
+                                   want.class_sums.numpy())):
+            raise AssertionError(f"fleet {arm}: {name} response differs from "
+                                 f"the CPU oracle at v{version} (client "
+                                 f"{cid}, request {i})")
+    # the oracle check can only fail where clauses fire: per model family
+    # (the 640- and 40-class planes, the solo model), most response rows
+    # must carry nonzero class sums and the predictions must differ
+    nonzero = {}
+    for family in ("mnist50", "mnist100", "iris50"):
+        res = [r for name, _, _, _, _, r in answered
+               if name.startswith(family)]
+        if not res:
+            raise AssertionError(f"fleet {arm}: no request reached "
+                                 f"{family}")
+        sums = np.concatenate([r.class_sums for r in res])
+        preds = np.concatenate([r.prediction for r in res])
+        share = float((sums != 0).any(axis=1).mean())
+        nonzero[family] = (share, len(np.unique(preds)))
+        if share < 0.5 or len(np.unique(preds)) < 2:
+            raise AssertionError(f"fleet {arm}: {family} responses carry "
+                                 f"nonzero class sums on {share:.3f} of "
+                                 f"their rows, predictions "
+                                 f"{np.unique(preds).tolist()}")
+    batches = sum(sv["batches"] for sv in serving)
+    rows = sum(sv["rows"] for sv in serving)
+    padded = sum(round(sv["rows"] / sv["batch_fill"]) for sv in serving
+                 if sv["rows"])
+    updates = sum(m["updates"] for m in stats["models"].values())
+    want = {"clause_votes": batches, "swar_fused_votes": updates,
+            "train_deltas_keyed": updates}
+    n = len(answered)
+    if n != FLEET_CLIENTS * FLEET_PER_CLIENT or \
+            len(published) != len(learning) * FLEET_UPDATES or \
+            launches != want or any(m["errors_total"]
+                                    for m in stats["models"].values()):
+        raise AssertionError(f"fleet {arm}: {n} responses, "
+                             f"{len(published)} updates, launches "
+                             f"{launches} (expected {want}), stats "
+                             f"{json.dumps(stats['groups'])}")
+    p50, p99 = percentiles_ms(lat, (0.50, 0.99))
+    return {"arm": arm, "launches": launches, "requests": n,
+            "batches": batches, "rows": rows, "fill": rows / padded,
+            "wall": wall, "warm": warm,
+            "p50_ms": p50, "p99_ms": p99, "versions": len(oracles),
+            "busy": busy_s, "nonzero": nonzero, "stats": stats, "cache": cache,
+            "group_buckets": [sv["buckets"] for sv in serving[
+                :len(stats["groups"])]]}
+
+
+def fleet_phase(torch, rt) -> dict:
+    """Phase 11: the fleet's two arms on the same traffic — packed, then
+    the solo control with FLEET_SOLO_CACHE cache entries — and the numbers
+    each prints: K3 launches per 1,000 requests, rows per batch, batch
+    fill, request p50/p99 (host clock around ``TMFleet.submit``), the
+    device worker's busy time → the packed arm's launch counts."""
+    from repro_torch.engine import ENGINE_CACHE_SIZE, set_engine_cache_budget
+    models = fleet_models()
+    t0 = time.perf_counter()
+    learning = fleet_learning(rt, models)
+    print(f"fleet: {len(models)} models ({FLEET_M50} tm-mnist-50, "
+          f"{FLEET_M100} tm-mnist-100, 1 tm-iris-50), {len(learning)} "
+          f"learning; CPU replay of {len(learning) * FLEET_UPDATES} updates "
+          f"in {time.perf_counter() - t0:.1f}s", flush=True)
+    try:
+        arms = [asyncio.run(fleet_arm(torch, rt, models, learning,
+                                      pack=True)),
+                asyncio.run(fleet_arm(torch, rt, models, learning,
+                                      pack=False,
+                                      cache_entries=FLEET_SOLO_CACHE))]
+    finally:
+        set_engine_cache_budget(ENGINE_CACHE_SIZE)
+    for a in arms:
+        st = a["stats"]
+        k3 = a["launches"]["clause_votes"]
+        hot = sorted(st["models"].items(), key=lambda kv: -kv[1]["requests"])
+        print(f"fleet {a['arm']:6s}: {a['requests']} responses == CPU oracle "
+              f"at their pinned versions ({a['versions']} model versions); "
+              f"{a['launches']['train_deltas_keyed']} updates == CPU "
+              f"reference replay; K3 {k3} launches = {a['batches']} served "
+              f"batches ({k3 * 1000 / a['requests']:.1f} per 1,000 "
+              f"requests)  rows/batch={a['rows'] / a['batches']:.3f}  "
+              f"fill={a['fill']:.4f}  request p50={a['p50_ms']:.3f}ms  "
+              f"p99={a['p99_ms']:.3f}ms  in {a['wall']:.3f}s (warmup "
+              f"{a['warm']:.3f}s; the device worker busy {a['busy']:.6f}s "
+              f"of it)  rows with nonzero class sums and distinct "
+              f"predictions {json.dumps(a['nonzero'])}  launches="
+              f"{a['launches']}", flush=True)
+        print(f"fleet {a['arm']:6s} groups: " + json.dumps(
+            [{k: g[k] for k in ("fused_classes", "version", "requests",
+                                "batches", "mean_batch_rows")}
+             for g in st["groups"]]) + "  group service times: "
+              + json.dumps(a["group_buckets"]) + "  hottest: " + json.dumps(
+            {n: m["requests"] for n, m in hot[:5]}) + "  engine_cache: "
+              + json.dumps(st["engine_cache"]) + "  during the traffic: "
+              + json.dumps(a["cache"]), flush=True)
+    return arms[0]
 
 
 def timed_row(torch, name, kern, plain, nbytes, t_ops, label,
@@ -1420,6 +1795,7 @@ def main() -> int:
     kernels["train_deltas_keyed"] = check_train_deltas(torch, rt)
     per_call = profile_launches(torch, rt)
     check_class_tiles(torch, rt)
+    fleet_shape = check_fleet_shape(torch, rt)
     kernels["popcount_words"] = check_popcount(torch, rt)
     kernels["binary_matmul"] = check_binary_matmul(torch, rt)
     kernels["pdl_race"] = check_pdl_race(torch, rt)
@@ -1467,6 +1843,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         life = asyncio.run(lifecycle(torch, rt, ta, tmp))
     shed = asyncio.run(shed_tier(torch, rt, learn["state"].ta.cpu().numpy()))
+    fleet = fleet_phase(torch, rt)
 
     meta = {
         "swar_fused_votes": ("src/repro_torch/csrc/swar_fused.cu",
@@ -1499,9 +1876,11 @@ def main() -> int:
                 "pdl_race": "B={} C={} M={}".format(*K5_SHAPES[-1]),
                 "binary_matmul": "{}x{}x{}".format(*K6_MAIN)}
     # launches in the later paths, each counted from 0 around its traffic:
-    # phase 9 (lifecycle) and phase 10 (shed tier)
+    # phase 9 (lifecycle), phase 10 (shed tier) and phase 11 (the packed
+    # fleet)
     by_phase = {name: {ph: run["launches"][name]
-                       for ph, run in (("9", life), ("10", shed))
+                       for ph, run in (("9", life), ("10", shed),
+                                       ("11", fleet))
                        if name in run["launches"]}
                 for name in meta}
     rows = []
@@ -1521,7 +1900,9 @@ def main() -> int:
                      **({"device_kernels_per_call": per_call[name]}
                         if name in per_call else {}),
                      **({"at_1024^3": k["at_1024^3"]} if "at_1024^3" in k
-                        else {})})
+                        else {}),
+                     **({f"at_C{FLEET_C}": fleet_shape[name]}
+                        if name in fleet_shape else {})})
     print(f"chip_smoke: every phase passed in "
           f"{time.perf_counter() - t_start:.1f}s", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

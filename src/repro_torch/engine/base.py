@@ -21,9 +21,13 @@ variable-size requests to a few bucket shapes; every backend is
 data-parallel over the batch axis, so all-zero pad rows cannot change any
 real row's result and are sliced off.
 
-Not ported yet (see ROADMAP.md): the autotune lookup (``get_engine`` uses
-the constructor defaults or explicit opts), ``shard_batch``,
-``donate_literals`` and the fleet's weighted cache budget.
+The cache runs under an entry budget (``ENGINE_CACHE_SIZE`` by default)
+and an optional byte budget (:func:`set_engine_cache_budget`); past it the
+entry of least (registered weight, LRU age) is evicted, so a fleet's hot
+model keeps its engines under pressure from cold siblings
+(:func:`weight_engines_for_state`).
+
+Not ported yet (see ROADMAP.md): ``shard_batch`` and ``donate_literals``.
 """
 
 from __future__ import annotations
@@ -42,8 +46,10 @@ from repro_torch.core.tm import TMConfig, TMState
 __all__ = ["EngineResult", "VoteEngine", "Registry", "KeyedEngineCache",
            "ServiceStats", "nearest_rank", "register_backend", "get_engine",
            "available_backends", "clear_engine_cache", "engine_cache_info",
-           "evict_engines_for_state", "state_nbytes", "pad_batch",
-           "infer_padded", "as_literals", "DEFAULT_BACKEND"]
+           "evict_engines_for_state", "weight_engines_for_state",
+           "set_engine_cache_budget", "state_nbytes", "pad_batch",
+           "infer_padded", "as_literals", "DEFAULT_BACKEND",
+           "ENGINE_CACHE_SIZE"]
 
 DEFAULT_BACKEND = "oracle"
 ENGINE_CACHE_SIZE = 16
@@ -98,21 +104,31 @@ class Registry:
 
 
 class KeyedEngineCache:
-    """Thread-safe keyed LRU of built engines, weakref-pinned to state.
+    """Thread-safe keyed LRU of built engines, weakref-pinned to state,
+    under an entry and an optional byte budget with weighted eviction.
 
     Entries map a hashable key → (weakrefs to the key's state tensors,
-    engine).  A weakref's death callback evicts the entry the moment any
-    of its state tensors is garbage-collected, which keeps id-based state
-    identity sound (an id is recycled only after its tensor died, and by
-    then the entry is gone) and means the cache never retains dead
-    states.  Guarded by an RLock: gc can run an eviction callback on the
-    thread that already holds the lock, and a serving process hits the
-    cache from several threads at once.
+    engine, bytes charged).  A weakref's death callback evicts the entry
+    the moment any of its state tensors is garbage-collected, which keeps
+    id-based state identity sound (an id is recycled only after its
+    tensor died, and by then the entry is gone) and means the cache never
+    retains dead states.  Past the budget the entry of least (weight, LRU
+    age) goes first (:meth:`set_state_weight`).  Guarded by an RLock: gc
+    can run an eviction callback on the thread that already holds the
+    lock, and a serving process hits the cache from several threads at
+    once.
     """
 
-    def __init__(self, maxsize: int):
+    def __init__(self, maxsize: int, max_bytes: int | None = None):
         self.maxsize = maxsize
+        self.max_bytes = max_bytes
         self._data: OrderedDict[tuple, tuple] = OrderedDict()
+        self._bytes = 0
+        # id(tensor) -> (weakref, weight): the per-model weight registry
+        # behind weighted eviction, keyed like entry pinning (tensor
+        # identity), so a weight registered for a model's state covers
+        # every engine built on that state
+        self._weights: dict[int, tuple] = {}
         self._stats = {"hits": 0, "misses": 0, "evictions": 0,
                        "superseded": 0}
         self._lock = threading.RLock()
@@ -127,55 +143,134 @@ class KeyedEngineCache:
             self._stats["hits"] += 1
             return hit[1]
 
-    def insert(self, key, state, engine) -> None:
+    def set_state_weight(self, state, weight: float) -> None:
+        """Register eviction ``weight`` for every tensor of ``state``.
+
+        Entries pinned to a weighted tensor are evicted *after* lighter
+        ones regardless of recency (weight first, LRU as tie-break), so a
+        hot model's engines survive budget pressure from cold siblings.
+        Unweighted entries weigh 1.0.  The registry holds weakrefs: a
+        weight dies with its tensors and never pins them.
+        """
+        w = float(weight)
+        for a in state:
+            i = id(a)
+
+            def _drop(_ref, _i=i):
+                with self._lock:
+                    self._weights.pop(_i, None)
+
+            ref = weakref.ref(a, _drop)
+            with self._lock:
+                self._weights[i] = (ref, w)
+
+    def _entry_weight_locked(self, refs) -> float:
+        """Max registered weight over an entry's live pinned tensors."""
+        w = None
+        for r in refs:
+            obj = r()
+            if obj is None:
+                continue
+            reg = self._weights.get(id(obj))
+            if reg is not None and (w is None or reg[1] > w):
+                w = reg[1]
+        return 1.0 if w is None else w
+
+    def _evict_one_locked(self) -> None:
+        """Evict the minimum-(weight, LRU-age) entry (capacity path)."""
+        victim, vw = None, None
+        for k, ent in self._data.items():    # oldest -> newest
+            w = self._entry_weight_locked(ent[0])
+            if vw is None or w < vw:         # strict <: ties keep oldest
+                victim, vw = k, w
+        if victim is not None:
+            self._bytes -= self._data.pop(victim)[2]
+            self._stats["evictions"] += 1
+
+    def _over_budget_locked(self) -> bool:
+        return len(self._data) > self.maxsize or \
+            (self.max_bytes is not None and self._bytes > self.max_bytes)
+
+    def set_budget(self, maxsize: int | None = None,
+                   max_bytes: int | None = None) -> None:
+        """Update the entry and/or byte budget and evict down to it
+        (weighted, see :meth:`set_state_weight`).  ``None`` leaves a limit
+        unchanged; ``max_bytes <= 0`` removes the byte limit."""
+        with self._lock:
+            if maxsize is not None:
+                self.maxsize = int(maxsize)
+            if max_bytes is not None:
+                self.max_bytes = int(max_bytes) if max_bytes > 0 else None
+            while self._data and self._over_budget_locked():
+                self._evict_one_locked()
+
+    def insert(self, key, state, engine, nbytes: int | None = None) -> None:
         """Cache ``engine`` under ``key``, pinned (weakly) to ``state``'s
-        tensors; evicts the least-recent entries past ``maxsize``.
-        Replacing an existing key (the benign duplicate-build race in
-        :func:`get_engine`) counts the displaced twin as an eviction, so
-        ``misses == size + evictions + superseded`` holds."""
+        tensors.  ``nbytes`` (default: the summed ``nbytes`` of
+        ``state``'s tensors, a proxy for the engine's layout) charges the
+        byte budget; minimum-(weight, LRU-age) entries are evicted past
+        ``maxsize`` / ``max_bytes``.  Replacing an existing key (the
+        benign duplicate-build race in :func:`get_engine`) counts the
+        displaced twin as an eviction, so ``misses == size + evictions +
+        superseded`` holds."""
         def _evict(_ref, _key=key):
             with self._lock:
-                if self._data.pop(_key, None) is not None:
+                ent = self._data.pop(_key, None)
+                if ent is not None:
+                    self._bytes -= ent[2]
                     self._stats["evictions"] += 1
 
         refs = tuple(weakref.ref(a, _evict) for a in state)
+        if nbytes is None:
+            nbytes = state_nbytes(state)
         with self._lock:
             self._stats["misses"] += 1
-            if self._data.pop(key, None) is not None:
+            old = self._data.pop(key, None)
+            if old is not None:
+                self._bytes -= old[2]
                 self._stats["evictions"] += 1
-            self._data[key] = (refs, engine)
-            while len(self._data) > self.maxsize:
-                self._data.popitem(last=False)
-                self._stats["evictions"] += 1
+            self._data[key] = (refs, engine, nbytes)
+            self._bytes += nbytes
+            while self._data and self._over_budget_locked():
+                self._evict_one_locked()
 
     def evict_state(self, state) -> int:
         """Drop every entry pinned to any of ``state``'s tensors → count
         (the *superseded* path: a publish replaced the state, its layouts
         are stale for the logical model but the tensors stay alive in the
-        history ring).  Counted under ``"superseded"``."""
+        history ring).  Counted under ``"superseded"``, apart from
+        capacity and state-death ``"evictions"``."""
         targets = {id(a) for a in state}
+
+        def _held(r):
+            obj = r()
+            return obj is not None and id(obj) in targets
+
         with self._lock:
             stale = [k for k, ent in self._data.items()
-                     if any((r() is not None and id(r()) in targets)
-                            for r in ent[0])]
+                     if any(_held(r) for r in ent[0])]
             for k in stale:
-                del self._data[k]
+                self._bytes -= self._data.pop(k)[2]
             self._stats["superseded"] += len(stale)
             return len(stale)
 
     def clear(self) -> None:
-        """Drop every cached engine and reset the counters."""
+        """Drop every cached engine and registered weight, and reset the
+        counters (a deliberate clear is not an eviction)."""
         with self._lock:
             self._data.clear()
+            self._weights.clear()
+            self._bytes = 0
             for k in self._stats:
                 self._stats[k] = 0
 
     def info(self) -> dict:
-        """``{"size", "maxsize", "hits", "misses", "evictions",
-        "superseded"}``."""
+        """``{"size", "maxsize", "bytes", "max_bytes", "weights",
+        "hits", "misses", "evictions", "superseded"}``."""
         with self._lock:
             return {"size": len(self._data), "maxsize": self.maxsize,
-                    **self._stats}
+                    "bytes": self._bytes, "max_bytes": self.max_bytes,
+                    "weights": len(self._weights), **self._stats}
 
 
 def nearest_rank(sorted_vals, p: float) -> float:
@@ -291,8 +386,10 @@ def clear_engine_cache() -> None:
 
 
 def engine_cache_info() -> dict:
-    """``{"size", "maxsize", "hits", "misses", "evictions",
-    "superseded"}`` of the engine cache."""
+    """``{"size", "maxsize", "bytes", "max_bytes", "weights", "hits",
+    "misses", "evictions", "superseded"}`` of the engine cache (the
+    ``engine_cache`` block of ``TMServer.stats()`` and
+    ``TMFleet.stats()``)."""
     return _ENGINE_CACHE.info()
 
 
@@ -301,17 +398,46 @@ def evict_engines_for_state(state: TMState) -> int:
     return _ENGINE_CACHE.evict_state(state)
 
 
+def weight_engines_for_state(state: TMState, weight: float) -> None:
+    """Register eviction ``weight`` for engines built on ``state``: the
+    fleet's seam, so under a shared budget a hot model's engines outlive
+    a cold model's whichever was touched last (see
+    :meth:`KeyedEngineCache.set_state_weight`)."""
+    _ENGINE_CACHE.set_state_weight(state, weight)
+
+
+def set_engine_cache_budget(max_entries: int | None = None,
+                            max_bytes: int | None = None) -> dict:
+    """Set the process-wide engine-cache budget → fresh cache info.
+
+    ``max_entries`` bounds the entry count (default
+    ``ENGINE_CACHE_SIZE``); ``max_bytes`` bounds the summed state-tensor
+    footprint of cached layouts (``<= 0`` removes the byte limit).
+    ``None`` leaves a limit unchanged.  Shrinking evicts at once, the
+    lightest first.
+    """
+    _ENGINE_CACHE.set_budget(max_entries, max_bytes)
+    return _ENGINE_CACHE.info()
+
+
 def state_nbytes(state) -> int:
-    """Summed ``nbytes`` over a state's tensors."""
+    """Summed ``nbytes`` over a state's tensors: the byte proxy the
+    engine cache charges per entry."""
     return sum(int(a.nbytes) for a in state)
 
 
 def get_engine(name: str, cfg: TMConfig, state: TMState, *,
                cache: bool = True, **opts) -> VoteEngine:
     """Build (or fetch from the keyed LRU) the named backend's engine on
-    ``state``'s device.  ``opts`` go to the backend constructor;
-    ``cache=False`` bypasses the LRU."""
+    ``state``'s device.  ``opts`` go to the backend constructor; a
+    tunable backend's opts not given explicitly come from the autotune
+    cache (:func:`repro_torch.engine.autotune.lookup`) where it has an
+    entry for this shape and device kind.  ``cache=False`` bypasses the
+    LRU."""
     from . import backends  # noqa: F401  (import side effect: registration)
+    from . import autotune
+    for opt, val in autotune.lookup(name, cfg, state.ta.device).items():
+        opts.setdefault(opt, val)
     key = _cache_key(name, cfg, state, opts) if cache else None
     if key is not None:
         hit = _ENGINE_CACHE.get(key)

@@ -43,10 +43,11 @@ numpy arrays or tensors on any device.  The key's small draws (offsets,
 feedback uniforms, row keys) run where the key lies, so a CPU key keeps
 some hundred tiny threefry ops off the card.
 
-Not ported yet (see ROADMAP.md): ``sharded``, and the
-autotune consult (``get_train_engine`` uses the constructor defaults or
-explicit opts, as ``get_engine`` does).  ``block_b``/``block_m`` are the
-Pallas tiles; the port keeps them only so an engine's options round-trip.
+Not ported yet (see ROADMAP.md): ``sharded``.  ``block_b``/``block_m``
+are the Pallas tiles; the port keeps them only so an engine's options
+round-trip.  The autotune search space has no train entry (its only
+train knobs would be those tiles), so ``get_train_engine`` consults no
+autotune cache: it uses the constructor defaults or explicit opts.
 """
 
 from __future__ import annotations

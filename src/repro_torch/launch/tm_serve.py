@@ -1,6 +1,6 @@
 """TM serving launcher: micro-batching scheduler under synthetic traffic
-(port of ``repro.launch.tm_serve``: predict, learning, lifecycle and
-shed-tier flags).
+(port of ``repro.launch.tm_serve``: predict, learning, lifecycle,
+shed-tier and fleet flags).
 
 Builds a TM at trained-machine include density on ``--device`` (default
 cuda), warms up every bucket's engine (building the CUDA kernels at first
@@ -58,8 +58,35 @@ thread (``--checkpoint-keep`` newest kept; the live line shows
 ``ckpt@``); ``--restore`` resumes from the newest valid step;
 ``--ckpt-role follower`` waits up to ``--ckpt-wait`` seconds for a
 leader's valid snapshot in a shared ``--checkpoint-dir``, restores it
-and never writes.  The fleet and mesh flags are not ported yet (see
-ROADMAP.md).
+and never writes.
+
+Multi-tenant fleet: ``--models MANIFEST.json`` serves many named models
+behind one scheduler through :class:`repro_torch.serve.TMFleet`.  The
+manifest is the JAX launcher's: a JSON list of model entries, where every
+field but ``name`` is optional and defaults to the matching flag, so
+same-shape tenants (which the fleet packs into one fused serving plane)
+need only names and seeds:
+
+    [{"name": "mnist", "seed": 0},
+     {"name": "kws", "seed": 1, "weight": 4.0},
+     {"name": "big", "clauses": 512, "train_backend": "fused",
+      "checkpoint_dir": "/tmp/tm-ckpt-big"}]
+
+Per-model keys: ``name``, ``classes``/``clauses``/``features``/
+``density``/``seed`` (shape), ``weight`` (a static engine-cache eviction
+weight; omitted → the measured request share) and any ``TMServer``
+lifecycle keyword (``train_backend``, ``train_seed``, ``checkpoint_dir``,
+``checkpoint_every_updates``, ``checkpoint_keep``, ``history_size``).
+``--cache-entries`` / ``--cache-bytes`` set the shared engine-cache
+budget, ``--no-pack`` turns cross-model packing off (the control arm),
+and traffic is split across tenants: closed-loop ``--clients``
+round-robin, open-loop ``--rate`` evenly:
+
+    PYTHONPATH=src python -m repro_torch.launch.tm_serve --device cpu \
+        --models fleet.json --clauses 8 --features 16 --clients 8 \
+        --duration 2
+
+The mesh flags are not ported yet (see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -156,9 +183,169 @@ def _teacher_labels(cfg, args, lits: np.ndarray) -> np.ndarray:
         .prediction.cpu().numpy()
 
 
+class _ModelClient:
+    """Adapter giving one fleet member the ``server.submit`` surface the
+    load generators drive, so the same loops hammer a named model."""
+
+    def __init__(self, fleet, name: str):
+        self._fleet = fleet
+        self._name = name
+
+    async def submit(self, literals, *, client=None, **kwargs):
+        return await self._fleet.submit(self._name, literals,
+                                        client=client, **kwargs)
+
+
+def _load_manifest(path: str, args) -> dict:
+    """Parse a ``--models`` JSON manifest → TMFleet spec dict.
+
+    Unspecified shape fields fall back to the flags, so a manifest of
+    bare ``{"name": ..., "seed": ...}`` entries yields same-shape tenants
+    that pack into one fused serving plane."""
+    import json
+    with open(path) as fh:
+        manifest = json.load(fh)
+    if not isinstance(manifest, list):
+        raise SystemExit(f"--models {path}: expected a JSON list of "
+                         f"model entries, got {type(manifest).__name__}")
+    specs = {}
+    for i, ent in enumerate(manifest):
+        ent = dict(ent)
+        try:
+            name = ent.pop("name")
+        except KeyError:
+            raise SystemExit(f"--models {path}: entry {i} has no 'name'")
+        if name in specs:
+            raise SystemExit(f"--models {path}: duplicate model "
+                             f"name {name!r}")
+        cfg, state = build_tm(ent.pop("classes", args.classes),
+                              ent.pop("clauses", args.clauses),
+                              ent.pop("features", args.features),
+                              density=ent.pop("density", args.density),
+                              seed=ent.pop("seed", args.seed),
+                              device=args.device)
+        # whatever remains (weight + TMServer lifecycle keywords) rides
+        # through the spec dict: TMFleet pops 'weight' and hands the rest
+        # to the member TMServer
+        if ent.get("train_backend") and "train_seed" not in ent:
+            ent["train_seed"] = args.seed
+        specs[name] = {"cfg": cfg, "state": state, **ent}
+    return specs
+
+
+async def _fleet_stats_printer(fleet, every: float) -> None:
+    """One aggregate live line per ``every`` seconds until cancelled."""
+    t0 = time.monotonic()
+    prev = 0
+    while True:
+        await asyncio.sleep(every)
+        s = fleet.stats()
+        total = sum(m["requests"] for m in s["models"].values())
+        rps = (total - prev) / every
+        prev = total
+        worst = max((m["p99_ms"] for m in s["models"].values()
+                     if m["p99_ms"] is not None), default=0.0)
+        cache = s["engine_cache"]
+        hits = cache["hits"] + cache["misses"]
+        print(f"[t+{time.monotonic() - t0:5.1f}s] {rps:8.0f} req/s  "
+              f"models={len(s['models'])}  groups={len(s['groups'])}  "
+              f"worst_p99={worst:.2f}ms  "
+              f"cache_hit={cache['hits'] / max(hits, 1):.3f}",
+              flush=True)
+
+
+async def _run_fleet(args) -> None:
+    """``--models`` mode: serve a manifest of named models as a fleet on
+    ``--device``, splitting the requested traffic across tenants."""
+    from repro_torch.serve import ServePolicy, TMFleet, closed_loop, \
+        open_loop
+
+    specs = _load_manifest(args.models, args)
+    policy = ServePolicy(max_batch=args.max_batch,
+                         max_wait_us=args.max_wait_us,
+                         queue_depth=args.queue_depth,
+                         backend=args.backend,
+                         shed_backend=args.shed_backend,
+                         shed_qdepth=args.shed_qdepth,
+                         pipeline_depth=args.pipeline_depth)
+    fleet = TMFleet(specs, policy, pack=not args.no_pack,
+                    device=args.device,
+                    cache_entries=args.cache_entries or None,
+                    cache_bytes=args.cache_bytes or None)
+    names = fleet.model_names()
+    pools = {}
+    for i, name in enumerate(names):
+        cfg = fleet.server_for(name).cfg
+        rng = np.random.default_rng(args.seed + 10_000 + i)
+        pools[name] = rng.integers(0, 2, (1024, cfg.n_literals),
+                                   dtype=np.int8)
+    async with fleet:
+        s = fleet.stats()
+        print(f"fleet: {len(names)} models, {len(s['groups'])} pack "
+              f"group(s) on {fleet.device}" + (
+                  "" if not s["groups"] else "  " + "  ".join(
+                      f"[{'+'.join(g['members'])}: "
+                      f"{g['fused_classes']} fused classes]"
+                      for g in s["groups"])))
+        t0 = time.monotonic()
+        await fleet.warmup()
+        print(f"warmup in {time.monotonic() - t0:.2f}s")
+
+        printer = asyncio.ensure_future(
+            _fleet_stats_printer(fleet, args.stats_every))
+        t0 = time.monotonic()
+        try:
+            if args.clients:
+                # round-robin split, every tenant gets at least one caller
+                per = [max(1, args.clients // len(names)
+                           + (1 if i < args.clients % len(names) else 0))
+                       for i in range(len(names))]
+                served = sum(await asyncio.gather(*[
+                    closed_loop(_ModelClient(fleet, name), pools[name],
+                                clients=n, duration=args.duration)
+                    for name, n in zip(names, per)]))
+                mode = (f"closed-loop x{args.clients} over {len(names)} "
+                        f"models")
+            else:
+                rate = args.rate / len(names)
+                served = sum(await asyncio.gather(*[
+                    open_loop(_ModelClient(fleet, name), pools[name],
+                              rate=rate, duration=args.duration,
+                              rng=np.random.default_rng(
+                                  args.seed + 20_000 + i))
+                    for i, name in enumerate(names)]))
+                mode = (f"open-loop {args.rate:.0f}/s over {len(names)} "
+                        f"models")
+        finally:
+            printer.cancel()
+        wall = time.monotonic() - t0
+
+        s = fleet.stats()
+        print(f"\n{mode}: {served} requests in {wall:.2f}s "
+              f"({served / wall:,.0f} req/s aggregate)")
+        for name in names:
+            m = s["models"][name]
+            plane = (f"group {m['group']} seg {m['segment']}"
+                     if m["packed"] else "solo")
+            print(f"  {name:>12}: {m['requests']:6d} req  "
+                  f"p50={m['p50_ms'] or 0:.2f}ms  "
+                  f"p99={m['p99_ms'] or 0:.2f}ms  v{m['version']}  "
+                  f"weight={m['weight']:.3f}  errors={m['errors_total']}  "
+                  f"[{plane}]")
+        cache = s["engine_cache"]
+        print(f"engine cache: {cache['hits']} hits  {cache['misses']} "
+              f"misses  {cache['evictions']} evictions  "
+              f"{cache['superseded']} superseded  "
+              f"(size {cache['size']}/{cache['maxsize']}, "
+              f"{cache['bytes']} bytes)")
+
+
 async def _run(args) -> None:
     from repro_torch.serve import ServePolicy, TMServer, closed_loop, \
         open_loop
+    if args.models:
+        await _run_fleet(args)
+        return
     cfg, state = build_tm(args.classes, args.clauses, args.features,
                           density=args.density, seed=args.seed,
                           device=args.device)
@@ -348,6 +535,20 @@ def main(argv: list[str] | None = None) -> None:
                          "--train-backend)")
     ap.add_argument("--probe-size", type=int, default=256,
                     help="rows in the held-out drift probe stream")
+    ap.add_argument("--models", default=None, metavar="MANIFEST.json",
+                    help="serve a JSON manifest of named models as a "
+                         "TMFleet (see the module docstring for the "
+                         "format; shape fields default to the flags "
+                         "above)")
+    ap.add_argument("--no-pack", action="store_true",
+                    help="fleet mode: disable cross-model batch packing "
+                         "(every tenant serves solo — the A/B control)")
+    ap.add_argument("--cache-entries", type=int, default=0,
+                    help="fleet mode: shared engine-cache entry budget "
+                         "(0 = leave the process default)")
+    ap.add_argument("--cache-bytes", type=int, default=0,
+                    help="fleet mode: shared engine-cache byte budget "
+                         "(0 = unlimited)")
     ap.add_argument("--pipeline-depth", type=int, default=2,
                     help="dispatched batches in flight at once "
                          "(1 = serial scheduler)")

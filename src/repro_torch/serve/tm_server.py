@@ -11,8 +11,9 @@ throughput comes from decoupling arrival from evaluation:
 - bucketing — each coalesced batch pads (all-zero neutral rows) to the
   smallest configured bucket that fits.
 - routing — each bucket maps to a backend name (:func:`route_buckets`):
-  an explicit choice or the include-density heuristic (``sparse_csr`` for
-  trained, sparse states).  Engines come from ``get_engine``, so buckets
+  an explicit choice, a measured route from the autotune cache, or the
+  include-density heuristic (``sparse_csr`` for trained, sparse states).
+  Engines come from ``get_engine``, so buckets
   sharing a backend share one cached engine; the newest state's
   ``sparse_csr`` engine is prebuilt at publish from an incrementally
   refreshed layout (:meth:`TMServer._refresh_serving`).
@@ -85,9 +86,7 @@ GPU is visible); tensors carry their device, so the worker thread needs
 no ``set_device`` and kernels launch on that device's current stream.
 
 Not ported yet (see ROADMAP.md): ``mesh=`` (and ``restore``'s ``mesh=`` /
-``shardings=``), which raise ``NotImplementedError``, and the measured
-autotune routes (so the density heuristic decides wherever the JAX
-server's autotune cache has no entry).
+``shardings=``), which raise ``NotImplementedError``.
 
 >>> async with TMServer(cfg, state, ServePolicy(max_batch=64,
 ...                     backend="mxu_fused")) as srv:
@@ -118,6 +117,7 @@ import torch
 from repro_torch import checkpoint as ckpt
 from repro_torch.core import prng
 from repro_torch.core.tm import TMConfig, TMState, include_mask
+from repro_torch.engine import autotune
 from repro_torch.engine import (EngineResult, ServiceStats,
                                 available_backends, engine_cache_info,
                                 evict_engines_for_state, export_key_cursor,
@@ -220,20 +220,28 @@ def route_buckets(cfg: TMConfig, state: TMState,
                   density: float | None = None) -> dict[int, str]:
     """bucket size → backend name.
 
-    An explicit ``backend`` wins; otherwise the include-density heuristic
-    (trained machines are ~5% include-dense → ``sparse_csr``, denser →
-    ``swar_packed``) — the JAX server's route wherever its autotune cache
-    has no measured entry (measured routes are not ported).  ``density``
-    short-circuits the include-mask reduction when the caller knows it;
-    it is a float64 mean, as numpy's in the JAX server, so a state right
-    at the 0.10 boundary routes the same way in both.
+    Priority per bucket: an explicit ``backend`` > a measured route in
+    the autotune cache for the state's device kind
+    (:func:`~repro_torch.engine.autotune.serve_lookup`) > the
+    include-density heuristic (trained machines are ~5% include-dense →
+    ``sparse_csr``, denser → ``swar_packed``).  A measured route naming a
+    backend that is not registered (a stale cache) falls back to the
+    heuristic.  ``density`` short-circuits the include-mask reduction
+    when the caller knows it; it is a float64 mean, as numpy's in the JAX
+    server, so a state right at the 0.10 boundary routes the same way in
+    both.
     """
     if backend is not None:
         return {b: backend for b in buckets}
+    registered = set(available_backends())
     if density is None:
         density = float(include_mask(cfg, state).to(torch.float64).mean())
     fallback = "sparse_csr" if density <= 0.10 else "swar_packed"
-    return {b: fallback for b in buckets}
+    routes = {}
+    for b in buckets:
+        measured = autotune.serve_lookup(cfg, b, state.ta.device)
+        routes[b] = measured if measured in registered else fallback
+    return routes
 
 
 class _Request:

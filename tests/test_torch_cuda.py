@@ -34,7 +34,7 @@ from repro_torch.kernels.binary_matmul import (binary_matmul,
                                                binary_matmul_plain)
 from repro_torch.kernels.pdl_race import pdl_race, pdl_race_plain
 from repro_torch.kernels.popcount import popcount_words, popcount_words_plain
-from repro_torch.serve import ServePolicy, TMServer
+from repro_torch.serve import ServePolicy, TMFleet, TMServer
 
 # one xdist worker per core runs these files beside the JAX suite:
 # torch's default of one intra-op thread per core oversubscribes the CPU
@@ -101,7 +101,11 @@ CASES = [(64, 10, 50, 1568, 0.05), (37, 10, 50, 1568, 0.05),
          (21, 7, 73, 96, 0.02), (21, 8, 64, 96, 0.02),
          (21, 27, 19, 96, 0.02), (19, 3, 11, 32, 0.05),
          (19, 3, 11, 128, 0.01), (19, 3, 11, 130, 0.01),
-         (41, 4, 9, 2080, 0.001), (41, 4, 9, 4096, 0.0005)]
+         (41, 4, 9, 2080, 0.001), (41, 4, 9, 4096, 0.0005),
+         # a fleet's fused plane: 64 tm-mnist-50 members stacked into 640
+         # classes, at a density where clauses fire and at the members'
+         (64, 640, 50, 1568, 0.002), (1, 640, 50, 1568, 0.002),
+         (64, 640, 50, 1568, 0.05)]
 
 
 @pytest.mark.parametrize("case", CASES,
@@ -741,3 +745,66 @@ def test_cpu_snapshot_restores_onto_cuda(cuda, tmp_path):
         chain, k = prng.split(chain)
         want = ref.step(want, k, lits, y)
     assert torch.equal(state.ta.cpu(), want.ta)
+
+
+def test_packed_fleet_on_cuda_equals_cpu_oracle(cuda):
+    """A packed fleet on cuda — two pack groups, a solo model and a
+    learning member — answers every request as the CPU oracle of its
+    model (the learner's at its replayed version), its published states
+    equal the CPU reference replay, and K3 launches once per batch the
+    group planes and the solo model served, K1 and K2 once per update."""
+    rng = np.random.default_rng(31)
+    shapes = {"a": (3, 8, 20), "b": (5, 8, 20), "c": (2, 8, 20),
+              "d": (4, 6, 20), "e": (3, 6, 20), "f": (3, 8, 12)}
+    tas = {n: np.where(rng.random((c, m, 2 * f)) < 0.1, 129, 128)
+           .astype(np.int32) for n, (c, m, f) in shapes.items()}
+    cfgs = {n: TMConfig(c, m, f, T=5, s=3.9)
+            for n, (c, m, f) in shapes.items()}
+    batches = [(rng.integers(0, 2, (16, 40), dtype=np.int8),
+                rng.integers(0, 3, (16,), dtype=np.int32)) for _ in range(2)]
+    reqs = [(n, rng.integers(0, 2, (int(rng.integers(1, 9)),
+                                    2 * shapes[n][2]), dtype=np.int8))
+            for n in rng.choice(list(shapes), 40)]
+    specs = {n: {"cfg": cfgs[n], "state": state_from_numpy(tas[n])}
+             for n in shapes}
+    specs["a"].update(train_backend="fused", train_seed=3)
+
+    async def go():
+        fleet = TMFleet(specs, ServePolicy(max_batch=16, max_wait_us=300,
+                                           backend="mxu_fused"))
+        async with fleet:
+            assert fleet.device.type == "cuda"
+            await fleet.warmup(train_batches=(16,))
+            n3, n1 = clause_votes.launches, swar_fused_votes.launches
+            n2 = train_deltas_keyed.launches
+            published = []
+            for b in batches:
+                await fleet.submit_labeled("a", *b)
+                published.append(fleet.server_for("a").state.ta.cpu())
+            out = await asyncio.gather(*[fleet.submit(n, lits)
+                                         for n, lits in reqs])
+            stats = fleet.stats()
+            served = sum(g.server.stats()["batches"]
+                         for g in fleet._groups) + sum(
+                m["server"]["batches"] for m in stats["models"].values()
+                if not m["packed"])
+            launches = (clause_votes.launches - n3,
+                        swar_fused_votes.launches - n1,
+                        train_deltas_keyed.launches - n2)
+        return out, published, stats, served, launches
+
+    out, published, stats, served, launches = asyncio.run(go())
+    assert stats["n_groups"] == 2 and not stats["models"]["f"]["packed"]
+    chain, ref = prng.key(3), state_from_numpy(tas["a"], device="cpu")
+    eng = get_train_engine("reference", cfgs["a"])
+    for (lits, y), got in zip(batches, published):
+        chain, k = prng.split(chain)
+        ref = eng.step(ref, k, lits, y)
+        assert torch.equal(got, ref.ta)
+    states = {n: state_from_numpy(tas[n], device="cpu") for n in shapes}
+    states["a"] = ref
+    for (name, lits), res in zip(reqs, out):
+        want = get_engine("oracle", cfgs[name], states[name]).infer(lits)
+        np.testing.assert_array_equal(res.prediction, want.prediction)
+        np.testing.assert_array_equal(res.class_sums, want.class_sums)
+    assert launches == (served, 2, 2)

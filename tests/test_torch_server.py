@@ -433,7 +433,9 @@ def test_port_imports_no_jax_and_no_repro():
             "repro_torch.kernels.popcount, repro_torch.kernels.pdl_race, "
             "repro_torch.kernels.binary_matmul, "
             "repro_torch.launch.bnn_popcount, repro_torch.checkpoint, "
-            "repro_torch.checkpoint._msgpack, repro_torch.engine.cascade\n"
+            "repro_torch.checkpoint._msgpack, repro_torch.engine.cascade, "
+            "repro_torch.serve.tm_fleet, repro_torch.engine.autotune, "
+            "repro_torch.configs, repro_torch.configs.tm_paper\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.'))\n"
