@@ -10,7 +10,9 @@ race kernels on the served state, trains and runs the paper's BNN, kills,
 restores and rolls back a learning server through checkpoints, serves
 through the early-exit cascade as the overload shed tier, and serves a
 multi-tenant ``TMFleet`` of 69 models packed into fused planes and, as
-the control, each model solo.
+the control, each model solo, and serves and learns data-parallel over a
+device mesh (the card's own, and four simulated shards of it) through a
+kill and an elastic restore onto another mesh size.
 
     python3 chip_smoke.py
 
@@ -148,7 +150,26 @@ package.  Phases, each on its own lines:
    not cache thrash at the default 16); both arms print K3 launches per
    1,000 requests, rows per batch, batch fill, request p50/p99 and the
    device worker's busy time (host clock around each of its calls);
-12. a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
+12. the mesh: tm-mnist-50 at full width through ``TMServer(mesh=...,
+   train_backend="sharded")`` with ``ServePolicy(max_batch=64,
+   max_wait_us=500, backend="mxu_fused")`` (each bucket a
+   ``ShardedEngine`` over K3, each update K1 + K2 per shard), on
+   ``data_mesh(1)`` and on ``data_mesh(4, devices=[cuda:0] * 4)`` (C=10
+   pads to 12 there).  The eight predict clients (phase 5's request
+   stream, 20 requests each; 10 in each half of the 4-shard run) run
+   while the server learns phase 5's 16 batches of 32 rows and one
+   ragged batch of 37 (padded to 40 at D=4).  The 4-shard learner
+   snapshots every 4 versions and is killed after update 8; a fresh
+   server restores the snapshot onto ``data_mesh(1)`` and runs to the
+   end, and its final state must equal the uninterrupted D=1 run's.
+   Every published version must equal the CPU ``reference`` replay,
+   every response the CPU oracle at its pinned version, and the
+   counters (zeroed just before each run's traffic) must show K1 = K2 =
+   updates x D and K3 = served batches x D.  Request p50/p99, update
+   p50/max and one step alone print for D=1 and D=4 beside phase 5's
+   ``fused`` numbers and the card's name and power limit.  A mesh of
+   distinct GPUs is not run (one card);
+13. a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero; without a CUDA device it exits 1
@@ -244,6 +265,11 @@ FLEET_ZIPF = 1.1
 # so it measures under-filled launches and not cache thrash at the
 # default budget of 16
 FLEET_SOLO_CACHE = 80
+# phase 12, the mesh: phase 5's 16 labeled batches and one ragged batch of
+# MESH_RAGGED rows; the 4-shard learner is killed after update MESH_KILL.
+# Requests per client (the uninterrupted run; half each for the killed
+# and the restored run): this phase's count is cut first for time
+MESH_RAGGED, MESH_KILL, MESH_PER_CLIENT = 37, 8, 20
 
 
 def smi(query: str) -> str:
@@ -922,7 +948,9 @@ async def serve_and_learn(torch, rt, ta: np.ndarray, *, backend,
           f"draws on the CPU p50={statistics.median(draw_s) * 1e3:.3f}",
           flush=True)
     return {"stats": stats, "launches": launches, "routes": routes,
-            "state": published[N_UPDATES]}
+            "state": published[N_UPDATES],
+            "update_ms": (statistics.median(lat) * 1e3, lat[-1] * 1e3),
+            "step_ms": statistics.median(step_s) * 1e3}
 
 
 async def lifecycle(torch, rt, ta: np.ndarray, directory: str) -> dict:
@@ -1402,6 +1430,226 @@ def fleet_phase(torch, rt) -> dict:
     return arms[0]
 
 
+def mesh_feed(rt, cfg) -> tuple:
+    """Phase 12's labeled stream: phase 5's 16 batches of 32 rows, then
+    one ragged batch of MESH_RAGGED rows (the same teacher) → (feed,
+    labels) lists."""
+    from repro_torch.convert import state_from_numpy
+    from repro_torch.engine import get_engine
+    feed, labels = label_feed(rt, cfg)
+    feed, labels = list(feed), list(labels)
+    rows = np.random.default_rng(SEED + 5).integers(
+        0, 2, (MESH_RAGGED, 2 * F), dtype=np.int8)
+    teacher = get_engine("oracle", cfg, state_from_numpy(
+        make_ta(np.random.default_rng(SEED + 2), DENSITY)))
+    feed.append(rows)
+    labels.append(teacher.infer(rows).prediction.cpu().numpy())
+    return feed, labels
+
+
+async def mesh_run(torch, rt, cfg, ta: np.ndarray, mesh, feed, labels,
+                   lo: int, hi: int, *, per_client: int,
+                   directory: str | None = None,
+                   restore_onto=None) -> dict:
+    """One phase-12 server: ``TMServer(mesh=mesh, train_backend=
+    "sharded")`` serving ``mxu_fused`` takes labeled batches ``lo..hi-1``
+    under the predict clients (``per_client`` requests each).  With
+    ``restore_onto`` it first restores the newest snapshot in
+    ``directory`` onto that mesh; with ``directory`` alone it snapshots
+    every 4 versions.  The counters are zeroed after warmup → published
+    (version, state) pairs, pinned responses, stats, launches, update
+    latencies."""
+    from repro_torch.convert import state_from_numpy
+    from repro_torch.serve import ServePolicy, TMServer
+
+    published, answered, update_s = [], [], []
+    names = ("clause_votes", "swar_fused_votes", "train_deltas_keyed")
+    server = TMServer(
+        cfg, state_from_numpy(ta),
+        ServePolicy(max_batch=SERVE_BATCH, max_wait_us=500,
+                    backend="mxu_fused"),
+        mesh=mesh, train_backend="sharded",
+        # a restore must resume the snapshot's key chain, not this seed
+        train_seed=SEED + (1 if restore_onto is not None else 0),
+        history_size=len(feed) + 1,
+        checkpoint_dir=directory,
+        checkpoint_every_updates=4 if restore_onto is None and directory
+        else 0,
+        on_publish=lambda v, st: published.append((v, st)))
+    restore_ms = None
+    if restore_onto is not None:
+        t0 = time.perf_counter()
+        if server.restore(mesh=restore_onto) != lo:
+            raise AssertionError(f"mesh: restored {server.state_version}, "
+                                 f"not version {lo}")
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+    shards = server.stats()["mesh"]["devices"]
+    devices = {d.type for d in server._train_engine.mesh.devices}
+    if server._train_engine.n_devices != shards or devices != {"cuda"} \
+            or server.state.ta.device.type != "cuda":
+        raise AssertionError(f"mesh: {shards} serving shards, train mesh "
+                             f"{server._train_engine.mesh}, state on "
+                             f"{server.state.ta.device}")
+
+    async def client(cid: int) -> None:
+        crng = np.random.default_rng(SEED + 200 + cid)
+        for i in range(per_client):
+            lits = crng.integers(0, 2, (int(crng.integers(1, 17)), 2 * F),
+                                 dtype=np.int8)
+            version = server.state_version
+            res = await server.submit(lits, client=cid)
+            answered.append((version, cid, i, lits, res))
+
+    async def feeder() -> list:
+        versions = []
+        for i in range(lo, hi):
+            t0 = time.perf_counter()
+            versions.append(await server.submit_labeled(feed[i], labels[i]))
+            update_s.append(time.perf_counter() - t0)
+        return versions
+
+    async with server:
+        await server.warmup(train_batches=tuple(
+            sorted({len(feed[i]) for i in range(lo, hi)})))
+        for name in names:
+            rt[name].launches = 0
+        t0 = time.perf_counter()
+        versions, *_ = await asyncio.gather(
+            feeder(), *[client(c) for c in range(N_CLIENTS)])
+        wall = time.perf_counter() - t0
+        launches = {name: rt[name].launches for name in names}
+        stats = server.stats()
+    if versions != list(range(lo + 1, hi + 1)) or stats["errors"]:
+        raise AssertionError(f"mesh: versions {versions}, "
+                             f"{stats['errors']} errors")
+    want = {"clause_votes": stats["batches"] * shards,
+            "swar_fused_votes": (hi - lo) * shards,
+            "train_deltas_keyed": (hi - lo) * shards}
+    if launches != want:
+        raise AssertionError(f"mesh D={shards}: launches {launches}, "
+                             f"expected {want}")
+    return {"published": published, "answered": answered, "stats": stats,
+            "launches": launches, "update_s": update_s, "wall": wall,
+            "shards": shards, "restore_ms": restore_ms,
+            "state": server.state}
+
+
+def mesh_phase(torch, rt, ta: np.ndarray, learn: dict, card: str) -> dict:
+    """Phase 12: tm-mnist-50 serving and learning data-parallel over the
+    card's own mesh (``data_mesh(1)``) and a simulated 4-shard mesh of it
+    (C=10 classes pad to 12 there; the 37-row batch pads to 40).  Every
+    published version must equal the CPU ``reference`` replay and every
+    response the CPU oracle at its pinned version; the 4-shard learner is
+    killed after update 8 and restored onto ``data_mesh(1)``, and its
+    final state must equal the uninterrupted run's; K1 = K2 = updates × D
+    and K3 = served batches × D in every run."""
+    from repro_torch.engine import get_engine, get_train_engine
+
+    data_mesh, prng = rt["data_mesh"], rt["prng"]
+    cfg = rt["TMConfig"](n_classes=C, n_clauses=M, n_features=F, T=T, s=S)
+    feed, labels = mesh_feed(rt, cfg)
+    n = len(feed)
+    one = data_mesh(1)
+    four = data_mesh(4, devices=[torch.device("cuda", 0)] * 4)
+    t0 = time.perf_counter()
+    whole = asyncio.run(mesh_run(torch, rt, cfg, ta, one, feed, labels, 0,
+                                 n, per_client=MESH_PER_CLIENT))
+    with tempfile.TemporaryDirectory() as tmp:
+        killed = asyncio.run(mesh_run(
+            torch, rt, cfg, ta, four, feed, labels, 0, MESH_KILL,
+            per_client=MESH_PER_CLIENT // 2, directory=tmp))
+        from repro_torch import checkpoint as ckpt
+        extra = ckpt.read_manifest_extra(tmp, ckpt.latest_step(tmp))
+        if ckpt.latest_step(tmp) != MESH_KILL or \
+                extra["mesh_devices"] != 4 or \
+                extra["train_opts"]["n_devices"] != 4:
+            raise AssertionError(f"mesh: snapshot step "
+                                 f"{ckpt.latest_step(tmp)} extra {extra}")
+        resumed = asyncio.run(mesh_run(
+            torch, rt, cfg, ta, four, feed, labels, MESH_KILL, n,
+            per_client=MESH_PER_CLIENT // 2, directory=tmp,
+            restore_onto=one))
+    wall = time.perf_counter() - t0
+    if resumed["shards"] != 1:
+        raise AssertionError(f"mesh: restored onto {resumed['shards']} "
+                             f"shards")
+    # checked after the traffic: the CPU replay and oracles stay off the
+    # event loop
+    replay = reference_replay(rt, cfg, ta, feed, labels)
+    oracles = {}
+    for label, run in (("D=1", whole), ("D=4", killed),
+                       ("restored", resumed)):
+        for v, st in run["published"]:
+            if not torch.equal(st.ta.cpu(), replay[v].ta):
+                raise AssertionError(f"mesh {label}: published version {v} "
+                                     f"differs from the CPU replay")
+        for version, cid, i, lits, res in run["answered"]:
+            if version not in oracles:
+                oracles[version] = get_engine("oracle", cfg, replay[version])
+            want = oracles[version].infer(lits)
+            if not (np.array_equal(res.prediction, want.prediction.numpy())
+                    and np.array_equal(res.class_sums,
+                                       want.class_sums.numpy())):
+                raise AssertionError(f"mesh {label}: response differs from "
+                                     f"the CPU oracle at version {version} "
+                                     f"(client {cid}, request {i})")
+    if not torch.equal(resumed["state"].ta, whole["state"].ta):
+        raise AssertionError("mesh: the restored run's final state differs "
+                             "from the uninterrupted run's")
+
+    # one update's step alone at B=32, no predict traffic (host clock,
+    # ending in a stream sync), on each mesh
+    step_ms = {}
+    for d, mesh in ((1, one), (4, four)):
+        engine, times = get_train_engine("sharded", cfg, mesh=mesh), []
+        for i in range(10):
+            k = prng.split(prng.key(i))[1]
+            t1 = time.perf_counter()
+            engine.step(whole["state"], k, feed[i], labels[i])
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t1)
+        step_ms[d] = statistics.median(times) * 1e3
+
+    def summary(run) -> str:
+        lat = sorted(run["update_s"])
+        st = run["stats"]
+        return (f"{len(run['answered'])} responses  batches={st['batches']}"
+                f"  p50={st['p50_ms']}ms  p99={st['p99_ms']}ms  update "
+                f"p50={statistics.median(lat) * 1e3:.3f}ms  "
+                f"max={lat[-1] * 1e3:.3f}ms  launches={run['launches']}")
+
+    print(f"mesh D=1 (data_mesh(1)): {n} updates ({n - 1} x {LABEL_BATCH} "
+          f"+ {MESH_RAGGED} rows) == CPU reference replay, every response "
+          f"== CPU oracle at its version; {summary(whole)}", flush=True)
+    print(f"mesh D=4 (4 shards of cuda:0, C={C} padded to 12, "
+          f"{MESH_RAGGED} rows padded to 40): updates 1-{MESH_KILL} == "
+          f"replay, then killed; {summary(killed)}", flush=True)
+    print(f"mesh elastic: the 4-shard snapshot at version {MESH_KILL} "
+          f"restored onto data_mesh(1) in {resumed['restore_ms']:.3f} ms "
+          f"(host clock); updates {MESH_KILL + 1}-{n} == replay; final "
+          f"state == the uninterrupted D=1 run's; {summary(resumed)}; "
+          f"{len(oracles)} versions seen across the runs; phase wall "
+          f"{wall:.1f}s", flush=True)
+    fused = learn["stats"]
+    print(f"mesh vs phase 5 fused, {card}: request p50/p99 "
+          f"fused {fused['p50_ms']}/{fused['p99_ms']} ms, D=1 "
+          f"{whole['stats']['p50_ms']}/{whole['stats']['p99_ms']} ms, D=4 "
+          f"{killed['stats']['p50_ms']}/{killed['stats']['p99_ms']} ms; "
+          f"update p50/max fused {learn['update_ms'][0]:.3f}/"
+          f"{learn['update_ms'][1]:.3f} ms, D=1 "
+          f"{statistics.median(whole['update_s']) * 1e3:.3f}/"
+          f"{max(whole['update_s']) * 1e3:.3f} ms, D=4 "
+          f"{statistics.median(killed['update_s']) * 1e3:.3f}/"
+          f"{max(killed['update_s']) * 1e3:.3f} ms; step alone p50 fused "
+          f"{learn['step_ms']:.3f} ms, D=1 {step_ms[1]:.3f} ms, D=4 "
+          f"{step_ms[4]:.3f} ms", flush=True)
+    launches = collections.Counter()
+    for run in (whole, killed, resumed):
+        launches.update(run["launches"])
+    return {"launches": dict(launches), "step_ms": step_ms}
+
+
 def timed_row(torch, name, kern, plain, nbytes, t_ops, label,
               library=None) -> dict:
     """Median device times of a kernel, its plain version and (where one
@@ -1739,6 +1987,7 @@ def main() -> int:
     from repro_torch.core.popcount import pack_bits
     from repro_torch.core.tm import TMConfig, clause_polarity
     from repro_torch.core.tm_train import feedback_draws, feedback_masks
+    from repro_torch.distributed import data_mesh
     from repro_torch.kernels import ops
     from repro_torch.kernels.clause_eval import (clause_votes,
                                                  clause_votes_plain,
@@ -1769,7 +2018,8 @@ def main() -> int:
           "popcount_words_plain": popcount_words_plain,
           "pdl_race": pdl_race, "pdl_race_plain": pdl_race_plain,
           "binary_matmul": binary_matmul,
-          "binary_matmul_plain": binary_matmul_plain}
+          "binary_matmul_plain": binary_matmul_plain,
+          "data_mesh": data_mesh}
 
     t_start = time.perf_counter()
     card = smi("name,power.limit")
@@ -1844,6 +2094,7 @@ def main() -> int:
         life = asyncio.run(lifecycle(torch, rt, ta, tmp))
     shed = asyncio.run(shed_tier(torch, rt, learn["state"].ta.cpu().numpy()))
     fleet = fleet_phase(torch, rt)
+    mesh = mesh_phase(torch, rt, ta, learn, card)
 
     meta = {
         "swar_fused_votes": ("src/repro_torch/csrc/swar_fused.cu",
@@ -1876,11 +2127,11 @@ def main() -> int:
                 "pdl_race": "B={} C={} M={}".format(*K5_SHAPES[-1]),
                 "binary_matmul": "{}x{}x{}".format(*K6_MAIN)}
     # launches in the later paths, each counted from 0 around its traffic:
-    # phase 9 (lifecycle), phase 10 (shed tier) and phase 11 (the packed
-    # fleet)
+    # phase 9 (lifecycle), phase 10 (shed tier), phase 11 (the packed
+    # fleet) and phase 12 (the mesh, its three runs summed)
     by_phase = {name: {ph: run["launches"][name]
                        for ph, run in (("9", life), ("10", shed),
-                                       ("11", fleet))
+                                       ("11", fleet), ("12", mesh))
                        if name in run["launches"]}
                 for name in meta}
     rows = []

@@ -26,10 +26,14 @@ prints (``PyTreeDef({'cursor': *, 'ta': *})``).
 
 Leaves are torch tensors (any device) or numpy arrays; :func:`restore`
 returns numpy arrays, as the JAX ``restore`` does without
-``shardings``.  Not ported (see ROADMAP.md): ``shardings=`` (the
-multi-GPU slice, queue 1 item 6) and dtypes numpy cannot name, such as
-``bfloat16`` (the LM zoo, queue 1 item 7); both raise
-``NotImplementedError``.
+``shardings``.  With ``shardings=`` — a tree with the restored tree as
+its prefix whose leaves are ``torch.device`` objects or ``None`` — every
+loaded leaf becomes a tensor on its device (``None``: on the CPU), the
+counterpart of the JAX package's ``device_put`` under the restoring
+mesh's shardings.  Snapshots are host copies, so a checkpoint written on
+one mesh restores onto any other.  Not ported (see ROADMAP.md): dtypes
+numpy cannot name, such as ``bfloat16`` (the LM zoo, queue 1 item 7);
+they raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -247,18 +251,33 @@ def _read_manifest(directory: str, step: int) -> dict:
         return unpackb(f.read())
 
 
-def _shardings_unported(shardings) -> None:
-    if shardings is not None:
-        raise NotImplementedError(
-            "shardings=: restoring onto several GPUs comes with the "
-            "multi-GPU slice (ROADMAP.md, queue 1 item 6)")
+def _place(tree, shardings):
+    """Move every numpy leaf of ``tree`` to the device ``shardings``
+    names for it (a tree with ``tree`` as its prefix: a device or
+    ``None`` covers the whole subtree where it stands) → tensors."""
+    if shardings is None or isinstance(shardings, torch.device):
+        if type(tree) is dict:
+            return {k: _place(v, shardings) for k, v in tree.items()}
+        if type(tree) in (list, tuple):
+            return type(tree)(_place(x, shardings) for x in tree)
+        if tree is None:
+            return None
+        t = torch.from_numpy(tree)
+        return t if shardings is None else t.to(shardings)
+    if type(tree) is dict and type(shardings) is dict \
+            and set(tree) == set(shardings):
+        return {k: _place(tree[k], shardings[k]) for k in tree}
+    if type(tree) in (list, tuple) and type(shardings) is type(tree) \
+            and len(tree) == len(shardings):
+        return type(tree)(_place(x, s) for x, s in zip(tree, shardings))
+    raise ValueError(f"shardings {shardings!r} do not match the restored "
+                     f"tree's structure")
 
 
 def restore(directory: str, step: int, like, *, shardings=None):
     """Restore into the structure of ``like`` → ``(tree, extra)`` with
-    numpy leaves in their saved dtypes.  ``shardings`` must be ``None``
-    (see the module docstring)."""
-    _shardings_unported(shardings)
+    numpy leaves in their saved dtypes, or, with ``shardings``, tensors
+    on the devices it names (see the module docstring)."""
     path = os.path.join(directory, f"step_{step}")
     manifest = _read_manifest(directory, step)
     data = {}
@@ -284,7 +303,10 @@ def restore(directory: str, step: int, like, *, shardings=None):
                 f"{arr.dtype}; such leaves come with the LM zoo "
                 f"(ROADMAP.md, queue 1 item 7)")
         out.append(arr)
-    return _unflatten(like, iter(out)), manifest.get("extra", {})
+    tree = _unflatten(like, iter(out))
+    if shardings is not None:
+        tree = _place(tree, shardings)
+    return tree, manifest.get("extra", {})
 
 
 def gc_keep(directory: str, keep: int = 3):
@@ -343,9 +365,11 @@ def restore_tm_lifecycle(directory: str, step: int | None = None, *,
 
     ``step=None`` picks the newest valid step.  ``tree`` matches
     :func:`tm_lifecycle_tree` (``cursor`` present iff the snapshot
-    recorded one), numpy leaves.  Raises ``FileNotFoundError`` when the
-    directory holds no valid checkpoint."""
-    _shardings_unported(shardings)
+    recorded one), numpy leaves.  ``shardings=`` is a (possibly partial)
+    dict of ``torch.device`` objects by leaf name, forwarded to
+    :func:`restore`: the elastic seam, where a snapshot written on one
+    mesh lands on another's devices.  Raises ``FileNotFoundError`` when
+    the directory holds no valid checkpoint."""
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -355,7 +379,8 @@ def restore_tm_lifecycle(directory: str, step: int | None = None, *,
     like = tm_lifecycle_tree(np.zeros((), np.int32),
                              np.zeros((), np.uint32)
                              if extra.get("has_cursor") else None)
-    tree, extra = restore(directory, step, like)
+    sh = {k: shardings.get(k) for k in like} if shardings else None
+    tree, extra = restore(directory, step, like, shardings=sh)
     return step, tree, extra
 
 

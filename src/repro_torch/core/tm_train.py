@@ -162,11 +162,11 @@ def train_step(cfg: TMConfig, state: TMState, key: torch.Tensor,
 
 def train_epoch(cfg: TMConfig, state: TMState, key: torch.Tensor,
                 x_literals, y, batch_size: int = 32,
-                backend: str | None = None) -> TMState:
+                backend: str | None = None, **engine_opts) -> TMState:
     """Minibatch loop (drops the ragged tail), one key per batch from
     ``split(key, n_batches)``.  ``backend`` names a
-    :mod:`repro_torch.engine.train` engine; ``None`` runs
-    :func:`train_step`."""
+    :mod:`repro_torch.engine.train` engine, built with ``engine_opts``
+    (e.g. ``mesh=`` for ``sharded``); ``None`` runs :func:`train_step`."""
     x, y = _as_batch(state, x_literals, y)
     n = (x.shape[0] // batch_size) * batch_size
     keys = prng.split(key, n // batch_size)
@@ -175,7 +175,7 @@ def train_epoch(cfg: TMConfig, state: TMState, key: torch.Tensor,
             return train_step(cfg, st, k, xb, yb)
     else:
         from repro_torch.engine.train import get_train_engine
-        step = get_train_engine(backend, cfg).step
+        step = get_train_engine(backend, cfg, **engine_opts).step
     for i in range(n // batch_size):
         sl = slice(i * batch_size, (i + 1) * batch_size)
         state = step(state, keys[i], x[sl], y[sl])

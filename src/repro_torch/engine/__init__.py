@@ -43,15 +43,12 @@ def engine_from_model_config(model_cfg, state, **opts) -> VoteEngine:
     TM configs repurpose LM fields (see ``repro_torch.configs.tm_paper``):
     ``n_heads`` = C, ``d_ff`` = M (clauses per class), ``d_model`` = F,
     ``rope_theta`` = T, ``norm_eps`` = s, plus the ``backend`` this engine
-    layer dispatches on.  ``shard_batch`` (multi-device serving) is not
-    ported yet and raises.
+    layer dispatches on, and ``shard_batch`` (serve data-parallel over
+    every visible CUDA device, see :func:`get_engine`).
     """
     from repro_torch.core.tm import TMConfig
-    if model_cfg.shard_batch:
-        raise NotImplementedError(
-            f"{model_cfg.name}: shard_batch is not ported yet (ROADMAP.md, "
-            f"queue 1, multi-GPU)")
     cfg = TMConfig(n_classes=model_cfg.n_heads, n_clauses=model_cfg.d_ff,
                    n_features=model_cfg.d_model, T=int(model_cfg.rope_theta),
                    s=model_cfg.norm_eps)
-    return get_engine(model_cfg.backend, cfg, state, **opts)
+    return get_engine(model_cfg.backend, cfg, state,
+                      shard_batch=model_cfg.shard_batch, **opts)

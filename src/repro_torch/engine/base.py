@@ -27,7 +27,12 @@ entry of least (registered weight, LRU age) is evicted, so a fleet's hot
 model keeps its engines under pressure from cold siblings
 (:func:`weight_engines_for_state`).
 
-Not ported yet (see ROADMAP.md): ``shard_batch`` and ``donate_literals``.
+``get_engine(..., shard_batch=)`` wraps a built engine in
+:class:`~repro_torch.engine.sharding.ShardedEngine` (data-parallel
+serving over a 1-D device mesh); the wrapped engine caches under its own
+key, pinned to the same state, and is charged one state's bytes per
+distinct mesh device.  ``donate_literals`` (XLA buffer donation) has no
+torch counterpart.
 """
 
 from __future__ import annotations
@@ -358,9 +363,10 @@ def available_backends() -> list[str]:
     return _VOTE_REGISTRY.names()
 
 
-def _cache_key(name, cfg, state, opts):
+def _cache_key(name, cfg, state, opts, *flags):
     """Hashable cache key, or ``None`` when opts aren't hashable.  State
-    identity is (id, shape, dtype, device) of each tensor.  Tensor-valued
+    identity is (id, shape, dtype, device) of each tensor; ``flags`` are
+    the wrapping options (``shard_batch``).  Tensor-valued
     opts (a ``PDLDevice``, a noise key) bypass the cache, as JAX arrays,
     which are unhashable, do in the JAX package: a tensor hashes by its
     id, which a new tensor may reuse once the old one is freed, and
@@ -373,7 +379,7 @@ def _cache_key(name, cfg, state, opts):
         opts_key = tuple(sorted(opts.items()))
         state_key = tuple((id(a), tuple(a.shape), str(a.dtype), str(a.device))
                           for a in state)
-        key = (name, cfg, state_key, opts_key)
+        key = (name, cfg, state_key, flags, opts_key)
         hash(key)
     except TypeError:
         return None
@@ -427,18 +433,26 @@ def state_nbytes(state) -> int:
 
 
 def get_engine(name: str, cfg: TMConfig, state: TMState, *,
-               cache: bool = True, **opts) -> VoteEngine:
+               shard_batch=False, cache: bool = True,
+               **opts) -> VoteEngine:
     """Build (or fetch from the keyed LRU) the named backend's engine on
     ``state``'s device.  ``opts`` go to the backend constructor; a
     tunable backend's opts not given explicitly come from the autotune
     cache (:func:`repro_torch.engine.autotune.lookup`) where it has an
     entry for this shape and device kind.  ``cache=False`` bypasses the
-    LRU."""
+    LRU.
+
+    ``shard_batch=True`` wraps the engine in a
+    :class:`~repro_torch.engine.sharding.ShardedEngine` over every visible
+    CUDA device; a :class:`~repro_torch.distributed.sharding.Mesh` serves
+    over that 1-D mesh instead (a mesh is hashable, so mesh-wrapped
+    engines cache normally: a mesh-configured ``TMServer`` keys its
+    sharded bucket engines this way)."""
     from . import backends  # noqa: F401  (import side effect: registration)
     from . import autotune
     for opt, val in autotune.lookup(name, cfg, state.ta.device).items():
         opts.setdefault(opt, val)
-    key = _cache_key(name, cfg, state, opts) if cache else None
+    key = _cache_key(name, cfg, state, opts, shard_batch) if cache else None
     if key is not None:
         hit = _ENGINE_CACHE.get(key)
         if hit is not None:
@@ -446,8 +460,15 @@ def get_engine(name: str, cfg: TMConfig, state: TMState, *,
     # build outside the lock: two threads missing on one key both build and
     # the second insert wins — benign, the engines are equivalent
     engine = _VOTE_REGISTRY.build(name, cfg, state, **opts)
+    nbytes = None
+    if shard_batch:
+        from .sharding import ShardedEngine
+        mesh = shard_batch if not isinstance(shard_batch, bool) else None
+        engine = ShardedEngine(engine, mesh=mesh)
+        # one copy of the layout per distinct device
+        nbytes = state_nbytes(state) * len(engine.replicas)
     if key is not None:
-        _ENGINE_CACHE.insert(key, state, engine)
+        _ENGINE_CACHE.insert(key, state, engine, nbytes)
     return engine
 
 

@@ -36,6 +36,12 @@ package's backend of the same name.
                         kernel K2.  The index matrix is kept up to date by
                         an :class:`~repro_torch.engine.sparse.
                         IncrementalEll`.
+``sharded``             the ``fused`` step data-parallel over the batch
+                        axis of a 1-D device mesh: each shard runs K1 and
+                        K2 on its rows on its device, and the integer
+                        partials are summed per class slice in shard
+                        order — bitwise the ``fused`` state for any mesh
+                        size.
 ======================  ====================================================
 
 A step runs on the state's device; literals, labels and key may come as
@@ -43,8 +49,7 @@ numpy arrays or tensors on any device.  The key's small draws (offsets,
 feedback uniforms, row keys) run where the key lies, so a CPU key keeps
 some hundred tiny threefry ops off the card.
 
-Not ported yet (see ROADMAP.md): ``sharded``.  ``block_b``/``block_m``
-are the Pallas tiles; the port keeps them only so an engine's options
+``block_b``/``block_m`` are the Pallas tiles; the port keeps them only so an engine's options
 round-trip.  The autotune search space has no train entry (its only
 train knobs would be those tiles), so ``get_train_engine`` consults no
 autotune cache: it uses the constructor defaults or explicit opts.
@@ -60,8 +65,10 @@ import torch
 from repro_torch.core import prng
 from repro_torch.core.popcount import pack_bits
 from repro_torch.core.tm import TMConfig, TMState, clause_polarity
-from repro_torch.core.tm_train import (feedback_masks, feedback_update,
+from repro_torch.core.tm_train import (feedback_draws, feedback_masks,
+                                       feedback_thresholds, feedback_update,
                                        train_step)
+from repro_torch.distributed.sharding import data_mesh
 from repro_torch.kernels.clause_eval import make_vote_matrix
 from repro_torch.kernels.ell_gather import ell_clause_votes
 from repro_torch.kernels.swar_fused import swar_fused_votes
@@ -78,7 +85,7 @@ __all__ = ["TrainEngine", "register_train_backend", "get_train_engine",
            "available_train_backends", "clear_train_engine_cache",
            "train_engine_cache_info", "DEFAULT_TRAIN_BACKEND",
            "ReferenceTrainEngine", "PackedTrainEngine", "FusedTrainEngine",
-           "SparseTrainEngine",
+           "SparseTrainEngine", "ShardedTrainEngine",
            "export_key_cursor", "import_key_cursor", "train_engine_opts"]
 
 DEFAULT_TRAIN_BACKEND = "reference"
@@ -148,7 +155,10 @@ def export_key_cursor(key: torch.Tensor) -> tuple:
 
 def import_key_cursor(data, impl: str) -> torch.Tensor:
     """Rebuild a key from :func:`export_key_cursor` output (also a JAX
-    cursor).  Only ``threefry2x32`` is supported; ``rbg`` raises."""
+    cursor; ``data`` may be a tensor on any device).  Only
+    ``threefry2x32`` is supported; ``rbg`` raises."""
+    if isinstance(data, torch.Tensor):
+        data = data.cpu().numpy()
     return prng.wrap_key_data(np.asarray(data), impl=impl)
 
 
@@ -365,4 +375,145 @@ class SparseTrainEngine:
         :func:`train_engine_opts`)."""
         return {"boost_tpf": self.boost_tpf, "k_slack": self.k_slack,
                 "rebuild_threshold": self.rebuild_threshold,
+                "block_b": self._blocks[0], "block_m": self._blocks[1]}
+
+
+def _sharded_step(cfg: TMConfig, state: TMState, key, x, y, *, mesh,
+                  boost_tpf: bool, vote_matrix) -> TMState:
+    """Data-parallel train step over a 1-D mesh, bitwise ``fused``'s
+    for any shard count (the JAX package's ``_sharded_step``, leg by
+    leg, with copies where it has collectives).
+
+    1. **Draws.**  :func:`feedback_draws` runs once, at the global
+       unpadded batch, before any split: threefry has no prefix property,
+       so per-shard draws would never agree.  Each row's Type I words
+       come from its own key inside K2, so a shard draws only its rows'.
+    2. **Ragged rows** pad after drawing to a multiple of the shard count
+       with rows whose deltas are zero: ``offs`` 1, ``u`` 2.0 (above
+       every feedback probability, so every mask is False), zero literals
+       and labels, and row 0's key.
+    3. **Class slices.**  Classes pad to ``Cp = ceil(C/D)·D`` with
+       never-addressed all-exclude rows (``ta = 1``); shard ``i`` owns
+       slice ``i`` of ``Cp/D`` classes, packs its include mask and words
+       on its device, and the slices are gathered once per distinct
+       device (the ``all_gather``).
+    4. **Row shards.**  Shard ``j`` runs K1 (votes over all ``Cp``
+       classes), the feedback thresholds and K2 (its rows' ``(Cp, M,
+       L)`` int32 partial) on its device.
+    5. **Reduce and clip.**  Each class slice's partials are summed in
+       shard order on the slice's owner (integer addition: exact in any
+       order) and ``ta_s + upd_s`` is clipped to ``[1, 2N]`` there; the
+       state is reassembled on ``state``'s device and cut back to ``C``
+       classes.
+
+    ``vote_matrix(device, n_classes)`` gives K1's vote matrix.
+    """
+    b = x.shape[0]
+    c, m, lit = cfg.n_classes, cfg.n_clauses, cfg.n_literals
+    devs = mesh.devices
+    d = len(devs)
+    home = state.ta.device
+
+    offs, u, k1s, k2s = feedback_draws(cfg, key, b)
+    bp = -(-b // d) * d
+    if bp != b:
+        pad = bp - b
+        x = torch.cat([x, x.new_zeros((pad, lit))])
+        y = torch.cat([y, y.new_zeros(pad)])
+        offs = torch.cat([offs, offs.new_ones(pad)])
+        u = torch.cat([u, u.new_full((pad, *u.shape[1:]), 2.0)])
+        # the pad rows' masks are all False, so their keys draw nothing
+        padk = k1s[:1].expand(pad, -1)
+        k1s = torch.cat([k1s, padk])
+        k2s = torch.cat([k2s, padk])
+
+    cp = -(-c // d) * d
+    cs = cp // d
+    ta = state.ta if cp == c else torch.cat(
+        [state.ta, state.ta.new_ones((cp - c, m, lit))])
+    ta_s = [ta[i * cs:(i + 1) * cs].to(dev) for i, dev in enumerate(devs)]
+    inc_s = [(t > cfg.n_states).to(torch.int8) for t in ta_s]
+    words_s = [pack_bits(t.reshape(cs * m, lit)) for t in inc_s]
+    gathered = {dev: (torch.cat([t.to(dev) for t in inc_s]),
+                      torch.cat([w.to(dev) for w in words_s]))
+                for dev in mesh.distinct_devices()}
+
+    p_inc = 1.0 if boost_tpf else (cfg.s - 1.0) / cfg.s
+    per = bp // d
+    partials = []
+    for j, dev in enumerate(devs):
+        inc, words = gathered[dev]
+        rows = slice(j * per, (j + 1) * per)
+        x_j, y_j = x[rows].to(dev), y[rows].to(dev)
+        votes = swar_fused_votes(pack_bits(1 - x_j), words,
+                                 vote_matrix(dev, cp))             # (b, Cp)
+        y_neg, fb_t, fb_n = feedback_thresholds(
+            cfg, votes, y_j, offs[rows].to(dev), u[rows].to(dev))
+        pos = (clause_polarity(m, dev) > 0)[None, :]
+        masks = feedback_polarity_masks(fb_t, fb_n, pos)
+        partials.append(train_deltas_keyed(
+            x_j, k1s[rows].to(dev), k2s[rows].to(dev), inc, *masks, y_j,
+            y_neg, n_classes=cp, p_inc=p_inc, p_dec=1.0 / cfg.s))
+
+    out = []
+    for i, dev in enumerate(devs):
+        sl = slice(i * cs, (i + 1) * cs)
+        upd = partials[0][sl].to(dev)
+        for part in partials[1:]:
+            upd = upd + part[sl].to(dev)
+        out.append((ta_s[i] + upd).clamp(1, 2 * cfg.n_states).to(home))
+    return TMState(ta=torch.cat(out)[:c])
+
+
+@register_train_backend("sharded")
+class ShardedTrainEngine:
+    """Data-parallel training over the batch axis of a ``("data",)`` mesh:
+    the ``fused`` step's K1 + K2 body run per shard on the shard's device
+    (see :func:`_sharded_step`).  Bitwise the ``fused`` backend for any
+    mesh size, so mesh size is a throughput knob and a checkpoint trained
+    on one mesh resumes bit-exactly on another.
+
+    ``mesh=`` shards over an existing 1-D mesh; ``n_devices=`` builds a
+    :func:`~repro_torch.distributed.sharding.data_mesh` over that many
+    visible CUDA devices (``None`` = all).  ``block_b``/``block_m`` are
+    kept for the JAX package's engine options and do not change the CUDA
+    kernels' tiling.
+    """
+
+    def __init__(self, cfg: TMConfig, *, boost_tpf: bool = True,
+                 n_devices: int | None = None, mesh=None,
+                 block_b: int = DEFAULT_BLOCK_B,
+                 block_m: int = DEFAULT_BLOCK_M):
+        self.cfg = cfg
+        self.boost_tpf = boost_tpf
+        if mesh is not None:
+            if len(mesh.axis_names) != 1:
+                raise ValueError(f"sharded training needs a 1-D mesh, got "
+                                 f"{mesh.axis_names}")
+            self.mesh = mesh
+        else:
+            self.mesh = data_mesh(n_devices)
+        self.n_devices = self.mesh.size
+        self._blocks = (block_b, block_m)
+        self._vms: dict[tuple, torch.Tensor] = {}
+
+    def _vote_matrix(self, device, n_classes: int) -> torch.Tensor:
+        vm = self._vms.get((device, n_classes))
+        if vm is None:
+            vm = self._vms[(device, n_classes)] = make_vote_matrix(
+                n_classes, self.cfg.n_clauses, device)
+        return vm
+
+    def step(self, state: TMState, key, x_literals, y) -> TMState:
+        """One mesh-sharded update (see :class:`TrainEngine`)."""
+        key, x, y = _batch(self.cfg, state, key, x_literals, y)
+        return _sharded_step(self.cfg, state, key, x, y, mesh=self.mesh,
+                             boost_tpf=self.boost_tpf,
+                             vote_matrix=self._vote_matrix)
+
+    def lifecycle_opts(self) -> dict:
+        """Constructor opts to persist, the JAX package's keys (see
+        :func:`train_engine_opts`): the mesh *size*, not its devices,
+        since a restore host clamps or overrides it (elastic restore)."""
+        return {"boost_tpf": self.boost_tpf, "n_devices": self.n_devices,
                 "block_b": self._blocks[0], "block_m": self._blocks[1]}

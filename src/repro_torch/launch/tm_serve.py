@@ -86,7 +86,19 @@ round-robin, open-loop ``--rate`` evenly:
         --models fleet.json --clauses 8 --features 16 --clients 8 \
         --duration 2
 
-The mesh flags are not ported yet (see ROADMAP.md).
+Data parallelism: ``--mesh N`` shards every serving batch and (with
+``--train-backend sharded``) every labeled update across N shards of a
+1-D ``data`` mesh, in the fleet mode too; post-update states stay
+bitwise the single-device run's for any N.  On the card the mesh takes
+the first N visible GPUs; with ``--device cpu`` it is N shards of the CPU
+run one after another (a simulated mesh), the port's counterpart of the
+JAX launcher's ``--host-devices``.  ``--restore`` and a follower restore
+onto this launch's mesh, whatever mesh wrote the snapshot:
+
+    PYTHONPATH=src python -m repro_torch.launch.tm_serve --device cpu \
+        --classes 3 --clauses 8 --features 16 --clients 2 --duration 2 \
+        --mesh 4 --train-backend sharded --label-batch 8 \
+        --checkpoint-dir /tmp/tm-ckpt-mesh --checkpoint-every 3
 """
 
 from __future__ import annotations
@@ -254,6 +266,19 @@ async def _fleet_stats_printer(fleet, every: float) -> None:
               flush=True)
 
 
+def _mesh(args):
+    """``--mesh N`` → the servers' ``mesh=``: ``None`` for 0, N shards
+    of the CPU for ``--device cpu`` (a simulated mesh), else N (the
+    first N visible GPUs)."""
+    if not args.mesh:
+        return None
+    import torch
+    if args.device is not None and torch.device(args.device).type == "cpu":
+        from repro_torch.distributed import data_mesh
+        return data_mesh(args.mesh, devices=[torch.device("cpu")] * args.mesh)
+    return args.mesh
+
+
 async def _run_fleet(args) -> None:
     """``--models`` mode: serve a manifest of named models as a fleet on
     ``--device``, splitting the requested traffic across tenants."""
@@ -271,7 +296,8 @@ async def _run_fleet(args) -> None:
     fleet = TMFleet(specs, policy, pack=not args.no_pack,
                     device=args.device,
                     cache_entries=args.cache_entries or None,
-                    cache_bytes=args.cache_bytes or None)
+                    cache_bytes=args.cache_bytes or None,
+                    mesh=_mesh(args))
     names = fleet.model_names()
     pools = {}
     for i, name in enumerate(names):
@@ -380,7 +406,8 @@ async def _run(args) -> None:
                       else args.checkpoint_every,
                       checkpoint_keep=args.checkpoint_keep,
                       history_size=args.history_size,
-                      probe=probe, probe_every_updates=args.probe_every)
+                      probe=probe, probe_every_updates=args.probe_every,
+                      mesh=_mesh(args))
     if follower:
         # a follower never writes to the shared directory: it waits for
         # the leader's atomic rename to land a .complete marker
@@ -397,6 +424,7 @@ async def _run(args) -> None:
     async with server:
         print(f"TM C={cfg.n_classes} M={cfg.n_clauses} F={cfg.n_features} "
               f"density={args.density}  device={server.device}  "
+              f"mesh={server.stats()['mesh']}  "
               f"buckets={server.buckets}")
         print(f"routing: {server.stats()['routing']}")
         t0 = time.monotonic()
@@ -535,6 +563,11 @@ def main(argv: list[str] | None = None) -> None:
                          "--train-backend)")
     ap.add_argument("--probe-size", type=int, default=256,
                     help="rows in the held-out drift probe stream")
+    ap.add_argument("--mesh", type=int, default=0,
+                    help="data-parallel mesh size: shard serving batches "
+                         "(and --train-backend sharded updates) over a "
+                         "1-D 'data' mesh (0 = unsharded; with --device "
+                         "cpu, N simulated shards of the CPU)")
     ap.add_argument("--models", default=None, metavar="MANIFEST.json",
                     help="serve a JSON manifest of named models as a "
                          "TMFleet (see the module docstring for the "
@@ -566,7 +599,10 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--duration", type=float, default=5.0)
     ap.add_argument("--stats-every", type=float, default=1.0)
     ap.add_argument("--seed", type=int, default=0)
-    asyncio.run(_run(ap.parse_args(argv)))
+    args = ap.parse_args(argv)
+    if args.mesh < 0:
+        raise SystemExit("--mesh must be >= 1 (0 = unsharded)")
+    asyncio.run(_run(args))
 
 
 if __name__ == "__main__":

@@ -43,8 +43,11 @@ touches a sibling's serving path.  A single-model fleet behaves as a bare
 ``TMServer`` (no group forms).
 
 The fleet runs on ``device`` (``None`` → cuda, raising where no GPU is
-visible); every member and group server gets it.  ``mesh=`` is not ported
-yet (ROADMAP.md) and raises ``NotImplementedError``.
+visible); every member and group server gets it.  ``mesh=`` (a 1-D mesh
+or a device count) is forwarded to every member server and every pack
+group's fused server, so packed buckets shard as solo ones do; a model's
+own ``mesh=`` in its spec wins for its member server.  With a mesh the
+fleet's device is the mesh's first device.
 
 >>> fleet = TMFleet({"en": {"cfg": cfg, "state": s1,
 ...                         "train_backend": "fused"},
@@ -67,6 +70,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.tm import TMConfig, TMState
+from repro_torch.distributed import sharding
 from repro_torch.engine import (EngineResult, engine_cache_info,
                                 set_engine_cache_budget, state_nbytes,
                                 weight_engines_for_state)
@@ -96,7 +100,8 @@ def fuse_states(states) -> TMState:
     members' device → the pack group's fused state.  Exact by
     construction: class sums are per-class independent, so fused column
     ``lo + j`` equals member column ``j`` of a solo machine."""
-    return TMState(ta=torch.cat([s.ta for s in states], dim=0))
+    dev = states[0].ta.device
+    return TMState(ta=torch.cat([s.ta.to(dev) for s in states], dim=0))
 
 
 def _group_policy(policy: ServePolicy) -> ServePolicy:
@@ -147,7 +152,7 @@ class _PackGroup:
 
     __slots__ = ("key", "members", "server", "_lock")
 
-    def __init__(self, key, members, policy, executor, device):
+    def __init__(self, key, members, policy, executor, device, mesh=None):
         self.key = key
         self.members = list(members)        # _Model records, in order
         self._assign_segments()
@@ -161,7 +166,8 @@ class _PackGroup:
         self._lock = threading.Lock()
         self.server = TMServer(
             fused_cfg, fuse_states([m.server.state for m in self.members]),
-            _group_policy(policy), executor=executor, device=device)
+            _group_policy(policy), executor=executor, device=device,
+            mesh=mesh)
 
     def _assign_segments(self) -> None:
         lo = 0
@@ -200,7 +206,9 @@ class TMFleet:
     :func:`repro_torch.engine.set_engine_cache_budget`); ``weights`` pins
     static eviction weights per model name, otherwise each model's
     measured request share is registered.  ``device`` (``None`` → cuda)
-    is where every server runs.
+    is where every server runs; ``mesh=`` serves (and, for
+    ``train_backend="sharded"`` members, trains) data-parallel over a
+    1-D device mesh.
 
     Use as an async context manager like ``TMServer``.  The request API is
     :meth:`submit` / :meth:`submit_labeled` with the model name first; the
@@ -216,15 +224,15 @@ class TMFleet:
                  cache_bytes: int | None = None,
                  weights: dict[str, float] | None = None,
                  latency_window: int = 4096):
-        if mesh is not None:
-            raise NotImplementedError(
-                "TMFleet(mesh=): multi-device serving is not ported yet "
-                "(ROADMAP.md, queue 1, multi-GPU)")
         if not models:
             raise ValueError("TMFleet needs at least one model")
         self.policy = policy or ServePolicy()
         self.pack = bool(pack)
-        self.device = resolve_device(device)
+        # the fleet-wide data-parallel mesh, forwarded to every member
+        # and pack group server
+        self.mesh = sharding.resolve_mesh(mesh)
+        self.device = resolve_device(device) if self.mesh is None else \
+            sharding.mesh_device(self.mesh, device)
         self._mu = threading.Lock()
         self._models: dict[str, _Model] = {}
         self._groups: list[_PackGroup] = []
@@ -258,7 +266,10 @@ class TMFleet:
             cfg, state = spec
             kw = {}
         weight = kw.pop("weight", self._weights_cfg.get(name))
-        kw.setdefault("device", self.device)
+        if self.mesh is not None:
+            kw.setdefault("mesh", self.mesh)
+        if kw.get("mesh") is None:
+            kw.setdefault("device", self.device)
         server = TMServer(
             cfg, state, self.policy, executor=self._pool,
             on_publish=lambda v, s, _n=name: self._member_published(_n, v, s),
@@ -277,7 +288,7 @@ class TMFleet:
             if len(members) < 2:
                 continue
             group = _PackGroup(key, members, self.policy, self._pool,
-                               self.device)
+                               self.device, self.mesh)
             for m in members:
                 m.group = group
             self._groups.append(group)
@@ -443,7 +454,8 @@ class TMFleet:
                 step: int | None = None, mesh=None, shardings=None) -> int:
         """Restore ``model`` from its checkpoint directory (before
         :meth:`start`); its pack group republishes the restored state.
-        ``mesh=`` / ``shardings=`` are not ported yet and raise (see
+        ``mesh=`` / ``shardings=`` retarget the member's data-parallel
+        mesh at restore time (elastic re-shard, see
         :meth:`TMServer.restore`)."""
         return self._entry(model).server.restore(directory, step=step,
                                                  mesh=mesh,
@@ -498,7 +510,7 @@ class TMFleet:
             self._groups.remove(group)
             if len(survivors) >= 2:
                 regrouped = _PackGroup(group.key, survivors, self.policy,
-                                       self._pool, self.device)
+                                       self._pool, self.device, self.mesh)
                 for m in survivors:
                     m.group = regrouped
                 self._groups.append(regrouped)

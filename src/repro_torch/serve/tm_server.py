@@ -85,8 +85,15 @@ The server runs on ``device`` (``None`` → cuda, and it raises where no
 GPU is visible); tensors carry their device, so the worker thread needs
 no ``set_device`` and kernels launch on that device's current stream.
 
-Not ported yet (see ROADMAP.md): ``mesh=`` (and ``restore``'s ``mesh=`` /
-``shardings=``), which raise ``NotImplementedError``.
+**Data parallelism** (``mesh=``, a 1-D
+:class:`~repro_torch.distributed.sharding.Mesh` or a device count) —
+stage-B bucket engines and the shed tier's engine come from
+``get_engine(shard_batch=mesh)`` (the one-slot ``sparse_csr`` engine is
+wrapped in :class:`~repro_torch.engine.sharding.ShardedEngine` too), and
+``train_backend="sharded"`` shards its update step over the same mesh.
+The server's state lives on the mesh's first device.  Bitwise the
+single-device server; :meth:`restore` can retarget the mesh (elastic
+re-shard).
 
 >>> async with TMServer(cfg, state, ServePolicy(max_batch=64,
 ...                     backend="mxu_fused")) as srv:
@@ -117,6 +124,7 @@ import torch
 from repro_torch import checkpoint as ckpt
 from repro_torch.core import prng
 from repro_torch.core.tm import TMConfig, TMState, include_mask
+from repro_torch.distributed import sharding
 from repro_torch.engine import autotune
 from repro_torch.engine import (EngineResult, ServiceStats,
                                 available_backends, engine_cache_info,
@@ -124,6 +132,7 @@ from repro_torch.engine import (EngineResult, ServiceStats,
                                 get_engine, get_train_engine,
                                 import_key_cursor, infer_padded,
                                 train_engine_opts)
+from repro_torch.engine.sharding import ShardedEngine
 from repro_torch.engine.sparse import IncrementalEll
 from repro_torch.kernels.ops import resolve_device
 
@@ -133,9 +142,6 @@ __all__ = ["ServePolicy", "TMServer", "DeadlineExceeded", "bucket_for",
            "default_buckets", "route_buckets"]
 
 _STOP = object()        # queue sentinel: wakes the scheduler for shutdown
-_NOT_PORTED = ("ROADMAP.md lists it among the TMServer options the port "
-               "does not have yet")
-_UNPORTED_OPTIONS = ("mesh",)
 
 
 def default_buckets(max_batch: int) -> tuple[int, ...]:
@@ -309,7 +315,10 @@ class TMServer:
 
     ``device``: where the state lives and the engines run (``None`` →
     cuda; raises where no GPU is visible — pass ``device="cpu"`` for the
-    CPU).  ``history_size`` bounds the ring of recent ``(version,
+    CPU).  ``mesh=`` (a 1-D mesh, a device count, or ``None``) turns on
+    data-parallel serving and, with ``train_backend="sharded"``,
+    training; the state then lives on the mesh's first device, and a
+    ``device=`` outside the mesh raises.  ``history_size`` bounds the ring of recent ``(version,
     state)`` pairs; ``on_publish(version, state)`` is called after every
     publish (its errors are counted, never propagated); ``executor``
     shares one worker thread across servers.
@@ -318,6 +327,7 @@ class TMServer:
     def __init__(self, cfg: TMConfig, state: TMState,
                  policy: ServePolicy | None = None, *,
                  routing: dict[int, str] | None = None,
+                 mesh=None,
                  device=None,
                  train_backend: str | None = None, train_seed: int = 0,
                  checkpoint_dir: str | None = None,
@@ -329,15 +339,7 @@ class TMServer:
                  probe_window: int = 256,
                  latency_window: int = 4096,
                  on_publish=None,
-                 executor: ThreadPoolExecutor | None = None,
-                 **unported):
-        if unported:
-            unknown = sorted(set(unported) - set(_UNPORTED_OPTIONS))
-            if unknown:
-                raise TypeError(f"TMServer got unexpected keyword "
-                                f"arguments {unknown}")
-            raise NotImplementedError(
-                f"TMServer option(s) {sorted(unported)}: {_NOT_PORTED}")
+                 executor: ThreadPoolExecutor | None = None):
         self.policy = policy or ServePolicy()
         if (self.policy.shed_backend is not None
                 and self.policy.shed_backend not in available_backends()):
@@ -345,7 +347,11 @@ class TMServer:
                 f"unknown shed_backend {self.policy.shed_backend!r}; "
                 f"available: {available_backends()}")
         self.cfg = cfg
-        self.device = resolve_device(device)
+        # resolved before any engine is built, so the constructor's
+        # publish already serves sharded
+        self._mesh = sharding.resolve_mesh(mesh)
+        self.device = resolve_device(device) if self._mesh is None else \
+            sharding.mesh_device(self._mesh, device)
         # one lock for every counter stats() reads, so a snapshot is
         # internally consistent
         self._mu = threading.Lock()
@@ -376,7 +382,13 @@ class TMServer:
         self._train_backend = train_backend
         self._train_pool: ThreadPoolExecutor | None = None
         if train_backend is not None:
-            self._train_engine = get_train_engine(train_backend, cfg)
+            # a mesh-configured server shards its training too; other
+            # backends are single-device and ignore the mesh
+            topts = {"mesh": self._mesh} \
+                if (self._mesh is not None
+                    and train_backend == "sharded") else {}
+            self._train_engine = get_train_engine(train_backend, cfg,
+                                                  **topts)
             # the chain lives on the CPU: its splits and the step's small
             # draws are a few hundred tiny ops, cheaper there than as
             # kernel launches
@@ -522,6 +534,10 @@ class TMServer:
                 self._serve_ell.refresh(inc)
             engine = get_engine("sparse_csr", cfg, state, cache=False,
                                 ell=self._serve_ell.layout)
+            if self._mesh is not None:
+                # the one-slot engine bypasses get_engine's shard_batch
+                # wrapping (cache=False), so wrap it here
+                engine = ShardedEngine(engine, mesh=self._mesh)
             self._sparse_serving = (state, engine)
         else:
             self._sparse_serving = None
@@ -598,7 +614,10 @@ class TMServer:
                  "train_backend": self._train_backend,
                  "train_opts": {}, "updates": self._n_updates,
                  "rollbacks": self._n_rollbacks,
-                 "mesh_devices": None}
+                 # the mesh *size* only: the snapshot is a host copy,
+                 # whatever mesh wrote it
+                 "mesh_devices": (None if self._mesh is None
+                                  else self._mesh.size)}
         if self._train_key is not None:
             data, impl = export_key_cursor(self._train_key)
             cursor, extra["has_cursor"], extra["key_impl"] = data, True, impl
@@ -627,30 +646,56 @@ class TMServer:
         update-key-chain cursor and train backend with its saved opts, so
         a killed and restarted server replays bit-exactly against the
         uninterrupted run.  The history ring restarts at the restored
-        pair.  Must run before :meth:`start`.  ``mesh=`` / ``shardings=``
-        (the elastic multi-device restore) are not ported yet.
+        pair.  Must run before :meth:`start`.
+
+        **Elastic re-shard**: ``mesh=`` (a 1-D mesh, a device count, or
+        ``None`` to keep the constructor's) retargets this server's mesh
+        before the restored state publishes, so a checkpoint written on
+        mesh A restores onto mesh B, single-device included (``mesh=1``):
+        snapshots are host copies and training is mesh-size invariant.
+        The state moves to the new mesh's first device.  A ``sharded``
+        train backend whose recorded ``n_devices`` exceeds the visible
+        devices is clamped (or replaced by the override mesh).
+        ``shardings=`` places the loaded leaves on devices (see
+        :func:`repro_torch.checkpoint.restore_tm_lifecycle`).
         """
-        if mesh is not None or shardings is not None:
-            raise NotImplementedError(
-                f"restore(mesh=, shardings=): {_NOT_PORTED}")
         if self._task is not None and not self._closed:
             raise RuntimeError("restore() must run before start()")
         directory = self._directory(directory)
-        step, tree, extra = ckpt.restore_tm_lifecycle(directory, step)
+        if mesh is not None:
+            self._mesh = sharding.resolve_mesh(mesh)
+            device = sharding.mesh_device(self._mesh)
+            if device != self.device:
+                # the serving layout mirror lives on the old device
+                self.device, self._serve_ell = device, None
+        step, tree, extra = ckpt.restore_tm_lifecycle(directory, step,
+                                                      shardings=shardings)
         saved_cfg = extra.get("cfg")
         if saved_cfg and saved_cfg != dataclasses.asdict(self.cfg):
             raise ValueError(f"checkpoint step_{step} was written for "
                              f"cfg {saved_cfg}, not {self.cfg}")
         version = int(extra.get("version", step))
         self._history.clear()
-        self._publish(version, TMState(ta=torch.from_numpy(tree["ta"])))
+        self._publish(version, TMState(ta=torch.as_tensor(tree["ta"])))
         if extra.get("has_cursor"):
             backend = extra.get("train_backend")
             if backend:
                 # the checkpoint's backend and opts win: restore means
                 # resume *that* run
-                self._train_engine = get_train_engine(
-                    backend, self.cfg, **dict(extra.get("train_opts", {})))
+                topts = dict(extra.get("train_opts", {}))
+                if backend == "sharded":
+                    # mesh size is elastic: the override mesh wins, and a
+                    # recorded size this host cannot build clamps to the
+                    # visible devices — both resume bit-exactly
+                    if self._mesh is not None:
+                        topts.pop("n_devices", None)
+                        topts["mesh"] = self._mesh
+                    else:
+                        avail = len(sharding.visible_devices())
+                        n = topts.get("n_devices") or avail
+                        topts["n_devices"] = min(int(n), avail)
+                self._train_engine = get_train_engine(backend, self.cfg,
+                                                      **topts)
                 self._train_backend = backend
                 if self._train_pool is None:
                     self._train_pool = ThreadPoolExecutor(
@@ -718,7 +763,8 @@ class TMServer:
             pair = self._sparse_serving
             if pair is not None and pair[0] is st:
                 return pair[1]
-        return get_engine(backend, self.cfg, st)
+        return get_engine(backend, self.cfg, st,
+                          shard_batch=self._mesh or False)
 
     def shed_engine_for(self, bucket: int, state: TMState | None = None):
         """The (cached) overload-tier engine (``policy.shed_backend``) on
@@ -728,6 +774,7 @@ class TMServer:
             raise RuntimeError("no shed tier configured (shed_backend=)")
         return get_engine(self.policy.shed_backend, self.cfg,
                           self.state if state is None else state,
+                          shard_batch=self._mesh or False,
                           **self.policy.resolved_shed_opts())
 
     async def warmup(self, *, train_batches: tuple[int, ...] = ()) -> None:
@@ -1258,8 +1305,8 @@ class TMServer:
 
     def stats(self) -> dict:
         """Serving counters in one consistent snapshot, with the JAX
-        package's key set; ``mesh``, which the port does not have yet,
-        reads ``None``.  ``sparse_layout`` holds the serving
+        package's key set.  ``mesh`` is ``None`` on one device, else the
+        mesh's shard count and axis name.  ``sparse_layout`` holds the serving
         ``IncrementalEll``'s refresh counters (``None`` until a
         ``sparse_csr`` route exists).  ``device`` names where the engines
         run.  ``checkpoint`` is ``None`` without a checkpoint directory,
@@ -1351,7 +1398,9 @@ class TMServer:
             "probe": probe_stats,
             "routing": {str(k): v for k, v in sorted(self.routing.items())},
             "routing_updates": snap["routing_updates"],
-            "mesh": None,
+            "mesh": (None if self._mesh is None else {
+                "devices": self._mesh.size,
+                "axis": self._mesh.axis_names[0]}),
             "sparse_layout": (None if self._serve_ell is None
                               else self._serve_ell.stats()),
             "device": str(self.device),

@@ -31,6 +31,7 @@ from repro.engine import engine_from_model_config as jengine_from_model_config
 from repro_torch.configs import get_config, list_configs
 from repro_torch.convert import state_from_numpy
 from repro_torch.core.tm import TMConfig
+from repro_torch.distributed import data_mesh
 from repro_torch.engine import (autotune, clear_train_engine_cache,
                                 engine_from_model_config, get_engine,
                                 get_train_engine)
@@ -254,9 +255,28 @@ def test_engine_from_model_config():
                                   np.asarray(want.prediction))
     np.testing.assert_array_equal(got.class_sums.numpy(),
                                   np.asarray(want.class_sums))
-    with pytest.raises(NotImplementedError, match="shard_batch"):
-        engine_from_model_config(dataclasses.replace(mcfg, shard_batch=True),
-                                 state_from_numpy(ta, device="cpu"))
+    # shard_batch is ported: it wraps the engine over every visible GPU
+    # (none here: the mesh raises and names devices=) and the wrapped
+    # engine equals the JAX package's over its simulated devices
+    sharded = dataclasses.replace(mcfg, shard_batch=True)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="devices="):
+            engine_from_model_config(sharded,
+                                     state_from_numpy(ta, device="cpu"))
+    jsh = jengine_from_model_config(dataclasses.replace(
+        jget_config("tm-iris-10"), shard_batch=True),
+        JState(ta=jnp.asarray(ta)))
+    want = jsh.infer(jnp.asarray(lits))
+    sh = get_engine(mcfg.backend, cfg, state_from_numpy(ta, device="cpu"),
+                    shard_batch=data_mesh(jsh.n_devices,
+                                          devices=[torch.device("cpu")]
+                                          * jsh.n_devices))
+    assert sh.name == jsh.name == f"{mcfg.backend}+shard_batch"
+    got = sh.infer(torch.as_tensor(lits))
+    np.testing.assert_array_equal(got.prediction.numpy(),
+                                  np.asarray(want.prediction))
+    np.testing.assert_array_equal(got.class_sums.numpy(),
+                                  np.asarray(want.class_sums))
 
 
 # -- the launcher's fleet mode ---------------------------------------

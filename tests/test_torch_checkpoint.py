@@ -344,7 +344,8 @@ def test_leaf_types_and_unported_options(tmp_path):
     """Tensor leaves are copied to the host up front by ``save_async``
     (the caller may mutate them at once); a cursor given as the port's
     int32 words is written as uint32 by reinterpreting the bits; a
-    bfloat16 leaf and ``shardings=`` raise and name ROADMAP.md."""
+    bfloat16 leaf raises and names ROADMAP.md; ``shardings=`` places the
+    restored leaves on devices, as the JAX package's does."""
     d = str(tmp_path / "ck")
     ta = torch.from_numpy(_ta(4))
     want = ta.clone()
@@ -368,10 +369,23 @@ def test_leaf_types_and_unported_options(tmp_path):
     jckpt.save(jd, 1, {"w": jnp.zeros(3, jnp.bfloat16)})
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         ckpt.restore(jd, 1, {"w": 0})
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    # shardings= is ported: a tree that does not match raises, as
+    # jax.tree.map does; per-leaf devices (None: the CPU) give tensors
+    # holding the JAX package's values
+    with pytest.raises(ValueError, match="do not match"):
         ckpt.restore(d, 1, {"ta": 0, "cursor": 0}, shardings={})
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ckpt.restore_tm_lifecycle(d, shardings={"ta": None})
+    _, placed, _ = ckpt.restore_tm_lifecycle(d, shardings={"ta": None})
+    _, jplaced, _ = jckpt.restore_tm_lifecycle(d, shardings={"ta": None})
+    for k in ("ta", "cursor"):
+        assert isinstance(placed[k], torch.Tensor)
+        assert placed[k].device == torch.device("cpu")
+        np.testing.assert_array_equal(placed[k].numpy(),
+                                      np.asarray(jplaced[k]))
+    assert placed["cursor"].dtype == torch.uint32
+    assert torch.equal(import_key_cursor(placed["cursor"], prng.IMPL), key)
+    tree, _ = ckpt.restore(d, 1, {"ta": 0, "cursor": 0},
+                           shardings=torch.device("cpu"))
+    assert torch.equal(tree["ta"], want)
     with pytest.raises(TypeError, match="checkpoint trees"):
         ckpt.save(d, 3, {"x": "not an array"})
 

@@ -20,6 +20,7 @@ from repro_torch.convert import state_from_numpy
 from repro_torch.core import prng
 from repro_torch.core.popcount import pack_bits
 from repro_torch.core.tm import TMConfig
+from repro_torch.distributed import data_mesh
 from repro_torch.engine import (available_backends, get_engine,
                                 get_train_engine)
 from repro_torch.engine.cascade import subsample_mask
@@ -808,3 +809,133 @@ def test_packed_fleet_on_cuda_equals_cpu_oracle(cuda):
         np.testing.assert_array_equal(res.prediction, want.prediction)
         np.testing.assert_array_equal(res.class_sums, want.class_sums)
     assert launches == (served, 2, 2)
+
+
+# --- the mesh: data-parallel serving and training on the card ---------
+
+
+def _card_mesh(cuda, d):
+    """The card's own mesh at d=1, else d simulated shards of it."""
+    return data_mesh(1) if d == 1 else data_mesh(d, devices=[cuda] * d)
+
+
+@pytest.mark.parametrize("d", [1, 4])
+def test_sharded_on_cuda_equals_fused(cuda, d):
+    """A 5-step chain at tm-mnist-50 width, the last batch ragged (37
+    rows): ``sharded`` on the card's mesh publishes exactly ``fused``'s
+    states on the card and the CPU reference's, with K1 and K2 launched
+    once per shard per step."""
+    rng = np.random.default_rng(17)
+    cfg = TMConfig(10, 50, 784, T=5, s=7.0)
+    ta = np.where(rng.random((10, 50, 1568)) < 0.05, 129, 128)
+    sh = fu = state_from_numpy(ta)
+    cpu = state_from_numpy(ta, device="cpu")
+    sharded = get_train_engine("sharded", cfg, mesh=_card_mesh(cuda, d))
+    fused, ref = get_train_engine("fused", cfg), \
+        get_train_engine("reference", cfg)
+    chain = prng.key(6)
+    n1, n2 = swar_fused_votes.launches, train_deltas_keyed.launches
+    for b in (32, 32, 32, 32, 37):
+        lits = rng.integers(0, 2, (b, 1568), dtype=np.int8)
+        y = rng.integers(0, 10, (b,), dtype=np.int32)
+        chain, k = prng.split(chain)
+        sh = sharded.step(sh, k, lits, y)
+        fu = fused.step(fu, k, lits, y)
+        cpu = ref.step(cpu, k, lits, y)
+        assert sh.ta.device.type == "cuda"
+        assert torch.equal(sh.ta, fu.ta)
+        assert torch.equal(sh.ta.cpu(), cpu.ta)
+    # the fused engine launched K1 and K2 once a step too
+    assert swar_fused_votes.launches - n1 == 5 * d + 5
+    assert train_deltas_keyed.launches - n2 == 5 * d + 5
+
+
+@pytest.mark.parametrize("d", [1, 4])
+@pytest.mark.parametrize("backend", ["mxu_fused", "swar_fused"])
+def test_sharded_engine_on_cuda(cuda, backend, d):
+    """``ShardedEngine`` over the kernel backends on the card's mesh:
+    bitwise the unsharded engine at a divisible and a ragged batch, one
+    kernel launch per shard."""
+    rng = np.random.default_rng(19)
+    cfg = TMConfig(10, 50, 784)
+    st = state_from_numpy(np.where(rng.random((10, 50, 1568)) < 0.002,
+                                   129, 128))
+    plain = get_engine(backend, cfg, st)
+    sharded = get_engine(backend, cfg, st,
+                         shard_batch=_card_mesh(cuda, d))
+    kernel = clause_votes if backend == "mxu_fused" else swar_fused_votes
+    for b in (64, 37):
+        lits = rng.integers(0, 2, (b, 1568), dtype=np.int8)
+        want = plain.infer(lits)
+        n = kernel.launches
+        got = sharded.infer(lits)
+        assert kernel.launches - n == d
+        assert got.class_sums.device.type == "cuda"
+        assert torch.equal(got.prediction, want.prediction)
+        assert torch.equal(got.class_sums, want.class_sums)
+
+
+def test_mixed_cpu_and_cuda_mesh(cuda):
+    """A mesh of the card and the CPU: the serving engine's layout is
+    copied to the CPU shard (plain version there, kernel on the card) and
+    the sharded step gathers and reduces across the two devices — both
+    bitwise the single-device results."""
+    rng = np.random.default_rng(23)
+    cfg = TMConfig(4, 10, 30, T=5, s=3.9)
+    ta = np.where(rng.random((4, 10, 60)) < 0.1, 129, 128)
+    st = state_from_numpy(ta)
+    mesh = data_mesh(devices=[cuda, torch.device("cpu"), cuda])
+    lits = rng.integers(0, 2, (13, 60), dtype=np.int8)
+    sharded = get_engine("mxu_fused", cfg, st, shard_batch=mesh)
+    assert set(sharded.replicas) == {torch.device("cuda", 0),
+                                     torch.device("cpu")}
+    want = get_engine("mxu_fused", cfg, st).infer(lits)
+    got = sharded.infer(lits)
+    assert torch.equal(got.prediction, want.prediction)
+    assert torch.equal(got.class_sums, want.class_sums)
+    y = rng.integers(0, 4, (13,), dtype=np.int32)
+    k = prng.key(8)
+    got = get_train_engine("sharded", cfg, mesh=mesh).step(st, k, lits, y)
+    want = get_train_engine("fused", cfg).step(st, k, lits, y)
+    assert got.ta.device.type == "cuda" and torch.equal(got.ta, want.ta)
+
+
+def test_mesh_server_elastic_restore_on_cuda(cuda, tmp_path):
+    """A learning server on 4 simulated shards of the card, killed after
+    2 updates and restored onto the card's own mesh, publishes the CPU
+    reference replay's states and serves the CPU oracle's answers."""
+    rng = np.random.default_rng(29)
+    cfg = TMConfig(3, 8, 20, T=5, s=3.9)
+    ta = rng.integers(128, 130, (3, 8, 40))
+    batches = [(rng.integers(0, 2, (13, 40), dtype=np.int8),
+                rng.integers(0, 3, (13,), dtype=np.int32)) for _ in range(4)]
+    probe = rng.integers(0, 2, (5, 40), dtype=np.int8)
+    d = str(tmp_path / "ck")
+    policy = ServePolicy(max_batch=8, backend="mxu_fused")
+
+    async def go(mesh, part, restore):
+        srv = TMServer(cfg, state_from_numpy(ta), policy, mesh=mesh,
+                       train_backend="sharded", train_seed=9,
+                       checkpoint_dir=d)
+        if restore:
+            srv.restore(mesh=data_mesh(1))
+        async with srv:
+            for lits, y in part:
+                await srv.submit_labeled(lits, y)
+            return srv.state.ta.cpu(), (await srv.submit(probe)), \
+                srv._train_engine.n_devices, srv.stats()["mesh"]
+
+    _, _, n, mesh = asyncio.run(go(_card_mesh(cuda, 4), batches[:2], False))
+    assert n == 4 and mesh == {"devices": 4, "axis": "data"}
+    got, res, n, mesh = asyncio.run(go(_card_mesh(cuda, 4), batches[2:],
+                                       True))
+    assert n == 1 and mesh == {"devices": 1, "axis": "data"}
+    chain, want = prng.key(9), state_from_numpy(ta, device="cpu")
+    ref = get_train_engine("reference", cfg)
+    for lits, y in batches:
+        chain, k = prng.split(chain)
+        want = ref.step(want, k, lits, y)
+    assert torch.equal(got, want.ta)
+    oracle = get_engine("oracle", cfg, want).infer(probe)
+    np.testing.assert_array_equal(res.prediction, oracle.prediction)
+    np.testing.assert_array_equal(res.class_sums, oracle.class_sums)

@@ -35,6 +35,7 @@ from repro.serve import ServePolicy as JPolicy
 from repro.serve import TMFleet as JFleet
 from repro_torch.convert import state_from_numpy
 from repro_torch.core.tm import TMConfig, TMState
+from repro_torch.distributed import Mesh, data_mesh
 from repro_torch.engine import (ENGINE_CACHE_SIZE, clear_engine_cache,
                                 engine_cache_info, evict_engines_for_state,
                                 get_engine, set_engine_cache_budget,
@@ -96,13 +97,15 @@ def _trace(models, n_ops, seed, *, update_frac=0.3, trainable=()):
     return ops
 
 
-def _run_fleet(specs, policy, trace, *, pack=True):
-    """Serve ``trace`` sequentially through a CPU fleet → (per-model op
-    records, final stats)."""
+def _run_fleet(specs, policy, trace, *, pack=True, mesh=None):
+    """Serve ``trace`` sequentially through a CPU fleet (over ``mesh``,
+    a simulated CPU mesh, when given) → (per-model op records, final
+    stats)."""
     out = {name: [] for name in specs}
 
     async def go():
-        async with TMFleet(specs, policy, pack=pack, device="cpu") as fleet:
+        async with TMFleet(specs, policy, pack=pack, device="cpu",
+                           mesh=mesh) as fleet:
             for name, op, *payload in trace:
                 if op == "predict":
                     res = await fleet.submit(name, payload[0])
@@ -825,7 +828,8 @@ def test_drain_regroups_under_inflight_siblings():
 def test_unknown_model_and_duplicate_name():
     """Routing errors are crisp: unknown name → KeyError naming the
     served set; duplicate add_model → ValueError; drain of an unknown
-    name → KeyError; mesh= is not ported and says so."""
+    name → KeyError; a 2-D mesh, or a device outside the mesh, is
+    refused."""
     cfg, state = _tm(seed=57)
 
     async def go():
@@ -840,8 +844,41 @@ def test_unknown_model_and_duplicate_name():
                 await fleet.drain("nope")
 
     _run(go())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TMFleet({"a": (cfg, state)}, device="cpu", mesh=object())
+    cpu = torch.device("cpu")
+    with pytest.raises(ValueError, match="1-D"):
+        TMFleet({"a": (cfg, state)}, device="cpu",
+                mesh=Mesh((cpu,) * 4, ("data", "model"), (2, 2)))
+    with pytest.raises(ValueError, match="not in the mesh"):
+        TMFleet({"a": (cfg, state)}, device="cuda:1",
+                mesh=data_mesh(2, devices=[cpu] * 2))
+
+
+@pytest.mark.parametrize("pack", [True, False], ids=["packed", "solo"])
+def test_fleet_mesh_trace_equals_unmeshed(pack):
+    """``TMFleet(mesh=)`` over a simulated 4-shard CPU mesh: the same
+    trace (two same-shape learners, ``sharded`` against ``fused``, and a
+    model of another shape) answers bitwise as the fleet without a mesh
+    — predictions, class sums and versions — and every member and group
+    server serves over the mesh."""
+    models = {"a": _tm(seed=61), "b": _tm(seed=62),
+              "c": _tm(seed=63, c=2, m=6)}
+    trace = _trace(models, 24, seed=64, trainable=("a", "b"))
+    policy = ServePolicy(max_batch=4, backend="swar_packed")
+    mesh = data_mesh(4, devices=[torch.device("cpu")] * 4)
+
+    def specs(train_backend):
+        return {name: ({"cfg": cfg, "state": st,
+                        "train_backend": train_backend}
+                       if name in ("a", "b") else (cfg, st))
+                for name, (cfg, st) in models.items()}
+
+    plain, _ = _run_fleet(specs("fused"), policy, trace, pack=pack)
+    meshed, stats = _run_fleet(specs("sharded"), policy, trace, pack=pack,
+                               mesh=mesh)
+    for name in models:
+        _assert_same(meshed[name], plain[name], model=name)
+    assert any(op[0] == "update" for op in meshed["a"])
+    assert len(stats["groups"]) == (1 if pack else 0)
 
 
 def test_empty_fleet_rejected():

@@ -28,6 +28,7 @@ from repro_torch.checkpoint import _msgpack
 from repro_torch.convert import state_from_numpy
 from repro_torch.core import prng
 from repro_torch.core.tm import TMConfig
+from repro_torch.distributed import data_mesh
 from repro_torch.engine import get_engine, get_train_engine
 from repro_torch.serve import ServePolicy, TMServer
 
@@ -188,9 +189,13 @@ def test_restore_validation(tmp_path):
         ServePolicy(max_batch=4), device="cpu")
     with pytest.raises(ValueError, match="was written for"):
         other.restore(d)
-    for kw in ({"mesh": 2}, {"shardings": {"ta": None}}):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            srv.restore(d, **kw)
+    # restore(mesh=, shardings=) is ported: the snapshot lands on the
+    # simulated mesh's device, or as the tensors shardings= names
+    cpu = torch.device("cpu")
+    for kw in ({"mesh": data_mesh(2, devices=[cpu] * 2)},
+               {"shardings": {"ta": None}}):
+        assert srv.restore(d, **kw) == 0
+        np.testing.assert_array_equal(srv.state.ta.numpy(), ta)
 
     async def mid_run():
         async with _server(cfg, ta, ServePolicy(max_batch=4)) as live:

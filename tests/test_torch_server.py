@@ -24,6 +24,7 @@ from repro.serve import ServePolicy as JPolicy
 from repro.serve import TMServer as JServer
 from repro_torch.convert import state_from_numpy
 from repro_torch.core.tm import TMConfig
+from repro_torch.distributed import data_mesh
 from repro_torch.engine import get_engine
 from repro_torch.serve import (DeadlineExceeded, ServePolicy, TMServer,
                                bucket_for, default_buckets, route_buckets)
@@ -283,9 +284,35 @@ def test_warmup_and_stats_key_set_matches_jax():
 
 @pytest.mark.parametrize("option", [{"mesh": 2}, {"mesh": 1}])
 def test_unported_options_raise(option):
+    """``mesh=`` is ported: a device count builds a mesh of that many
+    visible GPUs (none here, so it raises and names ``devices=``); a
+    simulated CPU mesh of that size serves bitwise the single-device
+    server, its state on the mesh's first device, and a ``device=``
+    outside the mesh raises."""
     cfg, state = _tm(seed=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        TMServer(cfg, state, device="cpu", **option)
+    n = option["mesh"]
+    if not torch.cuda.is_available():
+        with pytest.raises(ValueError, match="devices="):
+            TMServer(cfg, state, device="cpu", **option)
+    mesh = data_mesh(n, devices=[torch.device("cpu")] * n)
+    lits = np.random.default_rng(3).integers(0, 2, (5, 2 * F),
+                                             dtype=np.int8)
+
+    async def go(**kw):
+        async with TMServer(cfg, state, ServePolicy(max_batch=4,
+                                                    backend="oracle"),
+                            **kw) as srv:
+            return srv, await srv.submit(lits)
+
+    srv, got = _run(go(mesh=mesh))
+    _, want = _run(go(device="cpu"))
+    assert srv.device == torch.device("cpu")
+    assert srv.stats()["mesh"] == {"devices": n, "axis": "data"}
+    assert srv.engine_for(4).n_devices == n
+    np.testing.assert_array_equal(got.prediction, want.prediction)
+    np.testing.assert_array_equal(got.class_sums, want.class_sums)
+    with pytest.raises(ValueError, match="not in the mesh"):
+        TMServer(cfg, state, device="cuda:3", mesh=mesh)
 
 
 @pytest.mark.parametrize("option", [
@@ -317,9 +344,14 @@ def test_unported_planes_raise_and_typos_are_type_errors(tmp_path):
         _run(srv.submit_labeled(np.zeros((1, 2 * F)), [0]))
     d = str(tmp_path / "somewhere")
     assert srv.checkpoint(d) == 0
-    for kw in ({"mesh": 2}, {"shardings": {}}):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            srv.restore(d, **kw)
+    # restore(mesh=, shardings=) is ported: an unmatched shardings tree
+    # raises, a simulated mesh and per-leaf devices restore
+    with pytest.raises(ValueError, match="do not match"):
+        srv.restore(d, shardings={"ta": {}})
+    cpu = torch.device("cpu")
+    assert srv.restore(d, mesh=data_mesh(2, devices=[cpu] * 2),
+                       shardings={"ta": cpu}) == 0
+    assert srv.stats()["mesh"] == {"devices": 2, "axis": "data"}
     assert srv.restore(d) == 0
 
 
@@ -435,7 +467,9 @@ def test_port_imports_no_jax_and_no_repro():
             "repro_torch.launch.bnn_popcount, repro_torch.checkpoint, "
             "repro_torch.checkpoint._msgpack, repro_torch.engine.cascade, "
             "repro_torch.serve.tm_fleet, repro_torch.engine.autotune, "
-            "repro_torch.configs, repro_torch.configs.tm_paper\n"
+            "repro_torch.configs, repro_torch.configs.tm_paper, "
+            "repro_torch.distributed, repro_torch.distributed.sharding, "
+            "repro_torch.engine.sharding, repro_torch.core.hwmodel\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.'))\n"

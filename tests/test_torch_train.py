@@ -355,7 +355,13 @@ def test_registry():
     assert set(PORTED) <= set(available_train_backends())
     assert DEFAULT_TRAIN_BACKEND in available_train_backends()
     with pytest.raises(KeyError, match="unknown TrainEngine backend"):
-        get_train_engine("sharded", TMConfig(2, 4, 3))
+        get_train_engine("shardd", TMConfig(2, 4, 3))
+    # "sharded" is registered; its default mesh is every visible GPU
+    # (tests/test_torch_multihost.py holds it on simulated CPU meshes)
+    assert "sharded" in available_train_backends()
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="devices="):
+            get_train_engine("sharded", TMConfig(2, 4, 3))
 
 
 @pytest.mark.parametrize("shape", SHAPES[::2],
