@@ -10,9 +10,10 @@ race kernels on the served state, trains and runs the paper's BNN, kills,
 restores and rolls back a learning server through checkpoints, serves
 through the early-exit cascade as the overload shed tier, and serves a
 multi-tenant ``TMFleet`` of 69 models packed into fused planes and, as
-the control, each model solo, and serves and learns data-parallel over a
+the control, each model solo, serves and learns data-parallel over a
 device mesh (the card's own, and four simulated shards of it) through a
-kill and an elastic restore onto another mesh size.
+kill and an elastic restore onto another mesh size, and serves the LM
+zoo's qwen1.5-4b and tinyllama-1.1b at their published widths.
 
     python3 chip_smoke.py
 
@@ -169,7 +170,22 @@ package.  Phases, each on its own lines:
    p50/max and one step alone print for D=1 and D=4 beside phase 5's
    ``fused`` numbers and the card's name and power limit.  A mesh of
    distinct GPUs is not run (one card);
-13. a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
+13. the LM zoo's dense family: qwen1.5-4b and tinyllama-1.1b at their
+   published widths in bfloat16, weights from a seeded cuda
+   ``torch.Generator``, through ``launch.serve.run`` at the launcher's
+   defaults (batch 8, prompt 32, 16 new tokens: its closing line and
+   tokens/s); then prefill time at (8, 32), decode-step p50/p99 (host
+   clock with a sync) over the 48 steps of a run, one decode step's
+   device kernels, busy time and the card's idle share from
+   ``torch.profiler``, the step's bound (the bytes it must move over
+   3.35 TB/s) and ``max_memory_allocated``.  Checks (``LM_ARCHS``'s
+   comment): 1a prefill-vs-decode greedy consistency at 2 layers of the
+   same weights under the near-tie rule (full depth printed, not
+   gated); 1b every layer at full depth teacher-forced, float32; 2 two
+   layers in float32 on the card against the CPU; logits finite
+   throughout; K1–K6's counters read 0 (the LM path has no kernel of
+   its own);
+14. a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero; without a CUDA device it exits 1
@@ -270,6 +286,44 @@ FLEET_SOLO_CACHE = 80
 # Requests per client (the uninterrupted run; half each for the killed
 # and the restored run): this phase's count is cut first for time
 MESH_RAGGED, MESH_KILL, MESH_PER_CLIENT = 37, 8, 20
+
+# phase 13, the LM zoo's dense family at published widths in bfloat16:
+# qwen1.5-4b (src/repro/configs/qwen1_5_4b.py, the JAX serving launcher's
+# default arch) and tinyllama-1.1b (GQA, rep 8), at the launcher's
+# defaults.  The JAX init (fan_in = shape[-2]) gives q and k entries of
+# about sqrt(d_model / heads) at these widths, attention scores of std
+# ~120 at layer 0: two correct computations that differ only in rounding
+# drift apart about 3-10x per layer (ROADMAP.md, R5), so the checks
+# compare prefill and decode where that drift cannot hide a fault:
+# - 1a, free-running greedy consistency (decode-stepping the first
+#   LM_CONSIST_LEN prompt tokens against prefill over them) at depth
+#   LM_FREE_DEPTH of the same weights, in bfloat16, under the near-tie
+#   rule of tests/test_models_smoke.py::test_prefill_decode_consistency
+#   (there 0.06 on reduced widths) scaled to the top logit's binade: a
+#   pick may differ from prefill's only within LM_TIE_ULPS bfloat16 ulps
+#   of the top logit; at full depth, in float32, the picks and the drift
+#   by depth (at LM_DRIFT_AT) print, not gated (R5);
+# - 1b, teacher-forced at full depth: every layer's decode step, fed the
+#   prefill path's input and a cache holding prefill's keys and values,
+#   must give prefill's output at the last position within LM_LAYER_TOL
+#   of that layer's update (max |x' - x|), write prefill's key and value
+#   within LM_LAYER_TOL of their largest entry, and pick prefill's token
+#   up to near ties (logits within LM_F32_TOL), in float32 (the same
+#   weights upcast, TF32 off);
+# - 2, the first LM_F32_LAYERS layers of the same weights in float32 on
+#   the card and on the CPU: logits within LM_F32_TOL, greedy picks equal
+#   up to near ties within it; and a control, the same products in TF32,
+#   must land above LM_F32_TOL.  Read on the H100 (PERF.md, PR 20): float32
+#   6.83e-4 / 7.55e-4 (qwen / tinyllama), TF32 1.12 / 0.627, so the limit
+#   sits 13x above the one and 63x below the other.
+LM_ARCHS = ("qwen1.5-4b", "tinyllama-1.1b")
+LM_BATCH, LM_PROMPT, LM_NEW = 8, 32, 16
+LM_CONSIST_LEN, LM_FREE_DEPTH = 16, 2
+LM_F32_LAYERS, LM_F32_STEPS = 2, 4
+LM_F32_TOL, LM_LAYER_TOL = 1e-2, 1e-3
+LM_DRIFT_AT = (1, 2, 5, 10, 20)
+LM_TIE_ULPS = 8
+LM_PREFILL_REPS = 5
 
 
 def smi(query: str) -> str:
@@ -624,10 +678,11 @@ def check_train_deltas(torch, rt) -> dict:
     return out
 
 
-def device_kernels(torch, fn) -> list:
+def device_activity(torch, fn) -> tuple:
     """The device activities (kernels, memsets, copies) one call of ``fn``
-    puts on the card, by name, from ``torch.profiler``'s trace; empty
-    where the profiler traces no device activity."""
+    puts on the card, from ``torch.profiler``'s trace → (names, their
+    summed durations in µs, {name: µs}); empty where the profiler traces
+    no device activity."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -635,8 +690,12 @@ def device_kernels(torch, fn) -> list:
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    return [e.name for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    by_name = collections.Counter()
+    for e in events:
+        by_name[e.name] += e.time_range.elapsed_us()
+    return [e.name for e in events], float(sum(by_name.values())), by_name
 
 
 def check_class_tiles(torch, rt) -> None:
@@ -779,7 +838,7 @@ def profile_launches(torch, rt) -> dict:
             ("swar_fused_votes", lambda: rt["swar_fused_votes"](*k1)),
             ("train_deltas_keyed",
              lambda: rt["train_deltas_keyed"](*k2, **kw))):
-        acts = device_kernels(torch, fn)
+        acts = device_activity(torch, fn)[0]
         # None, not 0, where the profiler saw nothing of the card
         counts[name] = len(acts) if acts else None
         print(f"profile {name}: "
@@ -1976,6 +2035,333 @@ def bnn_phase(torch, rt) -> dict:
     return {"launches": launches}
 
 
+def bf16_ulp(torch, v):
+    """The bfloat16 ulp at each value of ``v`` (8 significant bits)."""
+    return torch.exp2(torch.floor(torch.log2(v.abs().clamp(min=2.0 ** -126)))
+                      - 7)
+
+
+def lm_decode_bytes(lm, batch: int, pos: int) -> int:
+    """Bytes one decode step at ``pos`` must move: every stored matrix,
+    bias and float32 norm read once (of the embedding only the batch's
+    rows, unless it is the tied head), the valid KV entries read and the
+    step's entries written (compute dtype)."""
+    c, a = lm.cfg, lm.attn_cfg
+    nbytes = 0
+    for name, p in lm.named_parameters():
+        if name == "embed" and not c.tie_embeddings:
+            nbytes += batch * p.shape[1] * p.element_size()
+        else:
+            nbytes += p.numel() * p.element_size()
+    slots = min(pos + 1, c.window) if c.window else pos + 1
+    kv_entry = c.n_layers * batch * a.hkv * a.head_dim * 2 * \
+        lm.embed.element_size()
+    return nbytes + kv_entry * (slots + 1)
+
+
+def lm_truncated(torch, lm, n_layers: int, dtype, device="cuda"):
+    """A copy of ``lm``'s first ``n_layers`` layers, its embedding, final
+    norm and head — the same weights — in ``dtype`` on ``device``."""
+    import dataclasses
+    from repro_torch.models.model import LM
+    sub = LM(dataclasses.replace(lm.cfg, n_layers=n_layers), tp=lm.tp,
+             device=device, dtype=dtype)
+    want = sub.state_dict()
+    sub.load_state_dict({k: v for k, v in lm.state_dict().items()
+                         if k in want})
+    return sub
+
+
+def lm_check_f32(torch, lm, prompts, arch: str) -> dict:
+    """Phase 13, check 2: the first LM_F32_LAYERS layers of ``lm``'s
+    weights in float32 on the card and on the CPU — prefill logits at the
+    last prompt position and LM_F32_STEPS teacher-forced decode steps'
+    logits within LM_F32_TOL, greedy picks equal up to near ties (CPU
+    logits of the two picks within LM_F32_TOL); the same card run with
+    TF32 on must differ by more than LM_F32_TOL."""
+    from repro_torch.core.popcount import argmax_tournament
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 is on: float32 products would round")
+    dev = lm_truncated(torch, lm, LM_F32_LAYERS, torch.float32)
+    cpu = lm_truncated(torch, dev, LM_F32_LAYERS, torch.float32, "cpu")
+    ref = [cpu._logits(cpu._forward(prompts.cpu())[0][:, -1])]
+    ccache = cpu.init_cache(prompts.shape[0], LM_F32_STEPS)
+    for pos in range(LM_F32_STEPS):
+        ref.append(cpu._logits(cpu._decode_hidden(
+            ccache, prompts[:, pos:pos + 1].cpu(), pos))[:, 0])
+
+    def card_logits():
+        out = [dev._logits(dev._forward(prompts)[0][:, -1]).cpu()]
+        cache = dev.init_cache(prompts.shape[0], LM_F32_STEPS)
+        for pos in range(LM_F32_STEPS):
+            out.append(dev._logits(dev._decode_hidden(
+                cache, prompts[:, pos:pos + 1], pos))[:, 0].cpu())
+        return out
+
+    err, flips = 0.0, 0
+    for got, want in zip(card_logits(), ref):
+        if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
+            raise AssertionError(f"{arch} float32: non-finite logits")
+        err = max(err, float((got - want).abs().max()))
+        g, r = argmax_tournament(got).long(), argmax_tournament(want).long()
+        rows = torch.arange(len(r))
+        gap = (want[rows, g] - want[rows, r]).abs()
+        if not ((g == r) | (gap <= LM_F32_TOL)).all():
+            raise AssertionError(f"{arch} float32: greedy picks {g} vs CPU "
+                                 f"{r}, CPU logit gaps {gap}")
+        flips += int((g != r).sum())
+    if err > LM_F32_TOL:
+        raise AssertionError(f"{arch} float32 card vs CPU: max |logit "
+                             f"error| {err} > {LM_F32_TOL}")
+    # the control: the same products in TF32 (10-bit mantissa) must land
+    # above the limit, or the limit could not see a lost precision
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        ctl = max(float((got - want).abs().max())
+                  for got, want in zip(card_logits(), ref))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    if ctl <= LM_F32_TOL:
+        raise AssertionError(f"{arch} TF32 control: max |logit error| {ctl} "
+                             f"<= {LM_F32_TOL}, the limit is too loose")
+    return {"f32_max_abs_err": err, "f32_near_tie_flips": flips,
+            "tf32_control_err": ctl}
+
+
+def lm_free_running(torch, lm, toks) -> dict:
+    """Prefill over ``toks`` against decode-stepping them, free-running:
+    after each layer the last position's hidden-state difference over its
+    largest entry on the prefill path (``drift``, at LM_DRIFT_AT and the
+    last layer: how fast rounding differences grow with depth, R5), and
+    the decode path's greedy pick against prefill's logits under the
+    near-tie rule (LM_TIE_ULPS bfloat16 ulps of the top logit)."""
+    from repro_torch.core.popcount import argmax_tournament
+    from repro_torch.models.common import rms_norm
+    s, eps, v = toks.shape[1], lm.cfg.norm_eps, lm.cfg.vocab_size
+    with torch.no_grad():
+        x, ref = lm._embed(toks), []
+        for lp in lm.layers:
+            x, _ = lm._layer(lp, x)
+            ref.append(x[:, -1].float())
+        logits = lm._logits(rms_norm(x[:, -1:], lm.final_norm, eps))[:, 0]
+        cache = lm.init_cache(toks.shape[0], s)
+        for pos in range(s - 1):
+            lm.decode_step(cache, toks[:, pos:pos + 1], pos)
+        xd, drift = lm._embed(toks[:, -1:]), {}
+        for i, lp in enumerate(lm.layers):
+            xd = lm._decode_layer(lp, xd, cache["k"][i], cache["v"][i],
+                                  s - 1)
+            if i + 1 in LM_DRIFT_AT or i + 1 == len(lm.layers):
+                drift[i + 1] = float((xd[:, 0].float() - ref[i]).abs().max()
+                                     / ref[i].abs().max())
+        dlogits = lm._logits(rms_norm(xd, lm.final_norm, eps))[:, 0]
+    if not (torch.isfinite(logits).all() and torch.isfinite(dlogits).all()):
+        raise AssertionError(f"{lm.cfg.name}: non-finite logits")
+    nxt = argmax_tournament(dlogits).long()
+    top = logits[:, :v].max(-1).values
+    gap = top - logits[torch.arange(len(nxt), device=nxt.device), nxt]
+    tol = LM_TIE_ULPS * bf16_ulp(torch, top)
+    return {"exact": int((nxt == argmax_tournament(logits)).sum()),
+            "rows": len(nxt), "max_gap": float(gap.max()),
+            "tol": float(tol.max()), "within": bool((gap <= tol).all()),
+            "max_abs_logit_diff": float((logits[:, :v] - dlogits[:, :v])
+                                        .abs().max()),
+            "drift": drift, "gaps": gap.tolist(), "tols": tol.tolist()}
+
+
+def lm_teacher_forced(torch, lm, toks) -> dict:
+    """Layer by layer at full depth: prefill's layer over ``toks`` and
+    the decode step's layer for the last token, fed the same input and a
+    cache holding prefill's keys and values for the earlier positions.
+    → per-layer errors relative to the layer's update and to the largest
+    key / value, and both paths' final logits at the last position."""
+    from repro_torch.models.common import rms_norm
+    s = toks.shape[1]
+    eps = lm.cfg.norm_eps
+    x = lm._embed(toks)
+    cache = lm.init_cache(toks.shape[0], s)
+    out_err, kv_err = [], []
+    with torch.no_grad():
+        for i, lp in enumerate(lm.layers):
+            y, (k, v) = lm._layer(lp, x)
+            ck, cv = cache["k"][i], cache["v"][i]
+            ck[:, :s - 1] = k[:, :s - 1]
+            cv[:, :s - 1] = v[:, :s - 1]
+            yd = lm._decode_layer(lp, x[:, -1:], ck, cv, s - 1)
+            upd = (y[:, -1] - x[:, -1]).float().abs().max()
+            out_err.append(float((yd[:, 0] - y[:, -1]).float().abs().max()
+                                 / upd))
+            kv_err.append(max(float((c[:, s - 1] - t[:, s - 1]).float().abs()
+                                    .max() / t.float().abs().max())
+                              for c, t in ((ck, k), (cv, v))))
+            x = y
+        logits = lm._logits(rms_norm(x[:, -1:], lm.final_norm, eps))[:, 0]
+        dlogits = lm._logits(rms_norm(yd, lm.final_norm, eps))[:, 0]
+    return {"out_err": out_err, "kv_err": kv_err, "logits": logits,
+            "dlogits": dlogits}
+
+
+def lm_check_consistency(torch, lm, prompts, arch: str) -> dict:
+    """Phase 13, checks 1a and 1b (see LM_CONSIST_LEN): prefill against
+    decode on the first LM_CONSIST_LEN prompt tokens."""
+    from repro_torch.core.popcount import argmax_tournament
+    toks = prompts[:, :LM_CONSIST_LEN]
+    # 1a: free-running at LM_FREE_DEPTH layers of the same weights, gated
+    fr = lm_free_running(torch, lm_truncated(torch, lm, LM_FREE_DEPTH,
+                                             lm.dtype), toks)
+    if not fr["within"]:
+        raise AssertionError(f"{arch} at {LM_FREE_DEPTH} layers: decode "
+                             f"picks beyond the near-tie rule: gaps "
+                             f"{fr['gaps']} > {fr['tols']}")
+    # on a float32 copy at full depth: free-running (the drift R5 cites,
+    # not gated) and 1b, teacher-forced per layer (gated)
+    m = lm_truncated(torch, lm, lm.cfg.n_layers, torch.float32)
+    out = {"free_gated": fr, "free_f32": lm_free_running(torch, m, toks)}
+    tf = lm_teacher_forced(torch, m, toks)
+    g = argmax_tournament(tf["dlogits"]).long()
+    r = argmax_tournament(tf["logits"]).long()
+    rows = torch.arange(len(r), device=r.device)
+    gap = (tf["logits"][rows, g] - tf["logits"][rows, r]).abs()
+    out["teacher_forced_f32"] = {
+        "max_layer_err": max(tf["out_err"]), "max_kv_err": max(tf["kv_err"]),
+        "exact": int((g == r).sum()), "max_gap": float(gap.max())}
+    if max(tf["out_err"]) > LM_LAYER_TOL or max(tf["kv_err"]) > LM_LAYER_TOL \
+            or not ((g == r) | (gap <= LM_F32_TOL)).all():
+        worst = max(range(len(tf["out_err"])), key=lambda i: tf["out_err"][i])
+        raise AssertionError(
+            f"{arch} teacher-forced float32: layer {worst} error "
+            f"{tf['out_err'][worst]}, key/value error {max(tf['kv_err'])} "
+            f"(tol {LM_LAYER_TOL}); picks {g.tolist()} vs {r.tolist()}, "
+            f"gaps {gap.tolist()}")
+    del m, tf
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_serve_arch(torch, arch: str, card: str) -> dict:
+    """Phase 13, one arch: the serving launcher's run at full width, then
+    prefill and per-step decode times, the decode step's device kernels
+    and bound, and checks 1 and 2."""
+    from repro_torch.core.popcount import argmax_tournament
+    from repro_torch.engine.base import nearest_rank
+    from repro_torch.launch.serve import run
+    from repro_torch.models.common import count_params
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = run(arch, batch=LM_BATCH, prompt_len=LM_PROMPT, max_new=LM_NEW,
+              full=True, device="cuda")
+    build_s = time.perf_counter() - t0
+    lm, prompts, out = res["lm"], res["prompts"], res["out"]
+    print(res["line"], flush=True)
+    if tuple(out.shape) != (LM_BATCH, LM_NEW) or int(out.min()) < 0 or \
+            int(out.max()) >= lm.cfg.vocab_size:
+        raise AssertionError(f"{arch}: generated {tuple(out.shape)} tokens "
+                             f"in [{int(out.min())}, {int(out.max())}]")
+    n_params = count_params(lm)
+    weight_bytes = sum(p.numel() * p.element_size() for p in lm.parameters())
+
+    batch = {"tokens": prompts}
+    lm.prefill(batch)
+    torch.cuda.synchronize()
+    prefill_s = []
+    for _ in range(LM_PREFILL_REPS):
+        t1 = time.perf_counter()
+        tok, _ = lm.prefill(batch)
+        torch.cuda.synchronize()
+        prefill_s.append(time.perf_counter() - t1)
+
+    total = LM_PROMPT + LM_NEW
+    cache = lm.init_cache(LM_BATCH, total)
+    step_s, last = [], prompts[:, :1]
+    for pos in range(total):
+        tok = prompts[:, pos:pos + 1] if pos < LM_PROMPT else last[:, None]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        last, cache = lm.decode_step(cache, tok, pos)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t1)
+    step_s.sort()
+    p50, p99 = (nearest_rank(step_s, q) * 1e3 for q in (0.50, 0.99))
+    mid = total // 2
+    names, busy_us, by_name = device_activity(torch, lambda: lm.decode_step(
+        cache, last[:, None], mid))
+    kernels = sum(1 for n in names if "memcpy" not in n.lower()
+                  and "memset" not in n.lower())
+    bound_ms = lm_decode_bytes(lm, LM_BATCH, mid) / HBM_BPS * 1e3
+    top = [(n[:60], round(us, 3)) for n, us in by_name.most_common(5)]
+
+    checks = lm_check_consistency(torch, lm, prompts, arch)
+    checks.update(lm_check_f32(torch, lm, prompts, arch))
+    peak = torch.cuda.max_memory_allocated()
+    row = {"arch": arch, "params": n_params, "weight_bytes": weight_bytes,
+           "init_and_launcher_s": build_s, "generate_ms": res["seconds"] * 1e3,
+           "tok_per_s": res["tok_per_s"],
+           "prefill_ms": statistics.median(prefill_s) * 1e3,
+           "decode_step_p50_ms": p50, "decode_step_p99_ms": p99,
+           "decode_steps": len(step_s),
+           "device_activities_per_step": len(names),
+           "device_kernels_per_step": kernels,
+           "decode_device_busy_ms": busy_us / 1e3,
+           "decode_device_idle_share": 1 - busy_us / 1e3 / p50,
+           "decode_top_kernels_us": top,
+           "decode_bound_ms": bound_ms, "decode_bound_by": "bytes",
+           "decode_x_bound": p50 / bound_ms,
+           "max_memory_allocated": peak, **checks}
+    print(f"lm {arch}, {card}: {n_params:,} params, {weight_bytes:,} weight "
+          f"bytes; prefill ({LM_BATCH}, {LM_PROMPT}) "
+          f"{row['prefill_ms']:.3f} ms; decode step p50/p99 {p50:.3f} / "
+          f"{p99:.3f} ms over {len(step_s)} steps; "
+          f"{row['tok_per_s']:.1f} tok/s generated; {kernels} device kernels "
+          f"per step ({len(names)} activities) busy {busy_us / 1e3:.3f} ms "
+          f"of the card (idle share "
+          f"{row['decode_device_idle_share']:.3f} at p50); bound "
+          f"{bound_ms:.3f} ms (bytes), p50 = {row['decode_x_bound']:.2f}x, "
+          f"device busy = {busy_us / 1e3 / bound_ms:.2f}x; peak memory "
+          f"{peak:,} bytes; top kernels (µs) {top}", flush=True)
+    fr2, frl = checks["free_gated"], checks["free_f32"]
+    tf32 = checks["teacher_forced_f32"]
+    print(f"lm {arch} checks: 1a free-running at {LM_FREE_DEPTH} layers "
+          f"{fr2['exact']}/{fr2['rows']} picks equal, max gap "
+          f"{fr2['max_gap']:.4f} <= {fr2['tol']:.4f}, max |logit diff| "
+          f"{fr2['max_abs_logit_diff']:.4f}; 1b teacher-forced "
+          f"{lm.cfg.n_layers} layers float32: max layer error "
+          f"{tf32['max_layer_err']:.3g}, key/value {tf32['max_kv_err']:.3g} "
+          f"<= {LM_LAYER_TOL}, picks {tf32['exact']}/{LM_BATCH} equal; 2 "
+          f"float32 {LM_F32_LAYERS} layers card vs CPU max |logit err| "
+          f"{checks['f32_max_abs_err']:.3g} <= {LM_F32_TOL} "
+          f"({checks['f32_near_tie_flips']} near-tie flips), TF32 control "
+          f"{checks['tf32_control_err']:.3g} > {LM_F32_TOL}", flush=True)
+    print(f"lm {arch} float32 free-running at full depth (R5, not gated): "
+          f"{frl['exact']}/{frl['rows']} picks equal, max |logit diff| "
+          f"{frl['max_abs_logit_diff']:.4f}; hidden drift by depth (max "
+          f"|prefill - decode| / max |prefill| at the last position) "
+          f"{frl['drift']}", flush=True)
+    del lm, res, cache
+    torch.cuda.empty_cache()
+    return row
+
+
+def lm_phase(torch, rt, card: str) -> dict:
+    """Phase 13: the LM zoo's dense family served at full width on cuda.
+    It reaches none of the port's CUDA kernels: their counters are zeroed
+    before and must read 0 after."""
+    counted = ("swar_fused_votes", "clause_votes", "train_deltas_keyed",
+               "popcount_words", "pdl_race", "binary_matmul")
+    for k in counted:
+        rt[k].launches = 0
+    t0 = time.perf_counter()
+    rows = [lm_serve_arch(torch, arch, card) for arch in LM_ARCHS]
+    launched = {k: rt[k].launches for k in counted if rt[k].launches}
+    if launched:
+        raise AssertionError(f"the LM path launched TM kernels: {launched}")
+    wall = time.perf_counter() - t0
+    print(f"phase 13 (LM serving) wall {wall:.1f}s, {card}", flush=True)
+    print(json.dumps({"lm_serving": rows, "card": card, "wall_s": wall}),
+          flush=True)
+    return {"rows": rows, "wall_s": wall}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2095,6 +2481,7 @@ def main() -> int:
     shed = asyncio.run(shed_tier(torch, rt, learn["state"].ta.cpu().numpy()))
     fleet = fleet_phase(torch, rt)
     mesh = mesh_phase(torch, rt, ta, learn, card)
+    lm_phase(torch, rt, card)
 
     meta = {
         "swar_fused_votes": ("src/repro_torch/csrc/swar_fused.cu",

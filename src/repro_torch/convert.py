@@ -6,7 +6,9 @@
 - :func:`device_from_numpy` turns a JAX ``PDLDevice``'s two arrays into
   the port's :class:`~repro_torch.core.time_domain.PDLDevice`;
 - :func:`bnn_params_from_numpy` turns a JAX ``BNNParams``' weight arrays
-  into the port's :class:`~repro_torch.core.bnn.BNNParams`.
+  into the port's :class:`~repro_torch.core.bnn.BNNParams`;
+- :func:`lm_params_from_numpy` loads a JAX ``LM`` parameter tree into
+  the port's :class:`~repro_torch.models.model.LM`.
 
 Later slices extend this module (key cursors, checkpoints).
 """
@@ -21,7 +23,8 @@ from repro_torch.core.time_domain import PDLDevice
 from repro_torch.core.tm import TMState
 from repro_torch.kernels.ops import resolve_device
 
-__all__ = ["state_from_numpy", "device_from_numpy", "bnn_params_from_numpy"]
+__all__ = ["state_from_numpy", "device_from_numpy", "bnn_params_from_numpy",
+           "lm_params_from_numpy"]
 
 
 def state_from_numpy(ta: np.ndarray, *, device=None) -> TMState:
@@ -68,3 +71,41 @@ def bnn_params_from_numpy(weights, *, device=None) -> BNNParams:
             raise ValueError(f"layer {i} takes {ws[i].shape[0]} inputs but "
                              f"layer {i - 1} gives {ws[i - 1].shape[1]}")
     return BNNParams(weights=ws)
+
+
+def _flatten_tree(tree, prefix: tuple = ()) -> dict:
+    if not isinstance(tree, dict):
+        return {prefix: tree}
+    out = {}
+    for k, v in tree.items():
+        out.update(_flatten_tree(v, prefix + (k,)))
+    return out
+
+
+def lm_params_from_numpy(tree, lm):
+    """A JAX ``LM`` parameter tree — nested dicts of numpy arrays, the
+    layer axis stacked first (``jax.tree.map(np.asarray, params)``) —
+    loaded into the port's ``lm`` (an :class:`~repro_torch.models.model.LM`
+    built from the same config and ``tp``), the layer axis unstacked,
+    each leaf cast to its parameter's dtype on ``lm``'s device.  Raises
+    ``ValueError`` on any missing, extra or mis-shaped leaf, before
+    anything is copied.  Returns ``lm``."""
+    from repro_torch.models.common import flatten_defs
+    want = {path: d.shape for path, d in flatten_defs(lm.param_defs())}
+    got = _flatten_tree(tree)
+    names = lambda paths: sorted("/".join(p) for p in paths)  # noqa: E731
+    missing, extra = names(want.keys() - got.keys()), \
+        names(got.keys() - want.keys())
+    if missing or extra:
+        raise ValueError(f"parameter tree does not match {lm.cfg.name}: "
+                         f"missing {missing}, extra {extra}")
+    for path, shape in want.items():
+        a = np.asarray(got[path])
+        if a.shape != tuple(shape) or not (np.issubdtype(a.dtype, np.floating)
+                                           or a.dtype.name == "bfloat16"):
+            raise ValueError(f"{'/'.join(path)}: expected a float array of "
+                             f"shape {tuple(shape)}, got {a.shape} {a.dtype}")
+    for path in want:
+        lm.load_leaf(path, torch.tensor(np.asarray(got[path],
+                                                   dtype=np.float32)))
+    return lm

@@ -1,0 +1,88 @@
+"""LM serving launcher: batched greedy decode of a dense-family LM (port
+of ``repro.launch.serve``).
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-4b --full
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
+
+Builds ``--arch`` (its reduced smoke config unless ``--full``) in
+bfloat16 on ``--device`` (default cuda; raises where no GPU is visible),
+with weights drawn from a ``torch.Generator`` seeded 0 on that device
+(the JAX launcher draws ``jax.random.key(0)``, so the weights and tokens
+differ from its run), and the JAX launcher's prompts:
+``np.random.default_rng(0).integers(0, vocab, (batch, prompt_len))``.
+It generates once to warm up, then times a second run (host clock,
+ending in a device sync) and prints the JAX launcher's closing line,
+``name: (B, max_new) in N ms (R tok/s)``.
+
+The JAX launcher's ``--mesh`` has no counterpart: the port has no
+tensor-parallel mesh for LMs yet (ROADMAP.md, queue 1, item 7f).
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+__all__ = ["run", "main"]
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def run(arch: str = "qwen1.5-4b", *, batch: int = 8, prompt_len: int = 32,
+        max_new: int = 16, full: bool = False, device=None) -> dict:
+    """Build, warm up and time one ``generate`` → ``{"cfg", "lm",
+    "prompts", "out", "seconds", "tok_per_s", "line"}``."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.reduce import reduced
+    from repro_torch.kernels.ops import resolve_device
+    from repro_torch.models.model import LM
+    from repro_torch.serve.decode import generate
+
+    dev = resolve_device(device)
+    cfg = get_config(arch)
+    if not full:
+        cfg = reduced(cfg)
+    lm = LM(cfg, tp=1, device=dev, dtype=torch.bfloat16)
+    lm.init(torch.Generator(device=dev).manual_seed(0))
+    rng = np.random.default_rng(0)
+    prompts = torch.as_tensor(rng.integers(
+        0, cfg.vocab_size, (batch, prompt_len), np.int32), device=dev)
+    generate(lm, prompts, max_new=max_new)          # warm-up
+    _sync(dev)
+    t0 = time.perf_counter()
+    out = generate(lm, prompts, max_new=max_new)
+    _sync(dev)
+    dt = time.perf_counter() - t0
+    line = (f"{cfg.name}: {tuple(out.shape)} in {dt * 1000:.0f} ms "
+            f"({batch * max_new / dt:,.0f} tok/s)")
+    return {"cfg": cfg, "lm": lm, "prompts": prompts, "out": out,
+            "seconds": dt, "tok_per_s": batch * max_new / dt, "line": line}
+
+
+def main(argv: list[str] | None = None) -> dict:
+    """CLI entry point (``argv`` overrides ``sys.argv``)."""
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", default="qwen1.5-4b")
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--full", action="store_true",
+                    help="the published widths (default: the reduced "
+                         "smoke config)")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default cuda)")
+    args = ap.parse_args(argv)
+    res = run(args.arch, batch=args.batch, prompt_len=args.prompt_len,
+              max_new=args.max_new, full=args.full, device=args.device)
+    print(res["line"], flush=True)
+    return res
+
+
+if __name__ == "__main__":
+    main()

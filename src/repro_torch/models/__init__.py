@@ -1,0 +1,5 @@
+"""The LM model zoo (port of ``repro.models``): the dense family —
+tinyllama-1.1b, qwen1.5-4b, qwen1.5-110b, starcoder2-7b and internvl2-26b —
+through :class:`~repro_torch.models.model.LM`.  The MoE, MLA, SSM,
+hybrid and encoder-decoder families are ROADMAP.md queue 1 work.
+"""

@@ -1,0 +1,195 @@
+"""GQA/MHA attention block with RoPE, optional QKV bias, sliding-window and
+chunked-local variants, and a decode path over (ring-buffer) KV caches
+(port of ``repro.models.attention``).
+
+Head padding for tensor parallelism: the *parameter* head count is
+padded so it divides ``tp``, within each KV group (layout ``(hkv,
+rep)``), and a head mask zeroes the padded heads after attention.
+:class:`AttnCfg`'s arithmetic is the JAX package's, digit for digit, so
+a parameter tree the JAX ``LM`` made at any ``tp`` carries across and
+computes the same (including the reference's quirk where KV padding
+drops query heads: ROADMAP.md, R4).
+
+``p`` is any mapping of the block's tensors by JAX leaf name (``wq``,
+``wk``, ``wv``, ``wo`` and, with ``qkv_bias``, ``bq``, ``bk``, ``bv``):
+a dict, or the ``nn.ParameterDict`` an :class:`~.model.LM` layer holds.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from .common import (ParamDef, apply_rope, attention, blockwise_attention,
+                     expand_kv, rotary)
+
+__all__ = ["AttnCfg", "attn_defs", "attn_apply", "attn_decode", "pad_heads",
+           "BLOCKWISE_THRESHOLD"]
+
+BLOCKWISE_THRESHOLD = 8192   # use online-softmax blocks above this KV length
+
+
+def pad_heads(n: int, tp: int) -> int:
+    """Round head count up to a multiple of tp."""
+    return -(-n // tp) * tp
+
+
+class AttnCfg(NamedTuple):
+    d_model: int
+    n_heads: int          # true (unpadded) query heads
+    n_kv_heads: int
+    head_dim: int
+    qkv_bias: bool = False
+    rope_theta: float = 1e4
+    window: int = 0       # sliding window (starcoder2)
+    chunk: int = 0        # chunked local attention (llama4)
+    use_rope: bool = True
+    tp: int = 16          # model-axis size used for head padding
+
+    @property
+    def g(self) -> int:    # true q heads per kv group
+        assert self.n_heads % self.n_kv_heads == 0
+        return self.n_heads // self.n_kv_heads
+
+    @property
+    def hkv(self) -> int:  # effective kv heads (padded only if needed)
+        if self.n_kv_heads % self.tp == 0 or self.tp % self.n_kv_heads == 0:
+            return self.n_kv_heads
+        return pad_heads(self.n_kv_heads, self.tp)
+
+    @property
+    def rep(self) -> int:  # padded group size: smallest r>=g with hkv·r % tp == 0
+        r = max(1, self.g if self.hkv == self.n_kv_heads else 1)
+        while (self.hkv * r) % self.tp:
+            r += 1
+        return r
+
+    @property
+    def hq(self) -> int:   # effective (padded) query heads
+        return self.hkv * self.rep
+
+    def head_mask(self, device=None) -> torch.Tensor:
+        """(hkv, rep) bool — True for real heads."""
+        kv_ok = torch.arange(self.hkv, device=device) < self.n_kv_heads
+        g_ok = torch.arange(self.rep, device=device) < self.g
+        return kv_ok[:, None] & g_ok[None, :]
+
+
+def attn_defs(c: AttnCfg) -> dict:
+    e, hq, hkv, d = c.d_model, c.hq, c.hkv, c.head_dim
+    defs = {
+        "wq": ParamDef((e, hq, d), ("embed", "heads", None)),
+        "wk": ParamDef((e, hkv, d), ("embed", "kv_heads", None)),
+        "wv": ParamDef((e, hkv, d), ("embed", "kv_heads", None)),
+        "wo": ParamDef((hq, d, e), ("heads", None, "embed")),
+    }
+    if c.qkv_bias:
+        defs.update({
+            "bq": ParamDef((hq, d), ("heads", None), init="zeros"),
+            "bk": ParamDef((hkv, d), ("kv_heads", None), init="zeros"),
+            "bv": ParamDef((hkv, d), ("kv_heads", None), init="zeros"),
+        })
+    return defs
+
+
+def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``einsum("bse,ehd->bshd")`` as one matrix product in ``x``'s dtype."""
+    b, s, e = x.shape
+    _, h, d = w.shape
+    return (x @ w.to(x.dtype).reshape(e, h * d)).view(b, s, h, d)
+
+
+def _project_qkv(c: AttnCfg, p, x: torch.Tensor, positions: torch.Tensor):
+    q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
+    if c.qkv_bias:      # added after the product is rounded, as in JAX
+        q = q + p["bq"].to(x.dtype)
+        k = k + p["bk"].to(x.dtype)
+        v = v + p["bv"].to(x.dtype)
+    if c.use_rope:
+        cos, sin = rotary(positions, c.head_dim, c.rope_theta)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+    return q, k, v
+
+
+def _mask_heads(c: AttnCfg, out: torch.Tensor) -> torch.Tensor:
+    """Zero padded heads. out: (B, S, hq, D) laid out as (hkv, rep)."""
+    if c.hq == c.n_heads:
+        return out
+    m = c.head_mask(out.device).reshape(1, 1, c.hq, 1)
+    return out * m.to(out.dtype)
+
+
+def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+    """``einsum("bshd,hde->bse")`` as one matrix product."""
+    b, s, h, d = out.shape
+    return out.reshape(b, s, h * d) @ wo.to(out.dtype).reshape(h * d, -1)
+
+
+def attn_apply(c: AttnCfg, p, x: torch.Tensor, *, kind: str = "causal",
+               q_offset: int = 0) -> tuple[torch.Tensor, tuple]:
+    """Full-sequence attention (prefill). x: (B, S, E).
+
+    Returns (y, (k, v)) so prefill can emit the KV cache.
+    """
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device) + q_offset
+    q, k, v = _project_qkv(c, p, x, positions)
+    fn = blockwise_attention if s > BLOCKWISE_THRESHOLD else attention
+    out = fn(q, k, v, kind=kind, window=c.window, chunk=c.chunk,
+             q_offset=q_offset)
+    out = _mask_heads(c, out)
+    return _out_proj(out, p["wo"]), (k, v)
+
+
+def attn_decode(c: AttnCfg, p, x: torch.Tensor, cache_k: torch.Tensor,
+                cache_v: torch.Tensor, pos: int
+                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One-token decode. x: (B, 1, E); cache: (B, S_cache, hkv, D) holding
+    rotated keys; ``pos``: current absolute position (an int, or a 0-d
+    tensor read once on the host).
+
+    The new key and value are written into ``cache_k`` / ``cache_v`` in
+    place (the JAX function returns updated copies); both are returned.
+    Sliding-window / chunked layers use a ring buffer of size
+    ``S_cache ∈ {window, chunk}`` — write index ``pos % S_cache``; masking
+    keeps exactly the positions a full cache would have kept.  As
+    ``jax.lax.dynamic_update_slice``, a write index past the cache clamps
+    to its last slot (the mask still uses the unclamped index).
+    """
+    pos = int(pos)
+    s_cache = cache_k.shape[1]
+    dev = x.device
+    # a fill on the device: torch.tensor([pos]) would copy from the host
+    # and wait for the stream
+    q, k, v = _project_qkv(c, p, x, torch.full((1,), pos, device=dev))
+    ring = bool(c.window or c.chunk)
+    slot = pos % s_cache if ring else pos
+    write = min(max(slot, 0), s_cache - 1)
+    cache_k[:, write] = k[:, 0]
+    cache_v[:, write] = v[:, 0]
+
+    idx = torch.arange(s_cache, device=dev)
+    if ring:
+        # absolute position stored in each ring slot
+        abs_pos = torch.where(idx <= slot, pos - (slot - idx),
+                              pos + (idx - slot) - s_cache)
+        if c.chunk:
+            start = (pos // c.chunk) * c.chunk
+            valid = (abs_pos >= start) & (abs_pos <= pos) & (abs_pos >= 0)
+        else:
+            valid = (abs_pos > pos - c.window) & (abs_pos <= pos) & \
+                (abs_pos >= 0)
+    else:
+        valid = idx <= pos
+
+    ke = expand_kv(cache_k, c.rep)
+    ve = expand_kv(cache_v, c.rep)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), ke.float()) \
+        / (c.head_dim ** 0.5)
+    scores = torch.where(valid[None, None, None, :], scores, -1e30)
+    w = torch.softmax(scores, dim=-1).to(x.dtype)
+    out = torch.einsum("bhqk,bkhd->bqhd", w, ve)
+    out = _mask_heads(c, out)
+    return _out_proj(out, p["wo"]), cache_k, cache_v

@@ -2,8 +2,9 @@
 ``repro.serve``: predict, online-learning, lifecycle and shed-tier
 planes), the multi-tenant fleet over it and their traffic generators.
 
-See ``python -m repro_torch.launch.tm_serve``.  The LM decode path comes
-with the model zoo (see ROADMAP.md).
+See ``python -m repro_torch.launch.tm_serve``.  The LM zoo's greedy
+decode loop is :func:`repro_torch.serve.decode.generate` (``python -m
+repro_torch.launch.serve``).
 """
 
 from .loadgen import (DeadlineExceeded, closed_loop, open_loop,

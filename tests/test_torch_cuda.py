@@ -939,3 +939,152 @@ def test_mesh_server_elastic_restore_on_cuda(cuda, tmp_path):
     oracle = get_engine("oracle", cfg, want).infer(probe)
     np.testing.assert_array_equal(res.prediction, oracle.prediction)
     np.testing.assert_array_equal(res.class_sums, oracle.class_sums)
+
+
+# -- the LM zoo's dense family: the port on cuda against the port on the CPU
+#
+# float32 on both devices (TF32 stays off: torch's default), reduced
+# widths.  Tolerance on logits, hidden states, block outputs and KV
+# caches: rtol 1e-4 and an absolute 1e-4 of the compared tensor's
+# largest magnitude (at least 1e-4) — cuBLAS and the CPU sum float32
+# products in another order, an error that scales with the operands (a
+# block output of magnitude 18 differed by 1.2e-4 at an entry near 0.1);
+# greedy tokens equal except where the CPU logits of the two picks lie
+# within 1e-4.
+
+LM_DENSE = ["tinyllama-1.1b", "qwen1.5-4b", "qwen1.5-110b", "starcoder2-7b",
+            "internvl2-26b"]
+LM_TOL = 1e-4
+
+
+def _lm_pair(cuda, arch, tp=1):
+    from repro_torch.configs import get_config
+    from repro_torch.configs.reduce import reduced
+    from repro_torch.models.model import LM
+    cfg = reduced(get_config(arch))
+    cpu = LM(cfg, tp=tp, device="cpu", dtype=torch.float32)
+    cpu.init(torch.Generator().manual_seed(0))
+    dev = LM(cfg, tp=tp, device=cuda, dtype=torch.float32)
+    dev.load_state_dict(cpu.state_dict())
+    return cfg, cpu, dev
+
+
+def _lm_close(got, want):
+    want = want.float().numpy()
+    np.testing.assert_allclose(
+        got.float().cpu().numpy(), want, rtol=LM_TOL,
+        atol=LM_TOL * max(1.0, float(np.abs(want).max(initial=0.0))))
+
+
+def _lm_tokens_agree(got, want, logits):
+    got, want = got.cpu().numpy(), want.numpy()
+    logits = logits.numpy()
+    rows = np.arange(len(want))
+    gap = np.abs(logits[rows, got] - logits[rows, want])
+    assert ((got == want) | (gap <= LM_TOL)).all(), (got, want, gap)
+
+
+@pytest.mark.parametrize("arch", LM_DENSE)
+def test_lm_prefill_and_decode_on_cuda_equal_cpu(cuda, arch):
+    """Prefill (hidden states, last logits, greedy token, the ``(k, v)``
+    cache) and 20 decode steps (tokens, caches; starcoder2's window-16
+    ring wraps) on cuda against the same weights on the CPU."""
+    cfg, cpu, dev = _lm_pair(cuda, arch)
+    rng = np.random.default_rng(1)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 20),
+                                        np.int32))
+    batch = {"tokens": toks}
+    if cfg.prefix_len:
+        batch["prefix"] = torch.as_tensor(rng.normal(
+            0, 1, (2, cfg.prefix_len, cfg.d_model)).astype(np.float32))
+    tok, (k, v) = cpu.prefill(batch)
+    dtok, (dk, dv) = dev.prefill({n: t.to(cuda) for n, t in batch.items()})
+    h, _ = cpu._forward(toks, prefix=batch.get("prefix"))
+    pre = batch.get("prefix")
+    dh, _ = dev._forward(toks.to(cuda),
+                         prefix=None if pre is None else pre.to(cuda))
+    logits = cpu._logits(h[:, -1:])[:, 0]
+    _lm_close(dh, h)
+    _lm_close(dev._logits(dh[:, -1:])[:, 0], logits)
+    _lm_tokens_agree(dtok, tok, logits)
+    _lm_close(dk, k)
+    _lm_close(dv, v)
+    cache, dcache = cpu.init_cache(2, 20), dev.init_cache(2, 20)
+    for pos in range(20):
+        t = toks[:, pos:pos + 1]
+        logits = cpu._logits(cpu._decode_hidden(
+            {n: c.clone() for n, c in cache.items()}, t, pos))[:, 0]
+        nxt, cache = cpu.decode_step(cache, t, pos)
+        dnxt, dcache = dev.decode_step(dcache, t.to(cuda), pos)
+        _lm_tokens_agree(dnxt, nxt, logits)
+        _lm_close(dcache["k"], cache["k"])
+        _lm_close(dcache["v"], cache["v"])
+
+
+@pytest.mark.parametrize("kw", [dict(window=16), dict(chunk=8),
+                                dict(n_heads=6, n_kv_heads=2, tp=4)],
+                         ids=["window-ring", "chunk-ring", "padded-heads"])
+def test_attn_decode_ring_on_cuda_equals_cpu(cuda, kw):
+    """``attn_decode`` step by step across two wraps of the ring (40
+    steps into 16 / 8 slots), and with padded heads, on both devices."""
+    from repro_torch.models import attention as attn
+    from repro_torch.models.common import init_params
+    c = attn.AttnCfg(64, kw.pop("n_heads", 4), kw.pop("n_kv_heads", 2), 16,
+                     qkv_bias=True, tp=kw.pop("tp", 1), **kw)
+    p = init_params(attn.attn_defs(c), torch.Generator().manual_seed(2))
+    dp = {n: t.to(cuda) for n, t in p.items()}
+    s_cache = c.window or c.chunk or 40
+    ck = torch.zeros((2, s_cache, c.hkv, 16))
+    cv = torch.zeros_like(ck)
+    dck, dcv = ck.to(cuda), cv.to(cuda)
+    xs = torch.randn((40, 2, 1, 64), generator=torch.Generator()
+                     .manual_seed(3))
+    for pos in range(40):
+        y, ck, cv = attn.attn_decode(c, p, xs[pos], ck, cv, pos)
+        dy, dck, dcv = attn.attn_decode(c, dp, xs[pos].to(cuda), dck, dcv,
+                                        pos)
+        _lm_close(dy, y)
+        _lm_close(dck, ck)
+        _lm_close(dcv, cv)
+
+
+def test_lm_params_from_numpy_onto_cuda(cuda):
+    """A JAX-layout numpy tree (layers stacked first) loads onto cuda and
+    onto the CPU alike; the two generate the same tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.reduce import reduced
+    from repro_torch.convert import lm_params_from_numpy
+    from repro_torch.models.common import init_params
+    from repro_torch.models.model import LM
+    from repro_torch.serve.decode import generate
+
+    def numpy_tree(t):
+        return {k: numpy_tree(v) for k, v in t.items()} \
+            if isinstance(t, dict) else t.numpy()
+    cfg = reduced(get_config("qwen1.5-4b"))
+    cpu = LM(cfg, device="cpu", dtype=torch.float32)
+    tree = numpy_tree(init_params(cpu.param_defs(),
+                                  torch.Generator().manual_seed(4)))
+    lm_params_from_numpy(tree, cpu)
+    dev = lm_params_from_numpy(tree, LM(cfg, device=cuda,
+                                        dtype=torch.float32))
+    assert dev.layers[1].attn["wq"].device.type == "cuda"
+    np.testing.assert_array_equal(dev.layers[1].attn["wq"].cpu().numpy(),
+                                  tree["layers"]["attn"]["wq"][1])
+    toks = torch.as_tensor(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (2, 8), np.int32))
+    want = generate(cpu, toks, max_new=6)
+    got = generate(dev, toks.to(cuda), max_new=6)
+    assert got.device.type == "cuda"
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+
+
+def test_serve_launcher_on_cuda(cuda):
+    """``launch.serve`` at its defaults on cuda (reduced widths,
+    bfloat16): its closing line and tokens in the vocabulary."""
+    from repro_torch.launch.serve import main
+    res = main(["--arch", "tinyllama-1.1b"])
+    out = res["out"]
+    assert tuple(out.shape) == (8, 16) and out.device.type == "cuda"
+    assert int(out.min()) >= 0 and int(out.max()) < res["cfg"].vocab_size
+    assert res["line"].startswith("tinyllama-1.1b-smoke: (8, 16) in ")

@@ -469,7 +469,21 @@ def test_port_imports_no_jax_and_no_repro():
             "repro_torch.serve.tm_fleet, repro_torch.engine.autotune, "
             "repro_torch.configs, repro_torch.configs.tm_paper, "
             "repro_torch.distributed, repro_torch.distributed.sharding, "
-            "repro_torch.engine.sharding, repro_torch.core.hwmodel\n"
+            "repro_torch.engine.sharding, repro_torch.core.hwmodel, "
+            "repro_torch.models, repro_torch.models.common, "
+            "repro_torch.models.moe, repro_torch.models.attention, "
+            "repro_torch.models.model, repro_torch.serve.decode, "
+            "repro_torch.launch.serve, repro_torch.configs.reduce, "
+            "repro_torch.configs.deepseek_v2_236b, "
+            "repro_torch.configs.internvl2_26b, "
+            "repro_torch.configs.llama4_scout_17b_a16e, "
+            "repro_torch.configs.mamba2_130m, "
+            "repro_torch.configs.qwen1_5_110b, "
+            "repro_torch.configs.qwen1_5_4b, "
+            "repro_torch.configs.seamless_m4t_large_v2, "
+            "repro_torch.configs.starcoder2_7b, "
+            "repro_torch.configs.tinyllama_1_1b, "
+            "repro_torch.configs.zamba2_2_7b\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.'))\n"
