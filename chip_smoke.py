@@ -12,8 +12,9 @@ through the early-exit cascade as the overload shed tier, and serves a
 multi-tenant ``TMFleet`` of 69 models packed into fused planes and, as
 the control, each model solo, serves and learns data-parallel over a
 device mesh (the card's own, and four simulated shards of it) through a
-kill and an elastic restore onto another mesh size, and serves the LM
-zoo's qwen1.5-4b and tinyllama-1.1b at their published widths.
+kill and an elastic restore onto another mesh size, serves the LM
+zoo's qwen1.5-4b, tinyllama-1.1b, mamba2-130m and zamba2-2.7b at their
+published widths, and trains tinyllama-1.1b at its published width.
 
     python3 chip_smoke.py
 
@@ -170,22 +171,32 @@ package.  Phases, each on its own lines:
    p50/max and one step alone print for D=1 and D=4 beside phase 5's
    ``fused`` numbers and the card's name and power limit.  A mesh of
    distinct GPUs is not run (one card);
-13. the LM zoo's dense family: qwen1.5-4b and tinyllama-1.1b at their
-   published widths in bfloat16, weights from a seeded cuda
+13. the LM zoo: qwen1.5-4b and tinyllama-1.1b (dense), mamba2-130m
+   (ssm) and zamba2-2.7b (hybrid) at their published widths in
+   bfloat16, weights from a seeded cuda
    ``torch.Generator``, through ``launch.serve.run`` at the launcher's
    defaults (batch 8, prompt 32, 16 new tokens: its closing line and
    tokens/s); then prefill time at (8, 32), decode-step p50/p99 (host
    clock with a sync) over the 48 steps of a run, one decode step's
    device kernels, busy time and the card's idle share from
    ``torch.profiler``, the step's bound (the bytes it must move over
-   3.35 TB/s) and ``max_memory_allocated``.  Checks (``LM_ARCHS``'s
-   comment): 1a prefill-vs-decode greedy consistency at 2 layers of the
-   same weights under the near-tie rule (full depth printed, not
-   gated); 1b every layer at full depth teacher-forced, float32; 2 two
-   layers in float32 on the card against the CPU; logits finite
-   throughout; K1–K6's counters read 0 (the LM path has no kernel of
-   its own);
-14. a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
+   3.35 TB/s: weights, KV entries and the mamba layers' state) and
+   ``max_memory_allocated``.  Checks (``LM_ARCHS``'s comment): 1a
+   prefill-vs-decode greedy consistency at 2 layers (zamba2: its first
+   superblock) of the same weights under the near-tie rule (full depth
+   printed, not gated); 1b every layer at full depth teacher-forced,
+   float32; 2 two layers in float32 on the card against the CPU; logits
+   finite throughout; K1–K6's counters read 0 (the LM path has no
+   kernel of its own);
+14. LM training (``LM_TRAIN_ARCH``'s comment): tinyllama-1.1b at its
+   published width and depth through the port's train step at the
+   training launcher's defaults — step time p50/p99 (host clock with a
+   sync), tokens/s, model FLOPs over the bf16 dense peak, peak memory,
+   one step's device kernels and busy time; gate 1 one float32 step
+   card vs CPU at 2 layers, gate 2 the loss falling on a fixed batch
+   at 2 layers of the same weights, gate 3 ``launch.train.run`` killed once and resumed equal to an
+   unbroken run; K1–K6's counters read 0;
+15. a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero; without a CUDA device it exits 1
@@ -316,14 +327,86 @@ MESH_RAGGED, MESH_KILL, MESH_PER_CLIENT = 37, 8, 20
 #   must land above LM_F32_TOL.  Read on the H100 (PERF.md, PR 20): float32
 #   6.83e-4 / 7.55e-4 (qwen / tinyllama), TF32 1.12 / 0.627, so the limit
 #   sits 13x above the one and 63x below the other.
-LM_ARCHS = ("qwen1.5-4b", "tinyllama-1.1b")
+# The ssm and hybrid families join at their published widths: mamba2-130m
+# (src/repro/configs/mamba2_130m.py: 24 mamba layers, d_model 768, state
+# 128, tied embeddings) and zamba2-2.7b (zamba2_2_7b.py: 54 mamba layers in
+# 9 superblocks of 6, the shared attention + MLP block after each).  A
+# "layer" of the checks is one unit of the forward: a dense layer, a
+# mamba layer or one site of zamba2's shared block (63 units); the
+# truncated depths (LM_FREE_DEPTH, LM_F32_LAYERS) round up to zamba2's
+# first superblock (6 mamba layers and one site).  1b feeds a mamba
+# layer's decode step the state of a prefill over the earlier tokens and
+# compares the state it writes with the prefill's over all of them.
+LM_ARCHS = ("qwen1.5-4b", "tinyllama-1.1b", "mamba2-130m", "zamba2-2.7b")
 LM_BATCH, LM_PROMPT, LM_NEW = 8, 32, 16
 LM_CONSIST_LEN, LM_FREE_DEPTH = 16, 2
 LM_F32_LAYERS, LM_F32_STEPS = 2, 4
-LM_F32_TOL, LM_LAYER_TOL = 1e-2, 1e-3
+LM_LAYER_TOL = 1e-3
+# check 2's limit by family (and 1b's near-tie width): 1e-2 for the
+# dense family; mamba2's two layers read 1.91e-5 in float32 and
+# 3.79e-3 in TF32 on the H100 (PERF.md §6), under 1e-2, so its limit
+# is 1e-3 (52x above the one, 3.8x below the other); zamba2's first
+# superblock read 8.73e-4 and 0.249 (11x / 25x around 1e-2)
+LM_F32_TOL = {"dense": 1e-2, "ssm": 1e-3, "hybrid": 1e-2}
+# 1a runs in the served bfloat16 for the dense and ssm families and in
+# float32 for hybrid: zamba2's first superblock in bfloat16 put 5 of 8
+# picks 0.2-0.9 past the rule on the H100 (PERF.md §6; read by
+# scripts/lm_reference_drift.py --card), as the reference's bfloat16
+# zamba2 case fails its own rule on the CPU (ROADMAP.md, R3)
+LM_FREE_DTYPE = {"dense": "bfloat16", "ssm": "bfloat16", "hybrid": "float32"}
 LM_DRIFT_AT = (1, 2, 5, 10, 20)
 LM_TIE_ULPS = 8
 LM_PREFILL_REPS = 5
+# phase 14, LM training: tinyllama-1.1b (the JAX training launcher's
+# default arch) at its published width and depth through the port's
+# train step (float32 masters, gradients and AdamW moments, bf16 compute,
+# remat) at the launcher's defaults (global batch 8, sequence 128, its
+# token stream and loader, TrainHParams()), LM_TRAIN_WARM steps then
+# LM_TRAIN_TIMED timed ones.  Gates:
+# - 1, one train step of the same weights truncated to LM_TRAIN_F32_LAYERS
+#   layers (published widths) in float32 on the card and on the CPU (TF32
+#   off; (LM_TRAIN_F32_BATCH, LM_TRAIN_F32_SEQ) tokens; peak lr
+#   LM_TRAIN_F32_LR, no warmup): loss rtol 1e-5, grad_norm and every
+#   gradient leaf within LM_TRAIN_GRAD_TOL (relative to the CPU's norm
+#   and to each leaf's largest CPU magnitude); the updated parameters
+#   within 1e-2 lr on average, and every entry whose CPU gradient lies
+#   farther from 0 than LM_TRAIN_GRAD_TOL of its leaf's largest (where
+#   the gradient limit cannot flip its sign) stepped the CPU's way (a
+#   first AdamW step moves an entry by about lr times the sign of its
+#   gradient, so a per-entry bound on the difference could not fail);
+#   and a control, the same card step with TF32 on, whose gradients
+#   must land farther than LM_TRAIN_GRAD_TOL.  The limit was set after a
+#   reading on the H100 (PERF.md §6): the backward pass through the
+#   near-one-hot attention of the JAX init (R5) amplifies float32
+#   rounding to 4.98e-3 of a leaf's largest gradient (the embedding's;
+#   wq 3.43e-3) and 1.2e-3 of the norm, so the first limit of 1e-3
+#   failed; TF32 read 1.09;
+# - 2, the first LM_TRAIN_F32_LAYERS layers of the full-width weights fit
+#   one fixed batch of the stream: LM_TRAIN_FIT_STEPS steps at peak lr
+#   LM_TRAIN_FIT_LR (no warmup, fresh moments, clip 1) must lower the
+#   loss by LM_TRAIN_FIT_DROP nats.  Not at full depth: there the JAX
+#   init's gradient norm reads 1.2e14 on the reference itself
+#   (scripts/lm_reference_drift.py --grads; ROADMAP.md, R5), so
+#   clipping to 1 leaves every entry's step far below AdamW's eps and
+#   the loss stays flat (read on the card by that script's --card);
+# - 3, launch.train.run at reduced width on the card, LM_TRAIN_KILL_STEPS
+#   steps with a checkpoint every LM_TRAIN_KILL_EVERY, killed once (the
+#   step at LM_TRAIN_KILL_AT raises) and resumed from its checkpoint,
+#   must end at the unbroken run's parameters, step and count bitwise and
+#   its AdamW moments within 1e-6 of each leaf's largest (both print
+#   whether they are bitwise: on the CPU a replayed step's embedding
+#   gradient was seen an ulp apart, which moves a moment and, through
+#   AdamW's normalized step, no parameter).
+# No full-width checkpoint is written (13.2 GB of masters and moments).
+LM_TRAIN_ARCH = "tinyllama-1.1b"
+LM_TRAIN_BATCH, LM_TRAIN_SEQ = 8, 128
+LM_TRAIN_WARM, LM_TRAIN_TIMED = 2, 10
+LM_TRAIN_F32_LAYERS, LM_TRAIN_F32_BATCH, LM_TRAIN_F32_SEQ = 2, 2, 32
+LM_TRAIN_F32_LR, LM_TRAIN_GRAD_TOL = 1e-3, 2e-2
+LM_TRAIN_FIT_STEPS, LM_TRAIN_FIT_LR, LM_TRAIN_FIT_DROP = 8, 1e-3, 0.5
+LM_TRAIN_KILL_STEPS, LM_TRAIN_KILL_EVERY, LM_TRAIN_KILL_AT = 6, 2, 3
+# H100 SXM dense bf16 tensor-core peak (NVIDIA H100 datasheet, 700 W)
+BF16_FLOPS = 989e12
 
 
 def smi(query: str) -> str:
@@ -2041,49 +2124,114 @@ def bf16_ulp(torch, v):
                       - 7)
 
 
+def lm_state_bytes(lm, batch: int) -> int:
+    """Bytes of the mamba layers' decode state at ``batch`` rows: the
+    conv window in the compute dtype and the float32 SSM state (0 for the
+    dense family)."""
+    c = lm.cfg
+    if c.family == "dense":
+        return 0
+    m = lm.mamba_cfg
+    conv = m.conv_dim * (m.conv_kernel - 1) * lm.embed.element_size()
+    return c.n_layers * batch * (conv + m.n_heads * m.head_dim * m.d_state
+                                 * 4)
+
+
 def lm_decode_bytes(lm, batch: int, pos: int) -> int:
     """Bytes one decode step at ``pos`` must move: every stored matrix,
-    bias and float32 norm read once (of the embedding only the batch's
-    rows, unless it is the tied head), the valid KV entries read and the
-    step's entries written (compute dtype)."""
-    c, a = lm.cfg, lm.attn_cfg
+    bias and float32 vector read once (of the embedding only the batch's
+    rows, unless it is the tied head), the valid KV entries of every
+    attention site read and the step's entries written (compute dtype),
+    and the mamba layers' state read and written once."""
+    c = lm.cfg
     nbytes = 0
     for name, p in lm.named_parameters():
         if name == "embed" and not c.tie_embeddings:
             nbytes += batch * p.shape[1] * p.element_size()
         else:
             nbytes += p.numel() * p.element_size()
-    slots = min(pos + 1, c.window) if c.window else pos + 1
-    kv_entry = c.n_layers * batch * a.hkv * a.head_dim * 2 * \
-        lm.embed.element_size()
-    return nbytes + kv_entry * (slots + 1)
+    if c.family != "ssm":
+        a = lm.attn_cfg
+        sites = c.n_layers if c.family == "dense" else \
+            c.n_layers // c.shared_attn_every
+        slots = min(pos + 1, c.window) if c.window else pos + 1
+        kv_entry = sites * batch * a.hkv * a.head_dim * 2 * \
+            lm.embed.element_size()
+        nbytes += kv_entry * (slots + 1)
+    return nbytes + 2 * lm_state_bytes(lm, batch)
+
+
+def lm_depth(cfg, n_layers: int) -> int:
+    """``n_layers`` rounded up to whole superblocks for the hybrid
+    family (a truncated zamba2 keeps its structure)."""
+    k = cfg.shared_attn_every if cfg.family == "hybrid" else 1
+    return -(-n_layers // k) * k
 
 
 def lm_truncated(torch, lm, n_layers: int, dtype, device="cuda"):
-    """A copy of ``lm``'s first ``n_layers`` layers, its embedding, final
-    norm and head — the same weights — in ``dtype`` on ``device``."""
+    """A copy of ``lm``'s first ``lm_depth(n_layers)`` layers, its
+    embedding, final norm, head (and shared block) — the same weights —
+    in ``dtype`` on ``device``."""
     import dataclasses
     from repro_torch.models.model import LM
-    sub = LM(dataclasses.replace(lm.cfg, n_layers=n_layers), tp=lm.tp,
-             device=device, dtype=dtype)
+    sub = LM(dataclasses.replace(lm.cfg,
+                                 n_layers=lm_depth(lm.cfg, n_layers)),
+             tp=lm.tp, device=device, dtype=dtype)
     want = sub.state_dict()
     sub.load_state_dict({k: v for k, v in lm.state_dict().items()
                          if k in want})
     return sub
 
 
+def lm_units(lm) -> list:
+    """Phase 13's per-layer view of ``lm``, in forward order (a zamba2
+    superblock's mamba layers, then its shared-block site): one
+    ``(kind, full, step, slots)`` per unit — ``full(x)`` → (x', outs)
+    over the whole sequence, ``outs`` the unit's prefill cache ((k, v)
+    or (conv, ssm)); ``step(x, cache, pos)`` → x' for one token, writing
+    the unit's cache tensors ``slots(cache)``."""
+    c, units = lm.cfg, []
+
+    def attn(lp, slots):
+        units.append(("attn", lambda x: lm._layer(lp, x),
+                      lambda x, cache, pos: lm._decode_layer(
+                          lp, x, *slots(cache), pos), slots))
+
+    def mamba(lp, slots):
+        units.append(("mamba", lambda x: lm._mamba_layer(lp, x),
+                      lambda x, cache, pos: lm._mamba_decode_layer(
+                          lp, x, *slots(cache)), slots))
+
+    if c.family == "dense":
+        for i, lp in enumerate(lm.layers):
+            attn(lp, lambda cache, i=i: (cache["k"][i], cache["v"][i]))
+    elif c.family == "ssm":
+        for i, lp in enumerate(lm.layers):
+            mamba(lp, lambda cache, i=i: (cache["conv"][i],
+                                          cache["ssm"][i]))
+    else:
+        for s, bp in enumerate(lm.blocks):
+            for j, lp in enumerate(bp):
+                mamba(lp, lambda cache, s=s, j=j: (cache["conv"][s, j],
+                                                   cache["ssm"][s, j]))
+            attn(lm.shared, lambda cache, s=s: (cache["attn"]["k"][s],
+                                                cache["attn"]["v"][s]))
+    return units
+
+
 def lm_check_f32(torch, lm, prompts, arch: str) -> dict:
     """Phase 13, check 2: the first LM_F32_LAYERS layers of ``lm``'s
-    weights in float32 on the card and on the CPU — prefill logits at the
-    last prompt position and LM_F32_STEPS teacher-forced decode steps'
-    logits within LM_F32_TOL, greedy picks equal up to near ties (CPU
-    logits of the two picks within LM_F32_TOL); the same card run with
-    TF32 on must differ by more than LM_F32_TOL."""
+    weights (``lm_depth``) in float32 on the card and on the CPU —
+    prefill logits at the last prompt position and LM_F32_STEPS
+    teacher-forced decode steps' logits within the family's LM_F32_TOL,
+    greedy picks equal up to near ties (CPU logits of the two picks
+    within it); the same card run with TF32 on must differ by more than
+    the limit, or the limit could not see a lost precision."""
     from repro_torch.core.popcount import argmax_tournament
     if torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError("TF32 is on: float32 products would round")
     dev = lm_truncated(torch, lm, LM_F32_LAYERS, torch.float32)
-    cpu = lm_truncated(torch, dev, LM_F32_LAYERS, torch.float32, "cpu")
+    cpu = lm_truncated(torch, dev, dev.cfg.n_layers, torch.float32, "cpu")
     ref = [cpu._logits(cpu._forward(prompts.cpu())[0][:, -1])]
     ccache = cpu.init_cache(prompts.shape[0], LM_F32_STEPS)
     for pos in range(LM_F32_STEPS):
@@ -2098,7 +2246,7 @@ def lm_check_f32(torch, lm, prompts, arch: str) -> dict:
                 cache, prompts[:, pos:pos + 1], pos))[:, 0].cpu())
         return out
 
-    err, flips = 0.0, 0
+    err, flips, tol = 0.0, 0, LM_F32_TOL[lm.cfg.family]
     for got, want in zip(card_logits(), ref):
         if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
             raise AssertionError(f"{arch} float32: non-finite logits")
@@ -2106,52 +2254,54 @@ def lm_check_f32(torch, lm, prompts, arch: str) -> dict:
         g, r = argmax_tournament(got).long(), argmax_tournament(want).long()
         rows = torch.arange(len(r))
         gap = (want[rows, g] - want[rows, r]).abs()
-        if not ((g == r) | (gap <= LM_F32_TOL)).all():
+        if not ((g == r) | (gap <= tol)).all():
             raise AssertionError(f"{arch} float32: greedy picks {g} vs CPU "
                                  f"{r}, CPU logit gaps {gap}")
         flips += int((g != r).sum())
-    if err > LM_F32_TOL:
-        raise AssertionError(f"{arch} float32 card vs CPU: max |logit "
-                             f"error| {err} > {LM_F32_TOL}")
     # the control: the same products in TF32 (10-bit mantissa) must land
-    # above the limit, or the limit could not see a lost precision
+    # above the limit
     torch.backends.cuda.matmul.allow_tf32 = True
     try:
         ctl = max(float((got - want).abs().max())
                   for got, want in zip(card_logits(), ref))
     finally:
         torch.backends.cuda.matmul.allow_tf32 = False
-    if ctl <= LM_F32_TOL:
+    if err > tol:
+        raise AssertionError(f"{arch} float32 card vs CPU: max |logit "
+                             f"error| {err} > {tol}")
+    if ctl <= tol:
         raise AssertionError(f"{arch} TF32 control: max |logit error| {ctl} "
-                             f"<= {LM_F32_TOL}, the limit is too loose")
+                             f"<= {tol}, the limit is too loose")
     return {"f32_max_abs_err": err, "f32_near_tie_flips": flips,
-            "tf32_control_err": ctl}
+            "tf32_control_err": ctl, "f32_layers": dev.cfg.n_layers,
+            "f32_tol": tol}
 
 
 def lm_free_running(torch, lm, toks) -> dict:
     """Prefill over ``toks`` against decode-stepping them, free-running:
-    after each layer the last position's hidden-state difference over its
-    largest entry on the prefill path (``drift``, at LM_DRIFT_AT and the
-    last layer: how fast rounding differences grow with depth, R5), and
-    the decode path's greedy pick against prefill's logits under the
-    near-tie rule (LM_TIE_ULPS bfloat16 ulps of the top logit)."""
+    after each unit (``lm_units``) the last position's hidden-state
+    difference over its largest entry on the prefill path (``drift``, at
+    LM_DRIFT_AT and the last unit: how fast rounding differences grow
+    with depth, R5), and the decode path's greedy pick against prefill's
+    logits under the near-tie rule (LM_TIE_ULPS bfloat16 ulps of the top
+    logit)."""
     from repro_torch.core.popcount import argmax_tournament
     from repro_torch.models.common import rms_norm
     s, eps, v = toks.shape[1], lm.cfg.norm_eps, lm.cfg.vocab_size
+    units = lm_units(lm)
     with torch.no_grad():
         x, ref = lm._embed(toks), []
-        for lp in lm.layers:
-            x, _ = lm._layer(lp, x)
+        for _, full, _, _ in units:
+            x, _ = full(x)
             ref.append(x[:, -1].float())
         logits = lm._logits(rms_norm(x[:, -1:], lm.final_norm, eps))[:, 0]
         cache = lm.init_cache(toks.shape[0], s)
         for pos in range(s - 1):
             lm.decode_step(cache, toks[:, pos:pos + 1], pos)
         xd, drift = lm._embed(toks[:, -1:]), {}
-        for i, lp in enumerate(lm.layers):
-            xd = lm._decode_layer(lp, xd, cache["k"][i], cache["v"][i],
-                                  s - 1)
-            if i + 1 in LM_DRIFT_AT or i + 1 == len(lm.layers):
+        for i, (_, _, step, _) in enumerate(units):
+            xd = step(xd, cache, s - 1)
+            if i + 1 in LM_DRIFT_AT or i + 1 == len(units):
                 drift[i + 1] = float((xd[:, 0].float() - ref[i]).abs().max()
                                      / ref[i].abs().max())
         dlogits = lm._logits(rms_norm(xd, lm.final_norm, eps))[:, 0]
@@ -2170,11 +2320,15 @@ def lm_free_running(torch, lm, toks) -> dict:
 
 
 def lm_teacher_forced(torch, lm, toks) -> dict:
-    """Layer by layer at full depth: prefill's layer over ``toks`` and
-    the decode step's layer for the last token, fed the same input and a
-    cache holding prefill's keys and values for the earlier positions.
-    → per-layer errors relative to the layer's update and to the largest
-    key / value, and both paths' final logits at the last position."""
+    """Unit by unit at full depth: prefill's unit over ``toks`` and the
+    decode step's unit for the last token, fed the same input and a
+    cache holding what prefill gives for the earlier positions (an
+    attention unit: prefill's keys and values; a mamba unit: the state of
+    a prefill over the earlier tokens).  → per-unit errors relative to
+    the unit's update and to the largest entry of what the step writes
+    (the key and value at the last position; the mamba layer's conv and
+    SSM state, against prefill's over all the tokens), and both paths'
+    final logits at the last position."""
     from repro_torch.models.common import rms_norm
     s = toks.shape[1]
     eps = lm.cfg.norm_eps
@@ -2182,18 +2336,26 @@ def lm_teacher_forced(torch, lm, toks) -> dict:
     cache = lm.init_cache(toks.shape[0], s)
     out_err, kv_err = [], []
     with torch.no_grad():
-        for i, lp in enumerate(lm.layers):
-            y, (k, v) = lm._layer(lp, x)
-            ck, cv = cache["k"][i], cache["v"][i]
-            ck[:, :s - 1] = k[:, :s - 1]
-            cv[:, :s - 1] = v[:, :s - 1]
-            yd = lm._decode_layer(lp, x[:, -1:], ck, cv, s - 1)
+        for kind, full, step, slots in lm_units(lm):
+            y, outs = full(x)
+            dst = slots(cache)
+            if kind == "attn":
+                for d, t in zip(dst, outs):
+                    d[:, :s - 1] = t[:, :s - 1]
+                pairs = lambda: [(d[:, s - 1], t[:, s - 1])  # noqa: E731
+                                 for d, t in zip(dst, outs)]
+            else:
+                _, early = full(x[:, :s - 1])
+                for d, t in zip(dst, early):
+                    d.copy_(t)
+                pairs = lambda: list(zip(dst, outs))  # noqa: E731
+            yd = step(x[:, -1:], cache, s - 1)
             upd = (y[:, -1] - x[:, -1]).float().abs().max()
             out_err.append(float((yd[:, 0] - y[:, -1]).float().abs().max()
                                  / upd))
-            kv_err.append(max(float((c[:, s - 1] - t[:, s - 1]).float().abs()
-                                    .max() / t.float().abs().max())
-                              for c, t in ((ck, k), (cv, v))))
+            kv_err.append(max(float((d - t).float().abs().max()
+                                    / t.float().abs().max())
+                              for d, t in pairs()))
             x = y
         logits = lm._logits(rms_norm(x[:, -1:], lm.final_norm, eps))[:, 0]
         dlogits = lm._logits(rms_norm(yd, lm.final_norm, eps))[:, 0]
@@ -2207,10 +2369,12 @@ def lm_check_consistency(torch, lm, prompts, arch: str) -> dict:
     from repro_torch.core.popcount import argmax_tournament
     toks = prompts[:, :LM_CONSIST_LEN]
     # 1a: free-running at LM_FREE_DEPTH layers of the same weights, gated
-    fr = lm_free_running(torch, lm_truncated(torch, lm, LM_FREE_DEPTH,
-                                             lm.dtype), toks)
+    depth = lm_depth(lm.cfg, LM_FREE_DEPTH)
+    dtype = getattr(torch, LM_FREE_DTYPE[lm.cfg.family])
+    fr = lm_free_running(torch, lm_truncated(torch, lm, depth, dtype), toks)
+    fr["depth"], fr["dtype"] = depth, LM_FREE_DTYPE[lm.cfg.family]
     if not fr["within"]:
-        raise AssertionError(f"{arch} at {LM_FREE_DEPTH} layers: decode "
+        raise AssertionError(f"{arch} at {depth} layers: decode "
                              f"picks beyond the near-tie rule: gaps "
                              f"{fr['gaps']} > {fr['tols']}")
     # on a float32 copy at full depth: free-running (the drift R5 cites,
@@ -2223,10 +2387,11 @@ def lm_check_consistency(torch, lm, prompts, arch: str) -> dict:
     rows = torch.arange(len(r), device=r.device)
     gap = (tf["logits"][rows, g] - tf["logits"][rows, r]).abs()
     out["teacher_forced_f32"] = {
+        "units": len(tf["out_err"]),
         "max_layer_err": max(tf["out_err"]), "max_kv_err": max(tf["kv_err"]),
         "exact": int((g == r).sum()), "max_gap": float(gap.max())}
     if max(tf["out_err"]) > LM_LAYER_TOL or max(tf["kv_err"]) > LM_LAYER_TOL \
-            or not ((g == r) | (gap <= LM_F32_TOL)).all():
+            or not ((g == r) | (gap <= LM_F32_TOL[lm.cfg.family])).all():
         worst = max(range(len(tf["out_err"])), key=lambda i: tf["out_err"][i])
         raise AssertionError(
             f"{arch} teacher-forced float32: layer {worst} error "
@@ -2291,10 +2456,12 @@ def lm_serve_arch(torch, arch: str, card: str) -> dict:
     bound_ms = lm_decode_bytes(lm, LM_BATCH, mid) / HBM_BPS * 1e3
     top = [(n[:60], round(us, 3)) for n, us in by_name.most_common(5)]
 
+    state_bytes = lm_state_bytes(lm, LM_BATCH)
     checks = lm_check_consistency(torch, lm, prompts, arch)
     checks.update(lm_check_f32(torch, lm, prompts, arch))
     peak = torch.cuda.max_memory_allocated()
     row = {"arch": arch, "params": n_params, "weight_bytes": weight_bytes,
+           "decode_state_bytes": state_bytes,
            "init_and_launcher_s": build_s, "generate_ms": res["seconds"] * 1e3,
            "tok_per_s": res["tok_per_s"],
            "prefill_ms": statistics.median(prefill_s) * 1e3,
@@ -2316,22 +2483,25 @@ def lm_serve_arch(torch, arch: str, card: str) -> dict:
           f"per step ({len(names)} activities) busy {busy_us / 1e3:.3f} ms "
           f"of the card (idle share "
           f"{row['decode_device_idle_share']:.3f} at p50); bound "
-          f"{bound_ms:.3f} ms (bytes), p50 = {row['decode_x_bound']:.2f}x, "
+          f"{bound_ms:.3f} ms (bytes; the mamba state {state_bytes:,} B "
+          f"read and written), p50 = {row['decode_x_bound']:.2f}x, "
           f"device busy = {busy_us / 1e3 / bound_ms:.2f}x; peak memory "
           f"{peak:,} bytes; top kernels (µs) {top}", flush=True)
     fr2, frl = checks["free_gated"], checks["free_f32"]
     tf32 = checks["teacher_forced_f32"]
-    print(f"lm {arch} checks: 1a free-running at {LM_FREE_DEPTH} layers "
-          f"{fr2['exact']}/{fr2['rows']} picks equal, max gap "
-          f"{fr2['max_gap']:.4f} <= {fr2['tol']:.4f}, max |logit diff| "
+    print(f"lm {arch} checks: 1a free-running at {fr2['depth']} layers "
+          f"{fr2['dtype']} {fr2['exact']}/{fr2['rows']} picks equal, max "
+          f"gap {fr2['max_gap']:.4f} <= {fr2['tol']:.4f}, max |logit diff| "
           f"{fr2['max_abs_logit_diff']:.4f}; 1b teacher-forced "
-          f"{lm.cfg.n_layers} layers float32: max layer error "
-          f"{tf32['max_layer_err']:.3g}, key/value {tf32['max_kv_err']:.3g} "
-          f"<= {LM_LAYER_TOL}, picks {tf32['exact']}/{LM_BATCH} equal; 2 "
-          f"float32 {LM_F32_LAYERS} layers card vs CPU max |logit err| "
-          f"{checks['f32_max_abs_err']:.3g} <= {LM_F32_TOL} "
+          f"{tf32['units']} layers float32: max layer error "
+          f"{tf32['max_layer_err']:.3g}, key/value or state "
+          f"{tf32['max_kv_err']:.3g} <= {LM_LAYER_TOL}, picks "
+          f"{tf32['exact']}/{LM_BATCH} equal; 2 float32 "
+          f"{checks['f32_layers']} layers card vs CPU max |logit err| "
+          f"{checks['f32_max_abs_err']:.3g} <= {checks['f32_tol']} "
           f"({checks['f32_near_tie_flips']} near-tie flips), TF32 control "
-          f"{checks['tf32_control_err']:.3g} > {LM_F32_TOL}", flush=True)
+          f"{checks['tf32_control_err']:.3g} > {checks['f32_tol']}",
+          flush=True)
     print(f"lm {arch} float32 free-running at full depth (R5, not gated): "
           f"{frl['exact']}/{frl['rows']} picks equal, max |logit diff| "
           f"{frl['max_abs_logit_diff']:.4f}; hidden drift by depth (max "
@@ -2343,7 +2513,8 @@ def lm_serve_arch(torch, arch: str, card: str) -> dict:
 
 
 def lm_phase(torch, rt, card: str) -> dict:
-    """Phase 13: the LM zoo's dense family served at full width on cuda.
+    """Phase 13: the LM zoo's dense, ssm and hybrid families served at
+    full width on cuda.
     It reaches none of the port's CUDA kernels: their counters are zeroed
     before and must read 0 after."""
     counted = ("swar_fused_votes", "clause_votes", "train_deltas_keyed",
@@ -2360,6 +2531,318 @@ def lm_phase(torch, rt, card: str) -> dict:
     print(json.dumps({"lm_serving": rows, "card": card, "wall_s": wall}),
           flush=True)
     return {"rows": rows, "wall_s": wall}
+
+
+def train_flops(lm, batch: int, seq: int) -> float:
+    """Model FLOPs of one train step: 6·N·T for the N parameters that
+    enter matrix products (all but the embedding table, which is
+    gathered) over T = batch·seq tokens, plus attention's score and
+    value products (4·B·S²·hq·D a layer forward, the full S×S the port
+    computes; backward twice forward)."""
+    c, a = lm.cfg, lm.attn_cfg
+    n = sum(p.numel() for p in lm.parameters()) - lm.embed.numel()
+    attn = 3 * c.n_layers * 4 * batch * seq * seq * a.hq * a.head_dim
+    return 6.0 * n * batch * seq + attn
+
+
+def fit_fixed_batch(torch, lm, batch) -> dict:
+    """LM_TRAIN_FIT_STEPS train steps of ``lm`` on ``batch`` from fresh
+    moments at peak lr LM_TRAIN_FIT_LR, no warmup, clip 1 → the losses
+    and gradient norms (phase 14's gate 2)."""
+    from repro_torch.train.step import (TrainHParams, init_train_state,
+                                        make_train_step)
+    fit = make_train_step(lm, TrainHParams(
+        peak_lr=LM_TRAIN_FIT_LR, warmup=0, total_steps=LM_TRAIN_FIT_STEPS))
+    st, losses, norms = init_train_state(lm.params), [], []
+    for _ in range(LM_TRAIN_FIT_STEPS):
+        st, m = fit(st, batch)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    return {"losses": losses, "grad_norms": norms}
+
+
+def train_timed(torch, card: str) -> dict:
+    """Phase 14 at full width: LM_TRAIN_WARM + LM_TRAIN_TIMED steps of
+    the launcher's setup (host clock per step, ending in a sync), one
+    step's device kernels and busy time, then gate 2 on the first
+    LM_TRAIN_F32_LAYERS layers of its weights."""
+    from repro_torch import tree as ttree
+    from repro_torch.configs import get_config
+    from repro_torch.data import ShardedLoader, lm_token_stream
+    from repro_torch.engine.base import nearest_rank
+    from repro_torch.launch.train import STREAM_TOKENS
+    from repro_torch.models.model import LM
+    from repro_torch.train.step import (TrainHParams, init_train_state,
+                                        make_train_step)
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(LM_TRAIN_ARCH)
+    lm = LM(cfg, device="cuda", dtype=torch.bfloat16, trainable=True)
+    lm.init(torch.Generator(device="cuda").manual_seed(0))
+    n_steps = LM_TRAIN_WARM + LM_TRAIN_TIMED
+    step = make_train_step(lm, TrainHParams(total_steps=n_steps + 2))
+    state = init_train_state(lm.params)
+    state_bytes = sum(t.numel() * t.element_size() for t in
+                      ttree.leaves((lm.params, lm.grads, state.opt.mu,
+                                    state.opt.nu)))
+    stream = lm_token_stream(STREAM_TOKENS, cfg.vocab_size, seed=0)
+    loader = ShardedLoader(stream, global_batch=LM_TRAIN_BATCH,
+                           seq_len=LM_TRAIN_SEQ)
+    times, losses, metrics = [], [], {}
+    try:
+        batches = [dict(zip(("tokens", "targets"), next(loader)))
+                   for _ in range(n_steps)]
+    finally:
+        loader.close()
+    for i, batch in enumerate(batches):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        if i >= LM_TRAIN_WARM:
+            times.append(time.perf_counter() - t1)
+        losses.append(float(metrics["loss"]))
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"train losses {losses}")
+    names, busy_us, by_name = device_activity(
+        torch, lambda: step(state, batches[-1]))
+    kernels = sum(1 for n in names if "memcpy" not in n.lower()
+                  and "memset" not in n.lower())
+    times.sort()
+    p50, p99 = (nearest_rank(times, q) for q in (0.50, 0.99))
+    tokens = LM_TRAIN_BATCH * LM_TRAIN_SEQ
+    flops = train_flops(lm, LM_TRAIN_BATCH, LM_TRAIN_SEQ)
+    peak = torch.cuda.max_memory_allocated()
+    top = [(n[:60], round(us, 3)) for n, us in by_name.most_common(5)]
+    row = {"arch": LM_TRAIN_ARCH, "params": sum(p.numel() for p in
+                                                 lm.parameters()),
+           "batch": LM_TRAIN_BATCH, "seq": LM_TRAIN_SEQ,
+           "step_p50_ms": p50 * 1e3, "step_p99_ms": p99 * 1e3,
+           "timed_steps": len(times), "tokens_per_s": tokens / p50,
+           "model_flops_per_step": flops,
+           "model_flops_share_of_bf16_peak": flops / p50 / BF16_FLOPS,
+           "masters_grads_moments_bytes": state_bytes,
+           "max_memory_allocated": peak,
+           "device_kernels_per_step": kernels,
+           "device_busy_ms": busy_us / 1e3,
+           "device_idle_share": 1 - busy_us / 1e3 / (p50 * 1e3),
+           "top_kernels_us": top, "losses": losses,
+           "grad_norm": float(metrics["grad_norm"]),
+           "lr": float(metrics["lr"])}
+    print(f"train {LM_TRAIN_ARCH}, {card}: {row['params']:,} params; "
+          f"masters + gradients + AdamW moments {state_bytes:,} bytes, "
+          f"peak memory {peak:,} bytes; ({LM_TRAIN_BATCH}, {LM_TRAIN_SEQ}) "
+          f"step p50/p99 {p50 * 1e3:.3f} / {p99 * 1e3:.3f} ms over "
+          f"{len(times)} steps, {tokens / p50:,.0f} tokens/s; model FLOPs "
+          f"{flops:.4g} a step = {row['model_flops_share_of_bf16_peak']:.4f} "
+          f"of the bf16 dense peak ({BF16_FLOPS:.4g} FLOP/s) at p50; "
+          f"{kernels} device kernels a step, busy {busy_us / 1e3:.3f} ms "
+          f"(idle share {row['device_idle_share']:.3f}); top kernels (µs) "
+          f"{top}; losses {[round(x, 4) for x in losses]}", flush=True)
+    # gate 2: the first LM_TRAIN_F32_LAYERS layers of the same weights fit
+    # one fixed batch from fresh moments
+    del state, metrics, step
+    import dataclasses
+    sub = LM(dataclasses.replace(cfg, n_layers=LM_TRAIN_F32_LAYERS),
+             device="cuda", dtype=torch.bfloat16, trainable=True)
+    want = sub.state_dict()
+    sub.load_state_dict({k: v for k, v in lm.state_dict().items()
+                         if k in want})
+    del lm
+    fit = fit_fixed_batch(torch, sub, batches[0])
+    print(f"train gate 2: {LM_TRAIN_FIT_STEPS} steps on one batch at peak "
+          f"lr {LM_TRAIN_FIT_LR} (clip 1.0), {LM_TRAIN_F32_LAYERS} layers: "
+          f"losses {[round(x, 4) for x in fit['losses']]}, grad norms "
+          f"{[round(x, 4) for x in fit['grad_norms']]}", flush=True)
+    got = fit["losses"]
+    if not (all(np.isfinite(got)) and got[-1] < got[0] - LM_TRAIN_FIT_DROP):
+        raise AssertionError(f"gate 2: the loss did not fall by "
+                             f"{LM_TRAIN_FIT_DROP}: {got}")
+    row["fit"] = fit
+    del sub
+    torch.cuda.empty_cache()
+    return row
+
+
+def train_check_f32(torch) -> dict:
+    """Phase 14, gate 1: one train step at published widths truncated to
+    LM_TRAIN_F32_LAYERS layers, float32, on the card and on the CPU; the
+    same card step with TF32 on is the control (its gradients must land
+    farther from the CPU's than LM_TRAIN_GRAD_TOL)."""
+    import dataclasses
+    from repro_torch import tree as ttree
+    from repro_torch.configs import get_config
+    from repro_torch.models.common import flatten_defs
+    from repro_torch.models.model import LM
+    from repro_torch.train.step import (TrainHParams, init_train_state,
+                                        make_train_step)
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 is on: float32 products would round")
+    cfg = dataclasses.replace(get_config(LM_TRAIN_ARCH),
+                              n_layers=LM_TRAIN_F32_LAYERS)
+    cpu = LM(cfg, device="cpu", dtype=torch.float32, trainable=True)
+    cpu.init(torch.Generator().manual_seed(1))
+    init = {k: v.detach().clone() for k, v in cpu.state_dict().items()}
+    rng = np.random.default_rng(SEED)
+    batch = {k: rng.integers(0, cfg.vocab_size, (LM_TRAIN_F32_BATCH,
+                                                 LM_TRAIN_F32_SEQ), np.int32)
+             for k in ("tokens", "targets")}
+    hp = TrainHParams(peak_lr=LM_TRAIN_F32_LR, warmup=0, total_steps=10)
+
+    def one_step(lm):
+        _, m = make_train_step(lm, hp)(init_train_state(lm.params), batch)
+        return {k: float(v) for k, v in m.items()}
+
+    def card_step():
+        dev = LM(cfg, device="cuda", dtype=torch.float32, trainable=True)
+        dev.load_state_dict(init)
+        return dev, one_step(dev)
+
+    names = ["/".join(p) for p, _ in flatten_defs(cpu.param_defs())]
+
+    def grad_errs(dev):
+        return {n: float((g.cpu() - w).abs().max() / w.abs().max())
+                for n, g, w in zip(names, ttree.leaves(dev.grads),
+                                   ttree.leaves(cpu.grads))}
+
+    lr, tol = LM_TRAIN_F32_LR, LM_TRAIN_GRAD_TOL
+    before = [t.detach().clone() for t in ttree.leaves(cpu.params)]
+
+    def param_errs(dev):
+        """→ the mean |card − CPU| over the updated parameters, and the
+        entries whose CPU gradient lies farther from 0 than ``tol`` of
+        its leaf's largest yet stepped another way on the card."""
+        total, n, flips = 0.0, 0, 0
+        for p, w, p0, g in zip(ttree.leaves(dev.params),
+                               ttree.leaves(cpu.params), before,
+                               ttree.leaves(cpu.grads)):
+            p = p.detach().cpu()
+            total += float((p - w.detach()).abs().sum())
+            n += p.numel()
+            sure = g.abs() > tol * g.abs().max()
+            flips += int(((p - p0).sign() != (w.detach() - p0).sign())
+                          [sure].sum())
+        return total / n, flips
+
+    cm = one_step(cpu)
+    dev, dm = card_step()
+    errs = grad_errs(dev)
+    p_mean, flips = param_errs(dev)
+    del dev
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        ctl_dev, ctl_m = card_step()
+        ctl = max(grad_errs(ctl_dev).values())
+        ctl_p_mean, _ = param_errs(ctl_dev)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    del ctl_dev
+    grad_err = max(errs.values())
+    norm_err = abs(dm["grad_norm"] - cm["grad_norm"]) / cm["grad_norm"]
+    row = {"loss": (dm["loss"], cm["loss"]),
+           "grad_norm": (dm["grad_norm"], cm["grad_norm"]),
+           "grad_rel_err_by_leaf": errs, "grad_max_rel_err": grad_err,
+           "tf32_control_grad_err": ctl,
+           "tf32_control_grad_norm": ctl_m["grad_norm"],
+           "param_mean_abs_diff": p_mean, "param_sign_flips": flips,
+           "tf32_control_param_mean_abs_diff": ctl_p_mean}
+    print(f"train gate 1, {LM_TRAIN_F32_LAYERS} layers float32 card vs CPU: "
+          f"loss {dm['loss']:.7f} / {cm['loss']:.7f}, grad_norm "
+          f"{dm['grad_norm']:.6f} / {cm['grad_norm']:.6f} (rel {norm_err:.3g}"
+          f" <= {tol}), max gradient error {grad_err:.3g} of the leaf's "
+          f"largest (<= {tol}; by leaf "
+          f"{ {n: float(f'{e:.3g}') for n, e in errs.items()} }), TF32 "
+          f"control {ctl:.3g} (> {tol}; its grad_norm "
+          f"{ctl_m['grad_norm']:.6f}), updated parameters mean |diff| "
+          f"{p_mean:.3g} (<= {1e-2 * lr:.3g}; TF32 control "
+          f"{ctl_p_mean:.3g}), {flips} entries with a gradient past the "
+          f"limit stepped against the CPU's (0 allowed)", flush=True)
+    if abs(dm["loss"] - cm["loss"]) > 1e-5 * abs(cm["loss"]) or \
+            norm_err > tol or grad_err > tol or ctl <= tol or \
+            p_mean > 1e-2 * lr or flips:
+        raise AssertionError(f"gate 1: card vs CPU train step {row}")
+    del cpu, init
+    torch.cuda.empty_cache()
+    return row
+
+
+def train_check_recovery(torch) -> dict:
+    """Phase 14, gate 3: ``launch.train.run`` at reduced width on cuda,
+    unbroken and killed once (the step at LM_TRAIN_KILL_AT raises, the
+    run restores its latest checkpoint and replays), bitwise equal."""
+    import repro_torch.train.step as step_mod
+    from repro_torch import tree as ttree
+    from repro_torch.launch.train import run
+    real = step_mod.make_train_step
+    crashed = []
+
+    def crashing(lm, hp):
+        inner = real(lm, hp)
+
+        def train_step(state, batch):
+            if int(state.step) == LM_TRAIN_KILL_AT and not crashed:
+                crashed.append(int(state.step))
+                raise RuntimeError("simulated node failure")
+            return inner(state, batch)
+        return train_step
+
+    kw = dict(steps=LM_TRAIN_KILL_STEPS, ckpt_every=LM_TRAIN_KILL_EVERY,
+              device="cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        whole = run(LM_TRAIN_ARCH, ckpt_dir=os.path.join(tmp, "whole"), **kw)
+        step_mod.make_train_step = crashing
+        try:
+            killed = run(LM_TRAIN_ARCH, ckpt_dir=os.path.join(tmp, "killed"),
+                         **kw)
+        finally:
+            step_mod.make_train_step = real
+    def differ(x, y):
+        return {i: float((p.float() - q.float()).abs().max()
+                         / q.float().abs().max().clamp(min=1e-30))
+                for i, (p, q) in enumerate(zip(ttree.leaves(x),
+                                               ttree.leaves(y)))
+                if not torch.equal(p, q)}
+    k, w = killed["state"], whole["state"]
+    exact = differ((k.params, k.step, k.opt.count),
+                   (w.params, w.step, w.opt.count))
+    moments = differ((k.opt.mu, k.opt.nu), (w.opt.mu, w.opt.nu))
+    row = {"crashed_at": crashed, "steps_run": len(killed["losses"]),
+           "treedef_equal": ttree.flatten(k)[1] == ttree.flatten(w)[1],
+           "params_step_count_differing": exact,
+           "moments_differing_rel": moments, "final_step": int(k.step)}
+    print(f"train gate 3, {whole['cfg'].name} on cuda: killed at step "
+          f"{crashed}, {len(killed['losses'])} steps run for "
+          f"{LM_TRAIN_KILL_STEPS}; parameters, step and count differing "
+          f"from the unbroken run's: {exact or 'none (bitwise)'}; AdamW "
+          f"moments differing (relative): {moments or 'none (bitwise)'}",
+          flush=True)
+    if not crashed or exact or not row["treedef_equal"] or \
+            any(v > 1e-6 for v in moments.values()) or \
+            row["final_step"] != LM_TRAIN_KILL_STEPS or \
+            len(killed["losses"]) <= LM_TRAIN_KILL_STEPS:
+        raise AssertionError(f"gate 3: {row}")
+    return row
+
+
+def train_phase(torch, rt, card: str) -> dict:
+    """Phase 14: LM training on cuda.  It reaches none of the port's CUDA
+    kernels: their counters are zeroed before and must read 0 after."""
+    counted = ("swar_fused_votes", "clause_votes", "train_deltas_keyed",
+               "popcount_words", "pdl_race", "binary_matmul")
+    for k in counted:
+        rt[k].launches = 0
+    t0 = time.perf_counter()
+    row = train_timed(torch, card)
+    row["gate1"] = train_check_f32(torch)
+    row["gate3"] = train_check_recovery(torch)
+    launched = {k: rt[k].launches for k in counted if rt[k].launches}
+    if launched:
+        raise AssertionError(f"the LM training path launched TM kernels: "
+                             f"{launched}")
+    wall = time.perf_counter() - t0
+    print(f"phase 14 (LM training) wall {wall:.1f}s, {card}", flush=True)
+    print(json.dumps({"lm_training": row, "card": card, "wall_s": wall}),
+          flush=True)
+    return row
 
 
 def main() -> int:
@@ -2482,6 +2965,7 @@ def main() -> int:
     fleet = fleet_phase(torch, rt)
     mesh = mesh_phase(torch, rt, ta, learn, card)
     lm_phase(torch, rt, card)
+    train_phase(torch, rt, card)
 
     meta = {
         "swar_fused_votes": ("src/repro_torch/csrc/swar_fused.cu",

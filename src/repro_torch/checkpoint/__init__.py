@@ -10,9 +10,11 @@ Layout, file for file the JAX package's::
 
 so a snapshot either package writes restores in the other: the manifest
 goes through :mod:`._msgpack` (byte-identical to ``msgpack.packb``),
-trees flatten in ``jax.tree.flatten``'s order (dict keys sorted, so a
-lifecycle tree is ``[cursor, ta]``) and ``treedef`` is the string JAX
-prints (``PyTreeDef({'cursor': *, 'ta': *})``).
+trees flatten in ``jax.tree.flatten``'s order (:mod:`repro_torch.tree`:
+dict keys sorted, so a lifecycle tree is ``[cursor, ta]``; a NamedTuple
+such as a ``TrainState`` in field order) and ``treedef`` is the string
+JAX prints (``PyTreeDef({'cursor': *, 'ta': *})``,
+``CustomNode(namedtuple[TrainState], [...])``).
 
 - atomic: written to ``<dir>/.tmp_step_<n>``, then renamed; a crash
   leaves no half-checkpoint that restore could pick up;
@@ -26,14 +28,16 @@ prints (``PyTreeDef({'cursor': *, 'ta': *})``).
 
 Leaves are torch tensors (any device) or numpy arrays; :func:`restore`
 returns numpy arrays, as the JAX ``restore`` does without
-``shardings``.  With ``shardings=`` — a tree with the restored tree as
-its prefix whose leaves are ``torch.device`` objects or ``None`` — every
-loaded leaf becomes a tensor on its device (``None``: on the CPU), the
-counterpart of the JAX package's ``device_put`` under the restoring
-mesh's shardings.  Snapshots are host copies, so a checkpoint written on
-one mesh restores onto any other.  Not ported (see ROADMAP.md): dtypes
-numpy cannot name, such as ``bfloat16`` (the LM zoo, queue 1 item 7);
-they raise ``NotImplementedError``.
+``shardings``.  A ``bfloat16`` leaf, which numpy cannot name, is stored
+as the JAX package stores it: manifest dtype ``"bfloat16"``, its bytes
+as ``uint8`` (the last axis twice as long); it is read back as a
+``torch.bfloat16`` tensor on the CPU (no ``ml_dtypes``).  With
+``shardings=`` — a tree with the restored tree as its prefix whose
+leaves are ``torch.device`` objects or ``None`` — every loaded leaf
+becomes a tensor on its device (``None``: on the CPU), the counterpart
+of the JAX package's ``device_put`` under the restoring mesh's
+shardings.  Snapshots are host copies, so a checkpoint written on one
+mesh restores onto any other.
 """
 
 from __future__ import annotations
@@ -45,6 +49,8 @@ import time
 
 import numpy as np
 import torch
+
+from repro_torch import tree as _tree
 
 from ._msgpack import packb, unpackb
 
@@ -91,62 +97,48 @@ def _inflight_steps(directory: str) -> set[int]:
 # -- trees: jax.tree.flatten's order and treedef string -----------------
 
 
-def _flatten(tree, leaves: list) -> str:
-    """Append ``tree``'s leaves in ``jax.tree.flatten`` order → the
-    structure as JAX prints it inside ``PyTreeDef(...)``.  Nodes are
-    dicts (keys sorted), lists, tuples and ``None``; leaves are tensors,
-    numpy arrays and Python or numpy scalars."""
-    if tree is None:
-        return "None"
-    if type(tree) is dict:
-        keys = sorted(tree)
-        return "{" + ", ".join(f"{k!r}: {_flatten(tree[k], leaves)}"
-                               for k in keys) + "}"
-    if type(tree) is list:
-        return "[" + ", ".join(_flatten(x, leaves) for x in tree) + "]"
-    if type(tree) is tuple:
-        inner = [_flatten(x, leaves) for x in tree]
-        return "(" + ", ".join(inner) + ("," if len(inner) == 1 else "") + ")"
-    if isinstance(tree, (torch.Tensor, np.ndarray, np.generic, int, float)):
-        leaves.append(tree)
-        return "*"
-    raise TypeError(f"checkpoint trees hold dicts, lists, tuples, None "
-                    f"and array leaves, not {type(tree).__name__}")
+class _RawLeaf:
+    """The host copy of a ``bfloat16`` tensor: its bytes as ``uint8``
+    (``view(torch.uint8)``: the last axis twice as long), the form the
+    JAX package writes for a dtype numpy cannot name."""
+
+    __slots__ = ("dtype", "raw")
+
+    def __init__(self, dtype: str, raw: np.ndarray):
+        self.dtype, self.raw = dtype, raw
+
+
+_LEAF_TYPES = (torch.Tensor, np.ndarray, np.generic, int, float, _RawLeaf)
 
 
 def _tree_flatten(tree) -> tuple[list, str]:
-    leaves: list = []
-    return leaves, f"PyTreeDef({_flatten(tree, leaves)})"
+    """``tree``'s leaves in ``jax.tree.flatten`` order and the structure
+    as JAX prints it; every leaf must be an array, a tensor or a
+    number."""
+    leaves, treedef = _tree.flatten(tree)
+    for leaf in leaves:
+        if not isinstance(leaf, _LEAF_TYPES):
+            raise TypeError(f"checkpoint trees hold dicts, lists, tuples, "
+                            f"NamedTuples, None and array leaves, not "
+                            f"{type(leaf).__name__}")
+    return leaves, treedef
 
 
-def _unflatten(like, leaves):
-    """Rebuild ``like``'s structure from an iterator of leaves."""
-    if like is None:
-        return None
-    if type(like) is dict:
-        return {k: _unflatten(like[k], leaves) for k in sorted(like)}
-    if type(like) in (list, tuple):
-        return type(like)(_unflatten(x, leaves) for x in like)
-    return next(leaves)
-
-
-def _host(leaf) -> np.ndarray:
-    """One leaf as a host numpy array; a tensor is always copied (off its
-    device, or in host memory), so the caller may go on mutating it."""
+def _host(leaf):
+    """One leaf as a host numpy array (a ``bfloat16`` tensor as a
+    :class:`_RawLeaf`); a tensor is always copied (off its device, or in
+    host memory), so the caller may go on mutating it."""
     if isinstance(leaf, torch.Tensor):
-        try:
-            return leaf.detach().to("cpu", copy=True).numpy()
-        except TypeError as exc:       # bfloat16 and other non-numpy types
-            raise NotImplementedError(
-                f"a {leaf.dtype} leaf has no numpy dtype; checkpoints of "
-                f"such leaves come with the LM zoo (ROADMAP.md, queue 1 "
-                f"item 7)") from exc
+        t = leaf.detach().to("cpu", copy=True)
+        if t.dtype == torch.bfloat16:
+            return _RawLeaf("bfloat16", t.view(torch.uint8).numpy())
+        return t.numpy()
     return np.asarray(leaf)
 
 
 def _host_tree(tree):
     leaves, _ = _tree_flatten(tree)
-    return _unflatten(tree, iter([_host(x) for x in leaves]))
+    return _tree.unflatten(tree, iter([_host(x) for x in leaves]))
 
 
 # -- save / restore -----------------------------------------------------
@@ -186,10 +178,14 @@ def _save_unguarded(directory: str, step: int, tree, *,
         shard, shard_bytes, shard_idx = {}, 0, shard_idx + 1
 
     for i, leaf in enumerate(leaves):
-        arr = np.asarray(leaf)
-        manifest["dtypes"].append(str(arr.dtype))
-        if arr.dtype.kind == "V":        # bfloat16 etc: npz-safe raw view
-            arr = arr.view(np.uint8)
+        if isinstance(leaf, _RawLeaf):
+            manifest["dtypes"].append(leaf.dtype)
+            arr = leaf.raw
+        else:
+            arr = np.asarray(leaf)
+            manifest["dtypes"].append(str(arr.dtype))
+            if arr.dtype.kind == "V":    # bfloat16 etc: npz-safe raw view
+                arr = arr.view(np.uint8)
         shard[f"leaf_{i}"] = arr
         shard_bytes += arr.nbytes
         if shard_bytes >= _MAX_SHARD_BYTES:
@@ -252,32 +248,42 @@ def _read_manifest(directory: str, step: int) -> dict:
 
 
 def _place(tree, shardings):
-    """Move every numpy leaf of ``tree`` to the device ``shardings``
-    names for it (a tree with ``tree`` as its prefix: a device or
-    ``None`` covers the whole subtree where it stands) → tensors."""
+    """Move every leaf of ``tree`` (numpy, or a bfloat16 tensor) to the
+    device ``shardings`` names for it (a tree with ``tree`` as its
+    prefix: a device or ``None`` covers the whole subtree where it
+    stands) → tensors."""
     if shardings is None or isinstance(shardings, torch.device):
-        if type(tree) is dict:
-            return {k: _place(v, shardings) for k, v in tree.items()}
-        if type(tree) in (list, tuple):
-            return type(tree)(_place(x, shardings) for x in tree)
-        if tree is None:
-            return None
-        t = torch.from_numpy(tree)
-        return t if shardings is None else t.to(shardings)
+        def put(x):
+            t = x if isinstance(x, torch.Tensor) else torch.from_numpy(x)
+            return t if shardings is None else t.to(shardings)
+        return _tree.map(put, tree)
     if type(tree) is dict and type(shardings) is dict \
             and set(tree) == set(shardings):
         return {k: _place(tree[k], shardings[k]) for k in tree}
-    if type(tree) in (list, tuple) and type(shardings) is type(tree) \
-            and len(tree) == len(shardings):
-        return type(tree)(_place(x, s) for x, s in zip(tree, shardings))
+    if (type(tree) is list or isinstance(tree, tuple)) \
+            and type(shardings) is type(tree) and len(tree) == len(shardings):
+        return _tree.rebuild(tree, [_place(x, s)
+                                     for x, s in zip(tree, shardings)])
     raise ValueError(f"shardings {shardings!r} do not match the restored "
                      f"tree's structure")
 
 
+def _read_leaf(arr: np.ndarray, want: str | None, name: str):
+    """One stored leaf in its saved dtype: a raw-byte ``bfloat16`` leaf
+    becomes a ``torch.bfloat16`` tensor (numpy has no such dtype)."""
+    if not want or str(arr.dtype) == want:
+        return arr
+    if want == "bfloat16" and arr.dtype == np.uint8:
+        return torch.from_numpy(arr).view(torch.bfloat16)
+    raise TypeError(f"{name} is {want}, stored as raw {arr.dtype}; the "
+                    f"port reads raw-byte leaves of bfloat16 only")
+
+
 def restore(directory: str, step: int, like, *, shardings=None):
     """Restore into the structure of ``like`` → ``(tree, extra)`` with
-    numpy leaves in their saved dtypes, or, with ``shardings``, tensors
-    on the devices it names (see the module docstring)."""
+    numpy leaves in their saved dtypes (``bfloat16`` ones as CPU
+    tensors), or, with ``shardings``, tensors on the devices it names
+    (see the module docstring)."""
     path = os.path.join(directory, f"step_{step}")
     manifest = _read_manifest(directory, step)
     data = {}
@@ -290,20 +296,9 @@ def restore(directory: str, step: int, like, *, shardings=None):
         raise ValueError(f"step_{step} holds {manifest['n_leaves']} leaves, "
                          f"the restore structure {len(leaves_like)}")
     dtypes = manifest.get("dtypes", [None] * len(leaves_like))
-    out = []
-    for i in range(len(leaves_like)):
-        arr = data[f"leaf_{i}"]
-        want = dtypes[i]
-        if want and str(arr.dtype) != want:
-            # a raw-byte leaf (bfloat16 and other extension dtypes, which
-            # plain numpy cannot name): the JAX package views it back
-            # through ml_dtypes
-            raise NotImplementedError(
-                f"leaf_{i} of step_{step} is {want}, stored as raw "
-                f"{arr.dtype}; such leaves come with the LM zoo "
-                f"(ROADMAP.md, queue 1 item 7)")
-        out.append(arr)
-    tree = _unflatten(like, iter(out))
+    out = [_read_leaf(data[f"leaf_{i}"], dtypes[i], f"leaf_{i} of step_{step}")
+           for i in range(len(leaves_like))]
+    tree = _tree.unflatten(like, iter(out))
     if shardings is not None:
         tree = _place(tree, shardings)
     return tree, manifest.get("extra", {})

@@ -8,16 +8,18 @@
   prototypes + bit-flip noise; threshold booleanization (>75) matches
   the paper's §IV-B.  Dimensionality identical to MNIST (784).
 
-Both draw from ``np.random.default_rng(seed)`` exactly as the JAX
+- ``lm_token_stream``: a Zipf-unigram + hashed n-gram token stream for
+  LM training.
+
+All draw from ``np.random.default_rng(seed)`` exactly as the JAX
 package does, so the same seed gives the same arrays bit for bit.
-``lm_token_stream`` comes with the LM-zoo slice (ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["iris_like", "mnist_like"]
+__all__ = ["iris_like", "mnist_like", "lm_token_stream"]
 
 # Published per-class (mean, std) for sepal-length, sepal-width,
 # petal-length, petal-width — Fisher (1936) / UCI summary statistics.
@@ -104,3 +106,30 @@ def mnist_like(n_per_class: int = 100, seed: int = 0, flip: float = 0.06,
     y = np.asarray(ys, np.int32)
     perm = rng.permutation(len(y))
     return x[perm], y[perm]
+
+
+def lm_token_stream(n_tokens: int, vocab_size: int, seed: int = 0,
+                    order: int = 2) -> np.ndarray:
+    """Deterministic Zipf-unigram + hashed n-gram token stream (int32).
+
+    Learnable structure: next token = hash(prev ``order`` tokens) with prob
+    0.75 (so a real LM's loss decreases), else a Zipf draw.
+    """
+    rng = np.random.default_rng(seed)
+    ranks = np.arange(1, vocab_size + 1, dtype=np.float64)
+    probs = (1.0 / ranks) / np.sum(1.0 / ranks)
+    out = np.empty(n_tokens, np.int64)
+    out[:order] = rng.choice(vocab_size, size=order, p=probs)
+    zipf_draws = rng.choice(vocab_size, size=n_tokens, p=probs)
+    use_ngram = rng.random(n_tokens) < 0.75
+    mult = np.int64(6364136223846793005)
+    with np.errstate(over="ignore"):   # wrap-around is the hash function
+        for i in range(order, n_tokens):
+            if use_ngram[i]:
+                h = np.int64(1442695040888963407)
+                for j in range(order):
+                    h = h * mult + out[i - 1 - j]
+                out[i] = np.abs(h) % vocab_size
+            else:
+                out[i] = zipf_draws[i]
+    return out.astype(np.int32)

@@ -1,5 +1,5 @@
-"""LM serving launcher: batched greedy decode of a dense-family LM (port
-of ``repro.launch.serve``).
+"""LM serving launcher: batched greedy decode of a dense, ssm or hybrid
+family LM (port of ``repro.launch.serve``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-4b --full
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu

@@ -22,6 +22,8 @@ from repro_torch import checkpoint as ckpt
 from repro_torch.checkpoint import _msgpack
 from repro_torch.core import prng
 from repro_torch.engine import export_key_cursor, import_key_cursor
+from repro_torch.optim import OptState
+from repro_torch.train import TrainState
 
 # one xdist worker per core runs these files beside the JAX suite:
 # torch's default of one intra-op thread per core oversubscribes the CPU
@@ -330,8 +332,12 @@ def test_multi_shard_layout_matches_jax(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("tree", [
     {"ta": 0, "cursor": 0}, {"ta": 0}, 0, [0, (0, 0)], (0,),
-    {"b": {"z": 0, "y": [0, None]}, "a": (0, 0), "c": None}],
-    ids=["lifecycle", "ta", "leaf", "list", "tuple1", "nested"])
+    {"b": {"z": 0, "y": [0, None]}, "a": (0, 0), "c": None},
+    TrainState(params={"w": 0, "a": [0, None]},
+               opt=OptState(mu={"w": 0, "a": [0, None]},
+                            nu={"w": 0, "a": [0, None]}, count=0), step=0)],
+    ids=["lifecycle", "ta", "leaf", "list", "tuple1", "nested",
+         "train-state"])
 def test_treedef_strings_and_order_match_jax(tree):
     leaves, treedef = ckpt._tree_flatten(
         jax.tree.map(lambda _: np.zeros(()), tree))
@@ -344,8 +350,9 @@ def test_leaf_types_and_unported_options(tmp_path):
     """Tensor leaves are copied to the host up front by ``save_async``
     (the caller may mutate them at once); a cursor given as the port's
     int32 words is written as uint32 by reinterpreting the bits; a
-    bfloat16 leaf raises and names ROADMAP.md; ``shardings=`` places the
-    restored leaves on devices, as the JAX package's does."""
+    bfloat16 leaf goes both ways between the packages (written by the
+    port from a tensor, by JAX from a jax array); ``shardings=`` places
+    the restored leaves on devices, as the JAX package's does."""
     d = str(tmp_path / "ck")
     ta = torch.from_numpy(_ta(4))
     want = ta.clone()
@@ -363,12 +370,16 @@ def test_leaf_types_and_unported_options(tmp_path):
     with pytest.raises(TypeError, match="32-bit words"):
         ckpt.tm_lifecycle_tree(ta, torch.zeros(2, dtype=torch.int64))
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ckpt.save(d, 2, {"w": torch.zeros(3, dtype=torch.bfloat16)})
+    bd = str(tmp_path / "bf16-port")
+    ckpt.save(bd, 2, {"w": torch.full((3,), 1.5, dtype=torch.bfloat16)})
+    jw, _ = jckpt.restore(bd, 2, {"w": 0})
+    assert jw["w"].dtype == jnp.bfloat16
+    np.testing.assert_array_equal(np.asarray(jw["w"], np.float32), [1.5] * 3)
     jd = str(tmp_path / "bf16")
-    jckpt.save(jd, 1, {"w": jnp.zeros(3, jnp.bfloat16)})
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ckpt.restore(jd, 1, {"w": 0})
+    jckpt.save(jd, 1, {"w": jnp.full(3, -2.25, jnp.bfloat16)})
+    w, _ = ckpt.restore(jd, 1, {"w": 0})
+    assert w["w"].dtype == torch.bfloat16
+    assert torch.equal(w["w"], torch.full((3,), -2.25, dtype=torch.bfloat16))
     # shardings= is ported: a tree that does not match raises, as
     # jax.tree.map does; per-leaf devices (None: the CPU) give tensors
     # holding the JAX package's values
@@ -403,3 +414,89 @@ def test_wait_for_complete(tmp_path):
             ckpt.wait_for_complete(d, 5, timeout=0.05, poll=0.01)
     finally:
         timer.join(timeout=30)
+
+
+def test_bf16_checkpoint_roundtrip(tmp_path):
+    """The JAX package's round-trip case on the port: a float32 and a
+    bfloat16 leaf, ``extra`` kept; the bfloat16 leaf is stored as JAX
+    stores it (manifest dtype ``bfloat16``, ``uint8`` bytes, the last
+    axis doubled) and read back as a bfloat16 tensor."""
+    w = torch.randn((3, 3), generator=torch.Generator().manual_seed(1)) \
+        .to(torch.bfloat16)
+    tree = {"a": torch.arange(5, dtype=torch.float32), "b": {"c": w}}
+    ckpt.save(str(tmp_path), 7, tree, extra={"note": "x"})
+    assert ckpt.latest_step(str(tmp_path)) == 7
+    out, extra = ckpt.restore(str(tmp_path), 7, tree)
+    np.testing.assert_array_equal(np.asarray(out["a"]), np.arange(5))
+    assert extra["note"] == "x"
+    assert out["b"]["c"].dtype == torch.bfloat16
+    assert torch.equal(out["b"]["c"], w)
+    man = _msgpack.unpackb(_manifest_bytes(str(tmp_path), 7))
+    assert man["dtypes"] == ["float32", "bfloat16"]
+    with np.load(tmp_path / "step_7" / "shard_0.npz") as z:
+        assert z["leaf_1"].dtype == np.uint8 and z["leaf_1"].shape == (3, 6)
+    placed, _ = ckpt.restore(str(tmp_path), 7, tree,
+                             shardings=torch.device("cpu"))
+    assert placed["b"]["c"].dtype == torch.bfloat16
+    assert isinstance(placed["a"], torch.Tensor)
+
+
+def _train_states(seed):
+    """A JAX and a port ``TrainState`` holding the same float32 and
+    bfloat16 leaves (a dict, a list and a nested dict of params)."""
+    from repro.optim.adamw import OptState as JOptState
+    from repro.train.step import TrainState as JTrainState
+    rng = np.random.default_rng(seed)
+    params = {"w": rng.normal(0, 1, (4, 3)).astype(np.float32),
+              "h": [rng.normal(0, 1, (2, 5)).astype(np.float32)],
+              "b": {"e": rng.normal(0, 1, (6,)).astype(np.float32)}}
+
+    def jtree(f):
+        return jax.tree.map(lambda a: jnp.asarray(f(a)).astype(
+            jnp.bfloat16 if a.ndim == 1 else jnp.float32), params)
+
+    def ttree(f):
+        return jax.tree.map(lambda a: torch.from_numpy(f(a)).to(
+            torch.bfloat16 if a.ndim == 1 else torch.float32), params)
+    fs = (lambda a: a, lambda a: a * 0.5, lambda a: a * a)
+    jst = JTrainState(params=jtree(fs[0]),
+                      opt=JOptState(mu=jtree(fs[1]), nu=jtree(fs[2]),
+                                    count=jnp.int32(3)),
+                      step=jnp.int32(3))
+    st = TrainState(params=ttree(fs[0]),
+                    opt=OptState(mu=ttree(fs[1]), nu=ttree(fs[2]),
+                                 count=torch.tensor(3, dtype=torch.int32)),
+                    step=torch.tensor(3, dtype=torch.int32))
+    return jst, st
+
+
+def test_train_state_restores_across_packages(tmp_path):
+    """A port-written ``TrainState`` (NamedTuples of dicts, float32 and
+    bfloat16 leaves) restores through the JAX ``ckpt.restore`` and a
+    JAX-written one through the port's, bitwise; both write the same
+    manifest (treedef text ``CustomNode(namedtuple[TrainState], ...)``,
+    dtypes)."""
+    jst, st = _train_states(2)
+    assert ckpt._tree_flatten(st)[1] == str(jax.tree.structure(jst))
+    td, jd = str(tmp_path / "torch"), str(tmp_path / "jax")
+    ckpt.save(td, 3, st)
+    jckpt.save(jd, 3, jst)
+    assert _manifest_bytes(td, 3) == _manifest_bytes(jd, 3)
+    jgot, _ = jckpt.restore(td, 3, jst)
+    got, _ = ckpt.restore(jd, 3, st)
+    assert type(jgot).__name__ == "TrainState" and isinstance(got, TrainState)
+    assert isinstance(got.opt, OptState)
+    for a, b, c in zip(jax.tree.leaves(jgot), ckpt._tree_flatten(got)[0],
+                       jax.tree.leaves(jst)):
+        want = np.asarray(c)
+        assert np.asarray(a).dtype == want.dtype
+        b = b if isinstance(b, torch.Tensor) else torch.from_numpy(b)
+        if want.dtype.name == "bfloat16":
+            assert b.dtype == torch.bfloat16
+            np.testing.assert_array_equal(
+                b.view(torch.int16).numpy(), want.view(np.int16))
+            np.testing.assert_array_equal(np.asarray(a).view(np.int16),
+                                          want.view(np.int16))
+        else:
+            np.testing.assert_array_equal(b.numpy(), want)
+            np.testing.assert_array_equal(np.asarray(a), want)

@@ -1088,3 +1088,148 @@ def test_serve_launcher_on_cuda(cuda):
     assert tuple(out.shape) == (8, 16) and out.device.type == "cuda"
     assert int(out.min()) >= 0 and int(out.max()) < res["cfg"].vocab_size
     assert res["line"].startswith("tinyllama-1.1b-smoke: (8, 16) in ")
+
+
+# -- the ssm and hybrid families, and LM training: cuda against the CPU
+#
+# float32, reduced widths, the tolerances above (LM_TOL); gradients
+# within 5e-4 of each leaf's largest CPU magnitude (the CPU parity tests'
+# bound against JAX, tests/test_torch_lm_train.py).
+
+LM_SSM = ["mamba2-130m", "zamba2-2.7b"]
+
+
+def _lm_trainable_pair(cuda, arch):
+    from repro_torch.configs import get_config
+    from repro_torch.configs.reduce import reduced
+    from repro_torch.models.model import LM
+    cfg = reduced(get_config(arch))
+    cpu = LM(cfg, device="cpu", dtype=torch.float32, trainable=True)
+    cpu.init(torch.Generator().manual_seed(0))
+    dev = LM(cfg, device=cuda, dtype=torch.float32, trainable=True)
+    dev.load_state_dict(cpu.state_dict())
+    return cfg, cpu, dev
+
+
+@pytest.mark.parametrize("arch", LM_SSM)
+def test_lm_ssm_prefill_and_decode_on_cuda_equal_cpu(cuda, arch):
+    """mamba2 / zamba2: prefill (hidden states, logits, token, every
+    cache leaf) at S = 21 (a ragged chunk) and 20 decode steps (tokens,
+    conv / SSM states, zamba2's per-site KV caches) on both devices."""
+    from repro_torch import tree as ttree
+    cfg, cpu, dev = _lm_pair(cuda, arch)
+    toks = torch.as_tensor(np.random.default_rng(6).integers(
+        0, cfg.vocab_size, (2, 21), np.int32))
+    h, _ = cpu._forward(toks)
+    dh, _ = dev._forward(toks.to(cuda))
+    logits = cpu._logits(h[:, -1:])[:, 0]
+    _lm_close(dh, h)
+    _lm_close(dev._logits(dh[:, -1:])[:, 0], logits)
+    tok, cache = cpu.prefill({"tokens": toks})
+    dtok, dcache = dev.prefill({"tokens": toks.to(cuda)})
+    _lm_tokens_agree(dtok, tok, logits)
+    for got, want in zip(ttree.leaves(dcache), ttree.leaves(cache)):
+        _lm_close(got, want)
+    cache, dcache = cpu.init_cache(2, 20), dev.init_cache(2, 20)
+    assert dcache["ssm"].dtype == torch.float32
+    for pos in range(20):
+        t = toks[:, pos:pos + 1]
+        logits = cpu._logits(cpu._decode_hidden(
+            ttree.map(torch.clone, cache), t, pos))[:, 0]
+        nxt, cache = cpu.decode_step(cache, t, pos)
+        dnxt, dcache = dev.decode_step(dcache, t.to(cuda), pos)
+        _lm_tokens_agree(dnxt, nxt, logits)
+        for got, want in zip(ttree.leaves(dcache), ttree.leaves(cache)):
+            _lm_close(got, want)
+
+
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "internvl2-26b"] + LM_SSM)
+def test_lm_loss_and_grads_on_cuda_equal_cpu(cuda, arch):
+    """``LM.loss`` with remat (the default) and every leaf's gradient, on
+    both devices."""
+    from repro_torch import tree as ttree
+    cfg, cpu, dev = _lm_trainable_pair(cuda, arch)
+    rng = np.random.default_rng(7)
+    batch = {k: torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 20),
+                                             np.int32))
+             for k in ("tokens", "targets")}
+    if cfg.prefix_len:
+        batch["prefix"] = torch.as_tensor(rng.normal(
+            0, 1, (2, cfg.prefix_len, cfg.d_model)).astype(np.float32))
+    loss, m = cpu.loss(batch)
+    loss.backward()
+    dloss, dm = dev.loss({k: v.to(cuda) for k, v in batch.items()})
+    dloss.backward()
+    np.testing.assert_allclose(float(dm["loss"]), float(m["loss"]),
+                               rtol=1e-5)
+    assert float(dm["acc"]) == float(m["acc"])
+    for got, want in zip(ttree.leaves(dev.grads), ttree.leaves(cpu.grads)):
+        want = want.numpy()
+        np.testing.assert_allclose(got.cpu().numpy(), want, rtol=0,
+                                   atol=5e-4 * np.abs(want).max())
+
+
+def test_train_step_on_cuda_equals_cpu(cuda):
+    """Two 2-microbatch AdamW steps (clip 5, peak lr 1e-3, warmup 1) on
+    both devices: metrics, moments to the gradients' tolerance, the
+    parameters within a tenth of the summed learning rates at every
+    entry and a thousandth on average (tests/test_torch_lm_train.py)."""
+    from repro_torch import tree as ttree
+    from repro_torch.optim import AdamWConfig, cosine_warmup
+    from repro_torch.train import (TrainHParams, init_train_state,
+                                   make_train_step)
+    cfg, cpu, dev = _lm_trainable_pair(cuda, "tinyllama-1.1b")
+    hp = TrainHParams(peak_lr=1e-3, warmup=1, total_steps=10, n_micro=2,
+                      adamw=AdamWConfig(clip_norm=5.0))
+    states = {"cpu": init_train_state(cpu.params),
+              "cuda": init_train_state(dev.params)}
+    assert states["cuda"].step.device.type == "cuda"
+    steps = {"cpu": make_train_step(cpu, hp), "cuda": make_train_step(dev, hp)}
+    rng = np.random.default_rng(8)
+    for _ in range(2):
+        batch = {k: rng.integers(0, cfg.vocab_size, (4, 10), np.int32)
+                 for k in ("tokens", "targets")}
+        ms = {}
+        for d in ("cpu", "cuda"):
+            states[d], ms[d] = steps[d](states[d], batch)
+        for k in ms["cpu"]:
+            np.testing.assert_allclose(float(ms["cuda"][k]),
+                                       float(ms["cpu"][k]), rtol=5e-4)
+    lr_sum = sum(float(cosine_warmup(torch.tensor(i), peak_lr=1e-3,
+                                     warmup=1, total=10)) for i in range(2))
+    for got, want in zip(ttree.leaves(states["cuda"].params),
+                         ttree.leaves(states["cpu"].params)):
+        diff = (got.detach().cpu() - want.detach()).abs()
+        assert float(diff.max()) <= 0.1 * lr_sum
+        assert float(diff.mean()) <= 1e-3 * lr_sum
+    for t in ("mu", "nu"):
+        for got, want in zip(ttree.leaves(getattr(states["cuda"].opt, t)),
+                             ttree.leaves(getattr(states["cpu"].opt, t))):
+            want = want.numpy()
+            np.testing.assert_allclose(got.cpu().numpy(), want, rtol=0,
+                                       atol=5e-4 * np.abs(want).max())
+
+
+def test_bf16_and_train_state_checkpoint_from_cuda(cuda, tmp_path):
+    """bfloat16 and float32 cuda leaves of a ``TrainState`` written by
+    ``save_async`` (host copies taken up front) and restored onto cuda
+    through ``shardings=`` bitwise."""
+    from repro_torch import tree as ttree
+    from repro_torch.optim import adamw_init
+    from repro_torch.train import TrainState
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    params = {"w": torch.randn((4, 6), generator=gen, device=cuda),
+              "b": torch.randn((6,), generator=gen, device=cuda)
+              .to(torch.bfloat16)}
+    state = TrainState(params=params, opt=adamw_init(params),
+                       step=torch.tensor(5, dtype=torch.int32, device=cuda))
+    want = ttree.map(torch.clone, state)
+    t = ckpt.save_async(str(tmp_path), 5, state)
+    params["w"].fill_(0)
+    t.join(timeout=60)
+    assert not t.is_alive()
+    got, _ = ckpt.restore(str(tmp_path), 5, state, shardings=cuda)
+    assert isinstance(got, TrainState)
+    for a, b in zip(ttree.leaves(got), ttree.leaves(want)):
+        assert a.device.type == "cuda" and a.dtype == b.dtype
+        assert torch.equal(a, b)

@@ -453,9 +453,9 @@ def test_pipeline_depth_validation():
 
 
 def test_port_imports_no_jax_and_no_repro():
-    """The port and its launcher import neither jax nor any ``repro``
-    module — checked in a fresh interpreter, since this test process has
-    both loaded already."""
+    """The port and its launchers import neither jax, nor any ``repro``
+    module, nor ``ml_dtypes`` (absent on the card machine) — checked in a
+    fresh interpreter, since this test process has them loaded already."""
     code = ("import sys, repro_torch, repro_torch.serve, "
             "repro_torch.launch.tm_serve, repro_torch.convert, "
             "repro_torch.core.prng, repro_torch.core.tm_train, "
@@ -483,10 +483,17 @@ def test_port_imports_no_jax_and_no_repro():
             "repro_torch.configs.seamless_m4t_large_v2, "
             "repro_torch.configs.starcoder2_7b, "
             "repro_torch.configs.tinyllama_1_1b, "
-            "repro_torch.configs.zamba2_2_7b\n"
+            "repro_torch.configs.zamba2_2_7b, repro_torch.tree, "
+            "repro_torch.models.mamba2, repro_torch.optim, "
+            "repro_torch.optim.adamw, repro_torch.optim.schedule, "
+            "repro_torch.train, repro_torch.train.step, "
+            "repro_torch.data.pipeline, repro_torch.data.datasets, "
+            "repro_torch.distributed.fault_tolerance, "
+            "repro_torch.launch.train\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
-            "m.startswith('repro.'))\n"
+            "m.startswith('repro.') or m == 'ml_dtypes' or "
+            "m.startswith('ml_dtypes.'))\n"
             "print(bad)\n")
     env = dict(os.environ, PYTHONPATH=os.path.abspath(SRC))
     out = subprocess.run([sys.executable, "-c", code], env=env,
