@@ -13,8 +13,10 @@ multi-tenant ``TMFleet`` of 69 models packed into fused planes and, as
 the control, each model solo, serves and learns data-parallel over a
 device mesh (the card's own, and four simulated shards of it) through a
 kill and an elastic restore onto another mesh size, serves the LM
-zoo's qwen1.5-4b, tinyllama-1.1b, mamba2-130m and zamba2-2.7b at their
-published widths, and trains tinyllama-1.1b at its published width.
+zoo's qwen1.5-4b, tinyllama-1.1b, mamba2-130m, zamba2-2.7b,
+llama4-scout-17b-a16e and deepseek-v2-236b (depth cut) and
+seamless-m4t-large-v2 at their published widths, and trains
+tinyllama-1.1b at its published width.
 
     python3 chip_smoke.py
 
@@ -172,22 +174,33 @@ package.  Phases, each on its own lines:
    ``fused`` numbers and the card's name and power limit.  A mesh of
    distinct GPUs is not run (one card);
 13. the LM zoo: qwen1.5-4b and tinyllama-1.1b (dense), mamba2-130m
-   (ssm) and zamba2-2.7b (hybrid) at their published widths in
-   bfloat16, weights from a seeded cuda
-   ``torch.Generator``, through ``launch.serve.run`` at the launcher's
-   defaults (batch 8, prompt 32, 16 new tokens: its closing line and
-   tokens/s); then prefill time at (8, 32), decode-step p50/p99 (host
-   clock with a sync) over the 48 steps of a run, one decode step's
-   device kernels, busy time and the card's idle share from
-   ``torch.profiler``, the step's bound (the bytes it must move over
-   3.35 TB/s: weights, KV entries and the mamba layers' state) and
+   (ssm), zamba2-2.7b (hybrid), llama4-scout-17b-a16e and
+   deepseek-v2-236b (moe, depth cut to 8 and 5 layers: ``LM_LAYERS``)
+   and seamless-m4t-large-v2 (encdec, whole) at their published widths
+   in bfloat16, weights from a seeded cuda ``torch.Generator``, through
+   ``launch.serve.run`` at the launcher's defaults (batch 8, prompt 32,
+   16 new tokens: its closing line and tokens/s); first deepseek-v2 at
+   its published size must raise ``torch.OutOfMemoryError`` naming its
+   weight bytes; then per model prefill time at (8, 32) (seamless with
+   seeded frames), decode-step p50/p99 (host clock with a sync) over
+   the 48 steps of a run, one decode step's device kernels, busy time
+   and the card's idle share from ``torch.profiler``, the step's bound
+   (the bytes it must move over 3.35 TB/s: weights, KV entries or MLA
+   latents, the cross-attention cache, the mamba layers' state; for
+   the MoE models once with every routed expert and once with only the
+   experts the step's kept tokens route to) and
    ``max_memory_allocated``.  Checks (``LM_ARCHS``'s comment): 1a
    prefill-vs-decode greedy consistency at 2 layers (zamba2: its first
-   superblock) of the same weights under the near-tie rule (full depth
-   printed, not gated); 1b every layer at full depth teacher-forced,
-   float32; 2 two layers in float32 on the card against the CPU; logits
-   finite throughout; K1–K6's counters read 0 (the LM path has no
-   kernel of its own);
+   superblock; llama4: its first) of the same weights under the
+   near-tie rule (printed, not gated, for moe; skipped for encdec;
+   full depth printed, not gated); 1b every layer at full depth
+   teacher-forced, float32, one layer's copy at a time (the attention
+   half and the cache writes of a moe or encdec layer; each MoE half
+   against ``moe_apply`` on the CPU); 2 two layers (zamba2 and llama4:
+   the first superblock; seamless: two encoder and two decoder layers)
+   in float32 on the card against the CPU, expert choices included;
+   logits finite throughout; K1–K6's counters read 0 (the LM path has
+   no kernel of its own);
 14. LM training (``LM_TRAIN_ARCH``'s comment): tinyllama-1.1b at its
    published width and depth through the port's train step at the
    training launcher's defaults — step time p50/p99 (host clock with a
@@ -217,6 +230,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from typing import Any, NamedTuple
 
 import numpy as np
 
@@ -320,7 +334,7 @@ MESH_RAGGED, MESH_KILL, MESH_PER_CLIENT = 37, 8, 20
 #   of that layer's update (max |x' - x|), write prefill's key and value
 #   within LM_LAYER_TOL of their largest entry, and pick prefill's token
 #   up to near ties (logits within LM_F32_TOL), in float32 (the same
-#   weights upcast, TF32 off);
+#   weights upcast one layer at a time, TF32 off);
 # - 2, the first LM_F32_LAYERS layers of the same weights in float32 on
 #   the card and on the CPU: logits within LM_F32_TOL, greedy picks equal
 #   up to near ties within it; and a control, the same products in TF32,
@@ -337,23 +351,57 @@ MESH_RAGGED, MESH_KILL, MESH_PER_CLIENT = 37, 8, 20
 # first superblock (6 mamba layers and one site).  1b feeds a mamba
 # layer's decode step the state of a prefill over the earlier tokens and
 # compares the state it writes with the prefill's over all of them.
-LM_ARCHS = ("qwen1.5-4b", "tinyllama-1.1b", "mamba2-130m", "zamba2-2.7b")
+# The moe and encdec families join at their published widths:
+# llama4-scout-17b-a16e (llama4_scout_17b_a16e.py: superblocks of 3
+# chunked-local layers and 1 global NoPE layer, 16 routed experts top-1
+# and a shared expert) and deepseek-v2-236b (deepseek_v2_236b.py: MLA, a
+# dense first layer, 160 routed experts top-6 and 2 shared) with their
+# depth cut to LM_LAYERS (107.77 B and 235.74 B parameters do not fit
+# 80 GB: 2 superblocks are 39.4 GB in bf16, the first layer and 4 MoE
+# layers 34.6 GB), and seamless-m4t-large-v2 (seamless_m4t_large_v2.py:
+# 24 encoder and 24 decoder layers, 4.07 GB) whole, prefilled with
+# seeded frames.  A MoE layer's prefill and decode step differ by design
+# (the expert capacity counts T = B·S tokens against T = B, R7), and the
+# encdec decode attends to a zero cross-attention cache (R6), so for
+# them 1a prints without gating (moe) or is skipped (encdec), and 1b
+# gates the attention half of each layer and the cache it writes, and
+# holds each MoE half of a decode step against moe_apply on the CPU at
+# the same float32 inputs.  Checks 1b and 2 upcast one layer at a time
+# (a float32 llama4 superblock is 35.2 GB), so no unit of any model is
+# held in float32 whole.  LM_OVERSIZE's published size must make the
+# serving launcher raise torch.OutOfMemoryError naming its weight bytes.
+LM_ARCHS = ("qwen1.5-4b", "tinyllama-1.1b", "mamba2-130m", "zamba2-2.7b",
+            "llama4-scout-17b-a16e", "deepseek-v2-236b",
+            "seamless-m4t-large-v2")
+LM_LAYERS = {"llama4-scout-17b-a16e": 8, "deepseek-v2-236b": 5}
+LM_OVERSIZE = "deepseek-v2-236b"
 LM_BATCH, LM_PROMPT, LM_NEW = 8, 32, 16
 LM_CONSIST_LEN, LM_FREE_DEPTH = 16, 2
 LM_F32_LAYERS, LM_F32_STEPS = 2, 4
 LM_LAYER_TOL = 1e-3
-# check 2's limit by family (and 1b's near-tie width): 1e-2 for the
-# dense family; mamba2's two layers read 1.91e-5 in float32 and
+# check 2's limit by model (and 1b's near-tie width): 1e-2 for the
+# dense models; mamba2's two layers read 1.91e-5 in float32 and
 # 3.79e-3 in TF32 on the H100 (PERF.md §6), under 1e-2, so its limit
 # is 1e-3 (52x above the one, 3.8x below the other); zamba2's first
-# superblock read 8.73e-4 and 0.249 (11x / 25x around 1e-2)
-LM_F32_TOL = {"dense": 1e-2, "ssm": 1e-3, "hybrid": 1e-2}
+# superblock read 8.73e-4 and 0.249 (11x / 25x around 1e-2).  The moe
+# and encdec models were first run at 1e-2 (PERF.md §6):
+# llama4's superblock read 0.0635 in float32 (the last position's
+# hidden error over its largest grows 1.7e-5, 3.3e-4, 2.0e-3, 1.0e-2
+# layer by layer, R5's amplification) and 2.39 in TF32, so its limit is
+# 0.3 (4.7x / 8x); deepseek's first two layers 3.61e-5 and 0.0165, so
+# 1e-3 (28x / 16x); seamless's two encoder and two decoder layers
+# 6.28e-3 and 1.59, so 0.1 (16x / 16x)
+LM_F32_TOL = {"qwen1.5-4b": 1e-2, "tinyllama-1.1b": 1e-2,
+              "mamba2-130m": 1e-3, "zamba2-2.7b": 1e-2,
+              "llama4-scout-17b-a16e": 0.3, "deepseek-v2-236b": 1e-3,
+              "seamless-m4t-large-v2": 0.1}
 # 1a runs in the served bfloat16 for the dense and ssm families and in
 # float32 for hybrid: zamba2's first superblock in bfloat16 put 5 of 8
 # picks 0.2-0.9 past the rule on the H100 (PERF.md §6; read by
 # scripts/lm_reference_drift.py --card), as the reference's bfloat16
 # zamba2 case fails its own rule on the CPU (ROADMAP.md, R3)
-LM_FREE_DTYPE = {"dense": "bfloat16", "ssm": "bfloat16", "hybrid": "float32"}
+LM_FREE_DTYPE = {"dense": "bfloat16", "ssm": "bfloat16", "hybrid": "float32",
+                 "moe": "bfloat16"}
 LM_DRIFT_AT = (1, 2, 5, 10, 20)
 LM_TIE_ULPS = 8
 LM_PREFILL_REPS = 5
@@ -2126,10 +2174,10 @@ def bf16_ulp(torch, v):
 
 def lm_state_bytes(lm, batch: int) -> int:
     """Bytes of the mamba layers' decode state at ``batch`` rows: the
-    conv window in the compute dtype and the float32 SSM state (0 for the
-    dense family)."""
+    conv window in the compute dtype and the float32 SSM state (0 for
+    the families without mamba layers)."""
     c = lm.cfg
-    if c.family == "dense":
+    if c.family not in ("ssm", "hybrid"):
         return 0
     m = lm.mamba_cfg
     conv = m.conv_dim * (m.conv_kernel - 1) * lm.embed.element_size()
@@ -2137,117 +2185,391 @@ def lm_state_bytes(lm, batch: int) -> int:
                                  * 4)
 
 
-def lm_decode_bytes(lm, batch: int, pos: int) -> int:
-    """Bytes one decode step at ``pos`` must move: every stored matrix,
-    bias and float32 vector read once (of the embedding only the batch's
-    rows, unless it is the tied head), the valid KV entries of every
-    attention site read and the step's entries written (compute dtype),
-    and the mamba layers' state read and written once."""
+def lm_cache_moves(lm, pos: int, cache_len: int) -> list:
+    """What a decode step at ``pos`` (in a cache of ``cache_len``
+    positions) must read and write of the attention caches, per row: ``(sites, entries read, entries written, bytes an
+    entry)`` — the valid slots of every self-attention site (a window
+    or chunk keeps fewer), MLA's latent (``c_kv`` and ``k_pe``), and the
+    ``encdec`` decoder's cross-attention ``xk`` / ``xv`` (read, never
+    written)."""
+    c, elt = lm.cfg, lm.embed.element_size()
+    if c.family == "ssm":
+        return []
+    if c.use_mla:
+        m = lm.mla_cfg
+        return [(c.n_layers, pos + 1, 1, (m.kv_lora + m.rope_head_dim) * elt)]
+    a = lm.attn_cfg
+    kv = a.hkv * a.head_dim * 2 * elt
+    if c.family == "hybrid":
+        return [(c.n_layers // c.shared_attn_every, pos + 1, 1, kv)]
+    if c.family == "moe":                      # llama4: chunked + global
+        nsb = c.n_layers // c.global_every
+        return [(nsb * (c.global_every - 1), pos % c.chunk + 1, 1, kv),
+                (nsb, pos + 1, 1, kv)]
+    slots = min(pos + 1, c.window) if c.window else pos + 1
+    out = [(c.n_layers, slots, 1, kv)]
+    if c.family == "encdec":
+        out.append((c.n_layers, max(1, cache_len // c.enc_len_ratio), 0, kv))
+    return out
+
+
+def lm_expert_bytes(lm) -> tuple[int, int]:
+    """(MoE layers, bytes of one routed expert's three matrices)."""
+    if not lm.cfg.n_experts:
+        return 0, 0
+    c = lm.moe_cfg
+    elt = lm.embed.element_size()
+    n_moe = sum(1 for name, _ in lm.named_parameters()
+                if name.endswith(".moe.router"))
+    return n_moe, 3 * c.d_model * c.d_ff * elt
+
+
+def lm_decode_bytes(lm, batch: int, pos: int, cache_len: int,
+                    experts_hit: list | None = None) -> int:
+    """Bytes one decode step at ``pos`` (in a cache of ``cache_len``
+    positions) must move: every stored matrix,
+    bias and float32 vector the step uses read once (of the embedding
+    only the batch's rows, unless it is the tied head; not the
+    encoder's, nor the cross-attention's key and value projections),
+    the attention caches'
+    ``lm_cache_moves``, and the mamba layers' state read and written
+    once.  The routed experts count whole (the reference's formulation
+    computes every expert), or, with ``experts_hit`` (per MoE layer, the
+    distinct experts the step's kept tokens route to), only those."""
     c = lm.cfg
     nbytes = 0
     for name, p in lm.named_parameters():
+        if name.startswith(("encoder.", "enc_norm")) or \
+                name.endswith((".xattn.wk", ".xattn.wv")):
+            continue              # the encoder's side: no decode step reads it
         if name == "embed" and not c.tie_embeddings:
             nbytes += batch * p.shape[1] * p.element_size()
         else:
             nbytes += p.numel() * p.element_size()
-    if c.family != "ssm":
-        a = lm.attn_cfg
-        sites = c.n_layers if c.family == "dense" else \
-            c.n_layers // c.shared_attn_every
-        slots = min(pos + 1, c.window) if c.window else pos + 1
-        kv_entry = sites * batch * a.hkv * a.head_dim * 2 * \
-            lm.embed.element_size()
-        nbytes += kv_entry * (slots + 1)
+    if experts_hit is not None:
+        n_moe, per = lm_expert_bytes(lm)
+        nbytes -= (n_moe * c.n_experts - sum(experts_hit)) * per
+    for sites, read, written, entry in lm_cache_moves(lm, pos, cache_len):
+        nbytes += sites * batch * entry * (read + written)
     return nbytes + 2 * lm_state_bytes(lm, batch)
 
 
+def experts_hit(torch, fn) -> list:
+    """The distinct experts each ``moe_apply`` call of ``fn()`` routes
+    its kept tokens to, in call order (the routing recomputed by
+    ``moe_route`` on the call's own inputs)."""
+    from repro_torch.models import model as lm_module
+    from repro_torch.models.moe import moe_route
+    real, hits = lm_module.moe_apply, []
+
+    def recording(c, p, x):
+        r = moe_route(c, p["router"], x.reshape(-1, x.shape[-1]))
+        hits.append(int(torch.unique(r.sorted_e[r.keep]).numel()))
+        return real(c, p, x)
+    lm_module.moe_apply = recording
+    try:
+        fn()
+    finally:
+        lm_module.moe_apply = real
+    return hits
+
+
 def lm_depth(cfg, n_layers: int) -> int:
-    """``n_layers`` rounded up to whole superblocks for the hybrid
-    family (a truncated zamba2 keeps its structure)."""
-    k = cfg.shared_attn_every if cfg.family == "hybrid" else 1
+    """``n_layers`` rounded up to whole superblocks (zamba2's mamba
+    superblocks, llama4's local + global ones), so a truncated model
+    keeps its structure."""
+    k = cfg.shared_attn_every if cfg.family == "hybrid" else \
+        cfg.global_every if cfg.family == "moe" and cfg.global_every else 1
     return -(-n_layers // k) * k
 
 
-def lm_truncated(torch, lm, n_layers: int, dtype, device="cuda"):
-    """A copy of ``lm``'s first ``lm_depth(n_layers)`` layers, its
-    embedding, final norm, head (and shared block) — the same weights —
-    in ``dtype`` on ``device``."""
-    import dataclasses
-    from repro_torch.models.model import LM
-    sub = LM(dataclasses.replace(lm.cfg,
-                                 n_layers=lm_depth(lm.cfg, n_layers)),
-             tp=lm.tp, device=device, dtype=dtype)
-    want = sub.state_dict()
-    sub.load_state_dict({k: v for k, v in lm.state_dict().items()
-                         if k in want})
-    return sub
+class Unit(NamedTuple):
+    """One unit of an LM's forward for phase 13's checks: ``kind``
+    "attn" (an attention + FFN layer, or zamba2's shared block at one
+    site), "mamba" or "dec" (a decoder layer with cross-attention);
+    ``lp`` its parameters; ``cfg`` its attention config; ``slots(cache)``
+    the cache tensors its decode step writes (and, for "dec", the
+    cross-attention's ``xk`` / ``xv`` it reads)."""
+    kind: str
+    lp: Any
+    cfg: Any
+    slots: Any
 
 
 def lm_units(lm) -> list:
-    """Phase 13's per-layer view of ``lm``, in forward order (a zamba2
-    superblock's mamba layers, then its shared-block site): one
-    ``(kind, full, step, slots)`` per unit — ``full(x)`` → (x', outs)
-    over the whole sequence, ``outs`` the unit's prefill cache ((k, v)
-    or (conv, ssm)); ``step(x, cache, pos)`` → x' for one token, writing
-    the unit's cache tensors ``slots(cache)``."""
+    """Phase 13's per-layer view of ``lm``, in forward order: a zamba2
+    superblock's mamba layers, then its shared-block site; a llama4
+    superblock's local layers, then its global layer; deepseek's first
+    layer, then the others."""
     c, units = lm.cfg, []
-
-    def attn(lp, slots):
-        units.append(("attn", lambda x: lm._layer(lp, x),
-                      lambda x, cache, pos: lm._decode_layer(
-                          lp, x, *slots(cache), pos), slots))
-
-    def mamba(lp, slots):
-        units.append(("mamba", lambda x: lm._mamba_layer(lp, x),
-                      lambda x, cache, pos: lm._mamba_decode_layer(
-                          lp, x, *slots(cache)), slots))
-
     if c.family == "dense":
         for i, lp in enumerate(lm.layers):
-            attn(lp, lambda cache, i=i: (cache["k"][i], cache["v"][i]))
+            units.append(Unit("attn", lp, lm.attn_cfg, lambda cache, i=i: (
+                cache["k"][i], cache["v"][i])))
+    elif c.family == "moe" and not c.use_mla:
+        loc, glo = "local", "global"
+        for s, bp in enumerate(lm.blocks):
+            for j, lp in enumerate(bp.local):
+                units.append(Unit("attn", lp, lm.attn_local,
+                                  lambda cache, s=s, j=j: (
+                                      cache[loc]["k"][s, j],
+                                      cache[loc]["v"][s, j])))
+            units.append(Unit("attn", bp[glo], lm.attn_global,
+                              lambda cache, s=s: (cache[glo]["k"][s],
+                                                  cache[glo]["v"][s])))
+    elif c.family == "moe":
+        units.append(Unit("attn", lm.first, lm.mla_cfg, lambda cache: (
+            cache["first"]["ckv"], cache["first"]["kpe"])))
+        for i, lp in enumerate(lm.layers):
+            units.append(Unit("attn", lp, lm.mla_cfg, lambda cache, i=i: (
+                cache["rest"]["ckv"][i], cache["rest"]["kpe"][i])))
     elif c.family == "ssm":
         for i, lp in enumerate(lm.layers):
-            mamba(lp, lambda cache, i=i: (cache["conv"][i],
-                                          cache["ssm"][i]))
-    else:
+            units.append(Unit("mamba", lp, None, lambda cache, i=i: (
+                cache["conv"][i], cache["ssm"][i])))
+    elif c.family == "hybrid":
         for s, bp in enumerate(lm.blocks):
             for j, lp in enumerate(bp):
-                mamba(lp, lambda cache, s=s, j=j: (cache["conv"][s, j],
-                                                   cache["ssm"][s, j]))
-            attn(lm.shared, lambda cache, s=s: (cache["attn"]["k"][s],
-                                                cache["attn"]["v"][s]))
+                units.append(Unit("mamba", lp, None, lambda cache, s=s, j=j: (
+                    cache["conv"][s, j], cache["ssm"][s, j])))
+            units.append(Unit("attn", lm.shared, lm.attn_cfg,
+                              lambda cache, s=s: (cache["attn"]["k"][s],
+                                                  cache["attn"]["v"][s])))
+    else:
+        for i, lp in enumerate(lm.layers):
+            units.append(Unit("dec", lp, lm.attn_cfg, lambda cache, i=i: (
+                cache["k"][i], cache["v"][i], cache["xk"][i],
+                cache["xv"][i])))
     return units
 
 
-def lm_check_f32(torch, lm, prompts, arch: str) -> dict:
+def lm_first_units(lm, n_layers: int) -> list:
+    """The units of ``lm``'s first ``lm_depth(n_layers)`` layers (with
+    zamba2's shared-block sites among them)."""
+    depth = lm_depth(lm.cfg, n_layers)
+    sites = depth // lm.cfg.shared_attn_every \
+        if lm.cfg.family == "hybrid" else 0
+    return lm_units(lm)[:depth + sites]
+
+
+def unit_full(lm, u: Unit, lp, x, enc=None) -> tuple:
+    """Unit ``u`` with parameters ``lp`` over the whole sequence → (x',
+    its prefill cache, x after the attention half or None)."""
+    from repro_torch.models.common import rms_norm
+    if u.kind == "mamba":
+        y, st = lm._mamba_layer(lp, x)
+        return y, st, None
+    mid, kv = lm._attn(u.cfg, lp, x)
+    if u.kind == "attn":
+        return lm._ffn(lp, mid), kv, mid
+    xa, _ = lm._cross_attn(lp.xattn, rms_norm(mid, lp.ln2, lm.cfg.norm_eps),
+                           enc)
+    return lm._ffn(lp, mid + xa, "ln3"), kv, mid
+
+
+def unit_step(lm, u: Unit, lp, x, cache, pos: int) -> tuple:
+    """Unit ``u``'s decode step for one token, writing its slots of
+    ``cache`` → (x', x after the attention half or None)."""
+    slots = u.slots(cache)
+    if u.kind == "mamba":
+        return lm._mamba_decode_layer(lp, x, *slots), None
+    mid = lm._attn_decode(u.cfg, lp, x, slots[0], slots[1], pos)
+    if u.kind == "attn":
+        return lm._ffn(lp, mid), mid
+    return lm._ffn(lp, lm._cross_decode(lp, mid, *slots[2:]), "ln3"), mid
+
+
+class HostStage:
+    """Page-locked host buffers for float32 CPU copies of card weights,
+    one per parameter path, reused unit after unit: a weight is cast on
+    the card and copied at the link's rate, where a pageable copy and a
+    CPU-side cast would take most of phase 13's time.  A copy stays
+    valid until the next copy of the same path."""
+
+    def __init__(self, torch):
+        self.torch, self.bufs = torch, {}
+
+    def __call__(self, path: str, p, dtype):
+        t = p.detach().to(dtype)
+        buf = self.bufs.get(path)
+        if buf is None or buf.shape != t.shape or buf.dtype != dtype:
+            buf = self.bufs[path] = self.torch.empty(t.shape, dtype=dtype,
+                                                     pin_memory=True)
+        return buf.copy_(t)
+
+
+def unit_copy(torch, module, device, dtype, keys=None, stage=None):
+    """A copy of a unit's parameter module (only its children ``keys``,
+    when given) in ``dtype`` on ``device``: through ``stage`` (a
+    ``HostStage``) for the CPU, else cast on ``device``."""
+    from torch import nn
+    from repro_torch.models.model import _Layer
+
+    def leaf(path, p):
+        t = stage(path, p, dtype) if stage is not None else \
+            p.detach().to(device).to(dtype)
+        return nn.Parameter(t, requires_grad=False)
+
+    def tree(m, prefix=""):
+        out = {k: leaf(prefix + k, p)
+               for k, p in m.named_parameters(recurse=False)}
+        out.update({k: tree(ch, f"{prefix}{k}.")
+                    for k, ch in m.named_children()})
+        return out
+    if keys:
+        return _Layer({k: leaf(k, module[k]) if isinstance(
+            module[k], torch.nn.Parameter) else tree(module[k], k + ".")
+            for k in keys})
+    return _Layer(tree(module))
+
+
+def moe_routing(lm, lp, mid):
+    """The expert choice (sorted top-k per token) and the gates of the
+    MoE half of a layer whose attention half gave ``mid``."""
+    from repro_torch.models.common import rms_norm
+    from repro_torch.models.moe import moe_route
+    h = rms_norm(mid, lp.ln2, lm.cfg.norm_eps)
+    r = moe_route(lm.moe_cfg, lp.moe["router"], h.reshape(-1, h.shape[-1]))
+    return r.top_i.sort(-1).values, r.gates
+
+
+def route_flips(torch, got, want) -> tuple[int, int]:
+    """Tokens whose expert choice ``got`` (one device's (choice, gates))
+    differs from ``want`` (the reference's) → (flips, flips outside a
+    near tie: the reference's k-th and (k+1)-th gates lie farther apart
+    than twice the largest difference between the two devices' gates of
+    that token, so the rounding difference cannot explain the flip)."""
+    (gi, gg), (wi, wg) = got, want
+    gg, wg = gg.cpu(), wg.cpu()
+    flip = (gi.cpu() != wi.cpu()).any(-1)
+    k = wi.shape[-1]
+    top = wg.sort(-1, descending=True).values
+    tie = (top[:, k - 1] - top[:, k]) <= 2 * (gg - wg).abs().amax(-1) \
+        if top.shape[-1] > k else torch.ones_like(flip)
+    return int(flip.sum()), int((flip & ~tie).sum())
+
+
+def lm_embed(lm, toks, dtype, device):
+    """Embedding rows of ``toks`` in ``dtype`` on ``device``."""
+    return lm.embed[toks.long()].to(device).to(dtype)
+
+
+def lm_head_logits(torch, lm, x, head_cache: dict):
+    """Final norm and head over ``x`` (B, 1, E) in ``x``'s dtype on its
+    device (the head copied there once per ``head_cache``), float32
+    logits with the padded vocabulary at ``-1e30``."""
+    from repro_torch.models.common import rms_norm
+    c = lm.cfg
+    key = (x.device, x.dtype)
+    if key not in head_cache:
+        head = lm.embed.T if c.tie_embeddings else lm.lm_head
+        head_cache[key] = (head.detach().to(x.device).to(x.dtype),
+                           lm.final_norm.detach().to(x.device))
+    head, norm = head_cache[key]
+    logits = (rms_norm(x, norm, c.norm_eps) @ head).float()[:, 0]
+    logits[..., c.vocab_size:] = -1e30
+    return logits
+
+
+def lm_encode(torch, lm, frames, n_layers: int, cast):
+    """The first ``n_layers`` encoder layers over ``frames`` (each
+    layer's parameters through ``cast``), then ``enc_norm``, in
+    ``frames``' dtype on its device."""
+    from repro_torch.models.common import rms_norm
+    enc = frames
+    for lp in list(lm.encoder)[:n_layers]:
+        enc, _ = lm._enc_layer(cast(lp), enc)
+    return rms_norm(enc, lm.enc_norm.detach().to(frames.device),
+                    lm.cfg.norm_eps)
+
+
+def lm_stream(torch, lm, units, toks, device, dtype, frames=None,
+              n_enc: int = 0, steps: int = 0, stage=None):
+    """``units`` of ``lm`` in ``dtype`` on ``device``, one unit's copy at
+    a time (the served weights themselves where they already are
+    ``dtype`` on ``device``): prefill over ``toks`` and, fed ``toks``,
+    decode steps at positions ``0..steps-1`` → (logits at the last
+    prefill position, each step's logits, each MoE call's routing in
+    order, each unit's prefill output at the last position, each unit's
+    last step output).  The same computation as the model truncated to
+    ``units`` (each unit's cache is its own), reordered unit by unit.
+    CPU copies go through ``stage`` (a ``HostStage``)."""
+    from repro_torch import tree as ttree
+    served = device == lm.device.type and dtype == lm.dtype
+
+    def cast(lp):
+        return lp if served else unit_copy(torch, lp, device, dtype,
+                                           stage=stage)
+    toks = toks.to(lm.device)
+    x = lm_embed(lm, toks, dtype, device)
+    xs = [lm_embed(lm, toks[:, p:p + 1], dtype, device) for p in range(steps)]
+    cache = ttree.map(lambda t: t.to(device),
+                      lm.init_cache(toks.shape[0], max(steps, 1), dtype=dtype))
+    enc = None if frames is None else \
+        lm_encode(torch, lm, frames.to(device).to(dtype), n_enc, cast)
+    routes, hidden, step_hidden = [], [], []
+    with torch.no_grad():
+        for u in units:
+            lp = cast(u.lp)
+            x, _, mid = unit_full(lm, u, lp, x, enc)
+            hidden.append(x[:, -1].float().cpu())
+            if hasattr(lp, "moe"):
+                routes.append(moe_routing(lm, lp, mid))
+            for p in range(steps):
+                xs[p], mid = unit_step(lm, u, lp, xs[p], cache, p)
+                if hasattr(lp, "moe"):
+                    routes.append(moe_routing(lm, lp, mid))
+            if steps:
+                step_hidden.append(xs[-1][:, 0].float().cpu())
+            del lp
+        heads = {}
+        out = lm_head_logits(torch, lm, x[:, -1:], heads)
+        step_logits = [lm_head_logits(torch, lm, xp, heads) for xp in xs]
+    return out, step_logits, routes, hidden, step_hidden
+
+
+def lm_frames(torch, lm, batch: int, seq: int):
+    """Seeded encoder frames for ``seq`` tokens: (batch, seq //
+    enc_len_ratio, d_model), float32 on the card."""
+    c = lm.cfg
+    rng = np.random.default_rng(SEED)
+    return torch.as_tensor(rng.normal(
+        0, 1, (batch, seq // c.enc_len_ratio, c.d_model))
+        .astype(np.float32), device="cuda")
+
+
+def lm_check_f32(torch, lm, prompts, arch: str, stage) -> dict:
     """Phase 13, check 2: the first LM_F32_LAYERS layers of ``lm``'s
-    weights (``lm_depth``) in float32 on the card and on the CPU —
-    prefill logits at the last prompt position and LM_F32_STEPS
-    teacher-forced decode steps' logits within the family's LM_F32_TOL,
-    greedy picks equal up to near ties (CPU logits of the two picks
-    within it); the same card run with TF32 on must differ by more than
-    the limit, or the limit could not see a lost precision."""
+    weights (``lm_first_units``; seamless: that many encoder and decoder
+    layers, with frames) in float32 on the card and on the CPU, one
+    layer's copy at a time — prefill logits at the last prompt position
+    and LM_F32_STEPS teacher-forced decode steps' logits within the
+    model's LM_F32_TOL, greedy picks equal up to near ties (CPU logits
+    of the two picks within it), and every MoE call's expert choice the
+    CPU's up to near ties of its gates (``route_flips``; flips
+    counted); the same card run with TF32 on must differ by more than the limit, or
+    the limit could not see a lost precision."""
     from repro_torch.core.popcount import argmax_tournament
     if torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError("TF32 is on: float32 products would round")
-    dev = lm_truncated(torch, lm, LM_F32_LAYERS, torch.float32)
-    cpu = lm_truncated(torch, dev, dev.cfg.n_layers, torch.float32, "cpu")
-    ref = [cpu._logits(cpu._forward(prompts.cpu())[0][:, -1])]
-    ccache = cpu.init_cache(prompts.shape[0], LM_F32_STEPS)
-    for pos in range(LM_F32_STEPS):
-        ref.append(cpu._logits(cpu._decode_hidden(
-            ccache, prompts[:, pos:pos + 1].cpu(), pos))[:, 0])
-
-    def card_logits():
-        out = [dev._logits(dev._forward(prompts)[0][:, -1]).cpu()]
-        cache = dev.init_cache(prompts.shape[0], LM_F32_STEPS)
-        for pos in range(LM_F32_STEPS):
-            out.append(dev._logits(dev._decode_hidden(
-                cache, prompts[:, pos:pos + 1], pos))[:, 0].cpu())
-        return out
-
-    err, flips, tol = 0.0, 0, LM_F32_TOL[lm.cfg.family]
-    for got, want in zip(card_logits(), ref):
+    f32, c = torch.float32, lm.cfg
+    units = lm_first_units(lm, LM_F32_LAYERS)
+    kw = {"steps": LM_F32_STEPS}
+    if c.family == "encdec":
+        kw.update(frames=lm_frames(torch, lm, prompts.shape[0],
+                                   prompts.shape[1]), n_enc=LM_F32_LAYERS)
+    ref_last, ref_steps, ref_routes, ref_hidden, _ = lm_stream(
+        torch, lm, units, prompts, "cpu", f32, stage=stage, **kw)
+    ref = [ref_last] + ref_steps
+    got_last, got_steps, got_routes, got_hidden, _ = lm_stream(
+        torch, lm, units, prompts, "cuda", f32, **kw)
+    # how the card's rounding difference grows unit by unit (R5)
+    unit_err = [float((g - w).abs().max() / w.abs().max())
+                for g, w in zip(got_hidden, ref_hidden)]
+    tol = LM_F32_TOL[arch]
+    err, flips = 0.0, 0
+    for got, want in zip([got_last] + got_steps, ref):
+        got = got.cpu()
         if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
             raise AssertionError(f"{arch} float32: non-finite logits")
         err = max(err, float((got - want).abs().max()))
@@ -2258,53 +2580,57 @@ def lm_check_f32(torch, lm, prompts, arch: str) -> dict:
             raise AssertionError(f"{arch} float32: greedy picks {g} vs CPU "
                                  f"{r}, CPU logit gaps {gap}")
         flips += int((g != r).sum())
+    route_flips_n = route_bad = 0
+    for got, want in zip(got_routes, ref_routes):
+        n, bad = route_flips(torch, got, want)
+        route_flips_n, route_bad = route_flips_n + n, route_bad + bad
+    if route_bad:
+        raise AssertionError(f"{arch} float32: {route_bad} tokens routed "
+                             f"to other experts than on the CPU outside a "
+                             f"near tie of gates")
     # the control: the same products in TF32 (10-bit mantissa) must land
     # above the limit
     torch.backends.cuda.matmul.allow_tf32 = True
     try:
-        ctl = max(float((got - want).abs().max())
-                  for got, want in zip(card_logits(), ref))
+        ctl_last, ctl_steps, *_ = lm_stream(torch, lm, units, prompts,
+                                            "cuda", f32, **kw)
+        ctl = max(float((got.cpu() - want).abs().max())
+                  for got, want in zip([ctl_last] + ctl_steps, ref))
     finally:
         torch.backends.cuda.matmul.allow_tf32 = False
     if err > tol:
         raise AssertionError(f"{arch} float32 card vs CPU: max |logit "
-                             f"error| {err} > {tol}")
+                             f"error| {err} > {tol} (per unit, the last "
+                             f"position's hidden error over its largest: "
+                             f"{unit_err}; TF32 control {ctl})")
     if ctl <= tol:
         raise AssertionError(f"{arch} TF32 control: max |logit error| {ctl} "
                              f"<= {tol}, the limit is too loose")
+    torch.cuda.empty_cache()
     return {"f32_max_abs_err": err, "f32_near_tie_flips": flips,
-            "tf32_control_err": ctl, "f32_layers": dev.cfg.n_layers,
-            "f32_tol": tol}
+            "f32_route_flips": route_flips_n, "f32_unit_err": unit_err,
+            "f32_routed_calls": len(ref_routes),
+            "tf32_control_err": ctl, "f32_layers": lm_depth(c, LM_F32_LAYERS),
+            "f32_units": len(units), "f32_tol": tol}
 
 
-def lm_free_running(torch, lm, toks) -> dict:
-    """Prefill over ``toks`` against decode-stepping them, free-running:
-    after each unit (``lm_units``) the last position's hidden-state
-    difference over its largest entry on the prefill path (``drift``, at
-    LM_DRIFT_AT and the last unit: how fast rounding differences grow
-    with depth, R5), and the decode path's greedy pick against prefill's
-    logits under the near-tie rule (LM_TIE_ULPS bfloat16 ulps of the top
-    logit)."""
+def lm_free_running(torch, lm, units, toks, dtype) -> dict:
+    """Prefill over ``toks`` against decode-stepping them, free-running,
+    through ``units`` (``lm_stream`` in ``dtype`` on the card: the
+    served weights, or a copy of each unit): after each unit the last
+    position's hidden-state difference over its largest entry on the
+    prefill path (``drift``, at LM_DRIFT_AT and the last unit: how fast
+    rounding differences grow with depth, R5), and the decode path's
+    greedy pick against prefill's logits under the near-tie rule
+    (LM_TIE_ULPS bfloat16 ulps of the top logit)."""
     from repro_torch.core.popcount import argmax_tournament
-    from repro_torch.models.common import rms_norm
-    s, eps, v = toks.shape[1], lm.cfg.norm_eps, lm.cfg.vocab_size
-    units = lm_units(lm)
-    with torch.no_grad():
-        x, ref = lm._embed(toks), []
-        for _, full, _, _ in units:
-            x, _ = full(x)
-            ref.append(x[:, -1].float())
-        logits = lm._logits(rms_norm(x[:, -1:], lm.final_norm, eps))[:, 0]
-        cache = lm.init_cache(toks.shape[0], s)
-        for pos in range(s - 1):
-            lm.decode_step(cache, toks[:, pos:pos + 1], pos)
-        xd, drift = lm._embed(toks[:, -1:]), {}
-        for i, (_, _, step, _) in enumerate(units):
-            xd = step(xd, cache, s - 1)
-            if i + 1 in LM_DRIFT_AT or i + 1 == len(units):
-                drift[i + 1] = float((xd[:, 0].float() - ref[i]).abs().max()
-                                     / ref[i].abs().max())
-        dlogits = lm._logits(rms_norm(xd, lm.final_norm, eps))[:, 0]
+    v = lm.cfg.vocab_size
+    logits, steps, _, hidden, step_hidden = lm_stream(
+        torch, lm, units, toks, "cuda", dtype, steps=toks.shape[1])
+    dlogits = steps[-1]
+    drift = {i + 1: float((d - h).abs().max() / h.abs().max())
+             for i, (h, d) in enumerate(zip(hidden, step_hidden))
+             if i + 1 in LM_DRIFT_AT or i + 1 == len(units)}
     if not (torch.isfinite(logits).all() and torch.isfinite(dlogits).all()):
         raise AssertionError(f"{lm.cfg.name}: non-finite logits")
     nxt = argmax_tournament(dlogits).long()
@@ -2319,95 +2645,149 @@ def lm_free_running(torch, lm, toks) -> dict:
             "drift": drift, "gaps": gap.tolist(), "tols": tol.tolist()}
 
 
-def lm_teacher_forced(torch, lm, toks) -> dict:
-    """Unit by unit at full depth: prefill's unit over ``toks`` and the
-    decode step's unit for the last token, fed the same input and a
-    cache holding what prefill gives for the earlier positions (an
-    attention unit: prefill's keys and values; a mamba unit: the state of
-    a prefill over the earlier tokens).  → per-unit errors relative to
-    the unit's update and to the largest entry of what the step writes
-    (the key and value at the last position; the mamba layer's conv and
-    SSM state, against prefill's over all the tokens), and both paths'
-    final logits at the last position."""
-    from repro_torch.models.common import rms_norm
-    s = toks.shape[1]
-    eps = lm.cfg.norm_eps
-    x = lm._embed(toks)
-    cache = lm.init_cache(toks.shape[0], s)
-    out_err, kv_err = [], []
+def lm_teacher_forced(torch, lm, toks, stage, frames=None) -> dict:
+    """Unit by unit at full depth, in float32 (one unit's copy at a time
+    on the card): prefill's unit over ``toks`` and the decode step's
+    unit for the last token, fed the same input and a cache holding what
+    prefill gives for the earlier positions (an attention unit:
+    prefill's keys and values, or MLA's latents; a mamba unit: the state
+    of a prefill over the earlier tokens).  → per unit, the error of the
+    step's output relative to the unit's update — the whole unit, or
+    only its attention half where the decode step computes the rest
+    otherwise by design (a MoE half's capacity, R7; the decoder's
+    cross-attention over the zero ``xk`` / ``xv``, R6) — and relative to
+    the largest entry of what the step writes (the key and value or
+    latent at the last position; the mamba layer's conv and SSM state,
+    against prefill's over all the tokens); per MoE unit, the step's MoE
+    half on the card against ``moe_apply`` on the CPU (float32, the
+    same input: error over the MoE update, on the tokens routed alike)
+    and the tokens routed differently (within a near tie of gates or
+    not); and both paths' final logits at the last position."""
+    f32, s = torch.float32, toks.shape[1]
+    x = lm_embed(lm, toks, f32, "cuda")
+    cache = lm.init_cache(toks.shape[0], s, dtype=f32)
+    enc = None if frames is None else lm_encode(
+        torch, lm, frames.float(), lm.cfg.n_enc_layers,
+        lambda lp: unit_copy(torch, lp, "cuda", f32))
+    out_err, kv_err, moe_err = [], [], []
+    flips = bad_flips = 0
     with torch.no_grad():
-        for kind, full, step, slots in lm_units(lm):
-            y, outs = full(x)
-            dst = slots(cache)
-            if kind == "attn":
-                for d, t in zip(dst, outs):
-                    d[:, :s - 1] = t[:, :s - 1]
-                pairs = lambda: [(d[:, s - 1], t[:, s - 1])  # noqa: E731
-                                 for d, t in zip(dst, outs)]
-            else:
-                _, early = full(x[:, :s - 1])
+        for u in lm_units(lm):
+            lp = unit_copy(torch, u.lp, "cuda", f32)
+            y, outs, mid = unit_full(lm, u, lp, x, enc)
+            dst = u.slots(cache)
+            if u.kind == "mamba":
+                _, early, _ = unit_full(lm, u, lp, x[:, :s - 1])
                 for d, t in zip(dst, early):
                     d.copy_(t)
-                pairs = lambda: list(zip(dst, outs))  # noqa: E731
-            yd = step(x[:, -1:], cache, s - 1)
-            upd = (y[:, -1] - x[:, -1]).float().abs().max()
-            out_err.append(float((yd[:, 0] - y[:, -1]).float().abs().max()
-                                 / upd))
-            kv_err.append(max(float((d - t).float().abs().max()
-                                    / t.float().abs().max())
-                              for d, t in pairs()))
+                pairs = list(zip(dst, outs))
+            else:
+                for d, t in zip(dst[:2], outs):
+                    d[:, :s - 1] = t[:, :s - 1]
+                pairs = [(d[:, s - 1], t[:, s - 1])
+                         for d, t in zip(dst[:2], outs)]
+            yd, midd = unit_step(lm, u, lp, x[:, -1:], cache, s - 1)
+            moe = hasattr(lp, "moe")
+            whole = u.kind == "mamba" or (u.kind == "attn" and not moe)
+            ref, got = (y, yd) if whole else (mid, midd)
+            upd = (ref[:, -1] - x[:, -1]).abs().max()
+            out_err.append(float((got[:, 0] - ref[:, -1]).abs().max() / upd))
+            kv_err.append(max(float((d - t).abs().max() / t.abs().max())
+                              for d, t in pairs))
+            if moe:
+                cpu_lp = unit_copy(torch, u.lp, "cpu", f32, ("ln2", "moe"),
+                                   stage)
+                m_card = lm._ffn(lp, midd).cpu()
+                m_cpu = lm._ffn(cpu_lp, midd.cpu())
+                r_card = moe_routing(lm, lp, midd)
+                r_cpu = moe_routing(lm, cpu_lp, midd.cpu())
+                n, bad = route_flips(torch, r_card, r_cpu)
+                flips, bad_flips = flips + n, bad_flips + bad
+                rows = (r_card[0].cpu() == r_cpu[0]).all(-1).reshape(
+                    m_cpu.shape[:2])
+                if rows.any():
+                    upd = (m_cpu - midd.cpu())[rows].abs().max()
+                    moe_err.append(float((m_card - m_cpu)[rows].abs().max()
+                                         / upd))
+                del cpu_lp
             x = y
-        logits = lm._logits(rms_norm(x[:, -1:], lm.final_norm, eps))[:, 0]
-        dlogits = lm._logits(rms_norm(yd, lm.final_norm, eps))[:, 0]
-    return {"out_err": out_err, "kv_err": kv_err, "logits": logits,
-            "dlogits": dlogits}
+            del lp
+        heads = {}
+        logits = lm_head_logits(torch, lm, x[:, -1:], heads)
+        dlogits = lm_head_logits(torch, lm, yd, heads)
+    return {"out_err": out_err, "kv_err": kv_err, "moe_err": moe_err,
+            "route_flips": flips, "route_flips_outside_ties": bad_flips,
+            "logits": logits, "dlogits": dlogits}
 
 
-def lm_check_consistency(torch, lm, prompts, arch: str) -> dict:
+def lm_check_consistency(torch, lm, prompts, arch: str, stage) -> dict:
     """Phase 13, checks 1a and 1b (see LM_CONSIST_LEN): prefill against
-    decode on the first LM_CONSIST_LEN prompt tokens."""
+    decode on the first LM_CONSIST_LEN prompt tokens (CPU copies through
+    ``stage``)."""
     from repro_torch.core.popcount import argmax_tournament
-    toks = prompts[:, :LM_CONSIST_LEN]
-    # 1a: free-running at LM_FREE_DEPTH layers of the same weights, gated
-    depth = lm_depth(lm.cfg, LM_FREE_DEPTH)
-    dtype = getattr(torch, LM_FREE_DTYPE[lm.cfg.family])
-    fr = lm_free_running(torch, lm_truncated(torch, lm, depth, dtype), toks)
-    fr["depth"], fr["dtype"] = depth, LM_FREE_DTYPE[lm.cfg.family]
-    if not fr["within"]:
-        raise AssertionError(f"{arch} at {depth} layers: decode "
-                             f"picks beyond the near-tie rule: gaps "
-                             f"{fr['gaps']} > {fr['tols']}")
-    # on a float32 copy at full depth: free-running (the drift R5 cites,
-    # not gated) and 1b, teacher-forced per layer (gated)
-    m = lm_truncated(torch, lm, lm.cfg.n_layers, torch.float32)
-    out = {"free_gated": fr, "free_f32": lm_free_running(torch, m, toks)}
-    tf = lm_teacher_forced(torch, m, toks)
+    toks, fam = prompts[:, :LM_CONSIST_LEN], lm.cfg.family
+    out = {}
+    if fam != "encdec":
+        # 1a: free-running at LM_FREE_DEPTH layers of the same weights,
+        # gated but for moe (its decode capacity differs by design, R7)
+        depth = lm_depth(lm.cfg, LM_FREE_DEPTH)
+        dtype = getattr(torch, LM_FREE_DTYPE[fam])
+        fr = lm_free_running(torch, lm, lm_first_units(lm, LM_FREE_DEPTH),
+                             toks, dtype)
+        fr["depth"], fr["dtype"], fr["gated"] = depth, LM_FREE_DTYPE[fam], \
+            fam != "moe"
+        if fr["gated"] and not fr["within"]:
+            raise AssertionError(f"{arch} at {depth} layers: decode "
+                                 f"picks beyond the near-tie rule: gaps "
+                                 f"{fr['gaps']} > {fr['tols']}")
+        # in float32 at full depth: the drift R5 cites, not gated (not
+        # for moe, whose decode drifts from prefill by design, R7)
+        out["free_gated"] = fr
+        if fam != "moe":
+            out["free_f32"] = lm_free_running(torch, lm, lm_units(lm), toks,
+                                              torch.float32)
+    frames = lm_frames(torch, lm, toks.shape[0], toks.shape[1]) \
+        if fam == "encdec" else None
+    tf = lm_teacher_forced(torch, lm, toks, stage, frames)
     g = argmax_tournament(tf["dlogits"]).long()
     r = argmax_tournament(tf["logits"]).long()
     rows = torch.arange(len(r), device=r.device)
     gap = (tf["logits"][rows, g] - tf["logits"][rows, r]).abs()
+    # the final picks agree only where every unit's step computes what
+    # its prefill computes (not across a MoE half or a cross-attention)
+    picks_gated = fam not in ("moe", "encdec")
+    moe_err = max(tf["moe_err"], default=0.0)
     out["teacher_forced_f32"] = {
         "units": len(tf["out_err"]),
         "max_layer_err": max(tf["out_err"]), "max_kv_err": max(tf["kv_err"]),
-        "exact": int((g == r).sum()), "max_gap": float(gap.max())}
+        "max_moe_err": moe_err, "moe_units": len(tf["moe_err"]),
+        "route_flips": tf["route_flips"],
+        "route_flips_outside_ties": tf["route_flips_outside_ties"],
+        "exact": int((g == r).sum()), "max_gap": float(gap.max()),
+        "picks_gated": picks_gated}
     if max(tf["out_err"]) > LM_LAYER_TOL or max(tf["kv_err"]) > LM_LAYER_TOL \
-            or not ((g == r) | (gap <= LM_F32_TOL[lm.cfg.family])).all():
+            or moe_err > LM_LAYER_TOL or tf["route_flips_outside_ties"] \
+            or (picks_gated and not ((g == r) | (gap <= LM_F32_TOL[arch]))
+                .all()):
         worst = max(range(len(tf["out_err"])), key=lambda i: tf["out_err"][i])
         raise AssertionError(
             f"{arch} teacher-forced float32: layer {worst} error "
-            f"{tf['out_err'][worst]}, key/value error {max(tf['kv_err'])} "
-            f"(tol {LM_LAYER_TOL}); picks {g.tolist()} vs {r.tolist()}, "
-            f"gaps {gap.tolist()}")
-    del m, tf
+            f"{tf['out_err'][worst]}, key/value error {max(tf['kv_err'])}, "
+            f"MoE error {moe_err} (tol {LM_LAYER_TOL}), "
+            f"{tf['route_flips_outside_ties']} routing flips outside a "
+            f"near tie; picks {g.tolist()} vs {r.tolist()}, gaps "
+            f"{gap.tolist()}")
+    del tf
     torch.cuda.empty_cache()
     return out
 
 
 def lm_serve_arch(torch, arch: str, card: str) -> dict:
-    """Phase 13, one arch: the serving launcher's run at full width, then
-    prefill and per-step decode times, the decode step's device kernels
-    and bound, and checks 1 and 2."""
-    from repro_torch.core.popcount import argmax_tournament
+    """Phase 13, one arch: the serving launcher's run at full width (the
+    depth LM_LAYERS cuts it to, where it does not fit), then prefill and
+    per-step decode times, the decode step's device kernels and bound,
+    and checks 1 and 2."""
+    from repro_torch.configs import get_config
     from repro_torch.engine.base import nearest_rank
     from repro_torch.launch.serve import run
     from repro_torch.models.common import count_params
@@ -2415,18 +2795,25 @@ def lm_serve_arch(torch, arch: str, card: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     res = run(arch, batch=LM_BATCH, prompt_len=LM_PROMPT, max_new=LM_NEW,
-              full=True, device="cuda")
+              full=True, layers=LM_LAYERS.get(arch), device="cuda")
     build_s = time.perf_counter() - t0
     lm, prompts, out = res["lm"], res["prompts"], res["out"]
+    c = lm.cfg
     print(res["line"], flush=True)
     if tuple(out.shape) != (LM_BATCH, LM_NEW) or int(out.min()) < 0 or \
-            int(out.max()) >= lm.cfg.vocab_size:
+            int(out.max()) >= c.vocab_size:
         raise AssertionError(f"{arch}: generated {tuple(out.shape)} tokens "
                              f"in [{int(out.min())}, {int(out.max())}]")
     n_params = count_params(lm)
     weight_bytes = sum(p.numel() * p.element_size() for p in lm.parameters())
+    depth = (f"{c.n_layers} layers" + (f" + {c.n_enc_layers} encoder layers"
+                                       if c.n_enc_layers else ""))
+    if arch in LM_LAYERS:
+        depth += f" (cut from {get_config(arch).n_layers})"
 
     batch = {"tokens": prompts}
+    if c.family == "encdec":
+        batch["frames"] = lm_frames(torch, lm, LM_BATCH, LM_PROMPT)
     lm.prefill(batch)
     torch.cuda.synchronize()
     prefill_s = []
@@ -2453,14 +2840,27 @@ def lm_serve_arch(torch, arch: str, card: str) -> dict:
         cache, last[:, None], mid))
     kernels = sum(1 for n in names if "memcpy" not in n.lower()
                   and "memset" not in n.lower())
-    bound_ms = lm_decode_bytes(lm, LM_BATCH, mid) / HBM_BPS * 1e3
+    bound_ms = lm_decode_bytes(lm, LM_BATCH, mid, total) / HBM_BPS * 1e3
     top = [(n[:60], round(us, 3)) for n, us in by_name.most_common(5)]
+    hit = None
+    if c.n_experts:
+        hit = experts_hit(torch, lambda: lm.decode_step(cache, last[:, None],
+                                                         mid))
+        hit_ms = lm_decode_bytes(lm, LM_BATCH, mid, total, hit) / HBM_BPS \
+            * 1e3
 
     state_bytes = lm_state_bytes(lm, LM_BATCH)
-    checks = lm_check_consistency(torch, lm, prompts, arch)
-    checks.update(lm_check_f32(torch, lm, prompts, arch))
+    t1 = time.perf_counter()
+    stage = HostStage(torch)
+    checks = lm_check_consistency(torch, lm, prompts, arch, stage)
+    t2 = time.perf_counter()
+    checks.update(lm_check_f32(torch, lm, prompts, arch, stage))
+    checks_s = {"1": t2 - t1, "2": time.perf_counter() - t2}
+    del stage
     peak = torch.cuda.max_memory_allocated()
-    row = {"arch": arch, "params": n_params, "weight_bytes": weight_bytes,
+    row = {"arch": arch, "layers": c.n_layers,
+           "enc_layers": c.n_enc_layers, "depth": depth,
+           "params": n_params, "weight_bytes": weight_bytes,
            "decode_state_bytes": state_bytes,
            "init_and_launcher_s": build_s, "generate_ms": res["seconds"] * 1e3,
            "tok_per_s": res["tok_per_s"],
@@ -2474,47 +2874,90 @@ def lm_serve_arch(torch, arch: str, card: str) -> dict:
            "decode_top_kernels_us": top,
            "decode_bound_ms": bound_ms, "decode_bound_by": "bytes",
            "decode_x_bound": p50 / bound_ms,
-           "max_memory_allocated": peak, **checks}
-    print(f"lm {arch}, {card}: {n_params:,} params, {weight_bytes:,} weight "
-          f"bytes; prefill ({LM_BATCH}, {LM_PROMPT}) "
-          f"{row['prefill_ms']:.3f} ms; decode step p50/p99 {p50:.3f} / "
-          f"{p99:.3f} ms over {len(step_s)} steps; "
+           "max_memory_allocated": peak, "checks_s": checks_s, **checks}
+    experts = ""
+    if hit is not None:
+        row.update(experts_hit_per_layer=hit, decode_bound_hit_ms=hit_ms,
+                   decode_x_bound_hit=p50 / hit_ms)
+        experts = (f"; experts hit per MoE layer {hit} of {c.n_experts}: "
+                   f"bound {hit_ms:.3f} ms (p50 = {p50 / hit_ms:.2f}x)")
+    print(f"lm {arch}, {card}: {depth}, {n_params:,} params, "
+          f"{weight_bytes:,} weight bytes; prefill ({LM_BATCH}, "
+          f"{LM_PROMPT}) {row['prefill_ms']:.3f} ms; decode step p50/p99 "
+          f"{p50:.3f} / {p99:.3f} ms over {len(step_s)} steps; "
           f"{row['tok_per_s']:.1f} tok/s generated; {kernels} device kernels "
           f"per step ({len(names)} activities) busy {busy_us / 1e3:.3f} ms "
           f"of the card (idle share "
           f"{row['decode_device_idle_share']:.3f} at p50); bound "
-          f"{bound_ms:.3f} ms (bytes; the mamba state {state_bytes:,} B "
-          f"read and written), p50 = {row['decode_x_bound']:.2f}x, "
-          f"device busy = {busy_us / 1e3 / bound_ms:.2f}x; peak memory "
-          f"{peak:,} bytes; top kernels (µs) {top}", flush=True)
-    fr2, frl = checks["free_gated"], checks["free_f32"]
+          f"{bound_ms:.3f} ms (bytes{', all experts' if hit else ''}; the "
+          f"mamba state {state_bytes:,} B read and written), p50 = "
+          f"{row['decode_x_bound']:.2f}x, device busy = "
+          f"{busy_us / 1e3 / bound_ms:.2f}x{experts}; peak memory "
+          f"{peak:,} bytes (init's float32 draw of the largest stacked leaf "
+          f"included); top kernels (µs) {top}", flush=True)
     tf32 = checks["teacher_forced_f32"]
-    print(f"lm {arch} checks: 1a free-running at {fr2['depth']} layers "
-          f"{fr2['dtype']} {fr2['exact']}/{fr2['rows']} picks equal, max "
-          f"gap {fr2['max_gap']:.4f} <= {fr2['tol']:.4f}, max |logit diff| "
-          f"{fr2['max_abs_logit_diff']:.4f}; 1b teacher-forced "
-          f"{tf32['units']} layers float32: max layer error "
-          f"{tf32['max_layer_err']:.3g}, key/value or state "
-          f"{tf32['max_kv_err']:.3g} <= {LM_LAYER_TOL}, picks "
-          f"{tf32['exact']}/{LM_BATCH} equal; 2 float32 "
-          f"{checks['f32_layers']} layers card vs CPU max |logit err| "
+    if "free_gated" in checks:
+        fr2 = checks["free_gated"]
+        first = (f"1a free-running at {fr2['depth']} layers {fr2['dtype']} "
+                 f"{'' if fr2['gated'] else '(printed, not gated: R7) '}"
+                 f"{fr2['exact']}/{fr2['rows']} picks equal, max gap "
+                 f"{fr2['max_gap']:.4f} vs {fr2['tol']:.4f}, max |logit "
+                 f"diff| {fr2['max_abs_logit_diff']:.4f}")
+    else:
+        first = "1a skipped (encdec: decode never sees the encoder, R6)"
+    moe = (f", MoE halves vs CPU moe_apply {tf32['max_moe_err']:.3g} over "
+           f"{tf32['moe_units']} layers ({tf32['route_flips']} tokens routed "
+           f"otherwise, {tf32['route_flips_outside_ties']} outside a near "
+           f"tie)" if tf32["moe_units"] else "")
+    print(f"lm {arch} checks: {first}; 1b teacher-forced "
+          f"{tf32['units']} layers float32 (one layer's copy at a time): "
+          f"max layer error {tf32['max_layer_err']:.3g}"
+          f"{'' if tf32['picks_gated'] else ' (attention half)'}, key/value,"
+          f" latent or state {tf32['max_kv_err']:.3g} <= {LM_LAYER_TOL}"
+          f"{moe}, picks {tf32['exact']}/{LM_BATCH} equal"
+          f"{'' if tf32['picks_gated'] else ' (not gated)'}; 2 float32 "
+          f"{checks['f32_units']} units card vs CPU max |logit err| "
           f"{checks['f32_max_abs_err']:.3g} <= {checks['f32_tol']} "
-          f"({checks['f32_near_tie_flips']} near-tie flips), TF32 control "
-          f"{checks['tf32_control_err']:.3g} > {checks['f32_tol']}",
+          f"({checks['f32_near_tie_flips']} near-tie flips, "
+          f"{checks['f32_route_flips']} routing flips in "
+          f"{checks['f32_routed_calls']} MoE calls), TF32 control "
+          f"{checks['tf32_control_err']:.3g} > {checks['f32_tol']}; hidden "
+          f"error by unit {[f'{e:.3g}' for e in checks['f32_unit_err']]}; "
+          f"checks 1 and 2 took {checks_s['1']:.1f} / {checks_s['2']:.1f} s "
+          f"after {build_s:.1f} s of init and launcher",
           flush=True)
-    print(f"lm {arch} float32 free-running at full depth (R5, not gated): "
-          f"{frl['exact']}/{frl['rows']} picks equal, max |logit diff| "
-          f"{frl['max_abs_logit_diff']:.4f}; hidden drift by depth (max "
-          f"|prefill - decode| / max |prefill| at the last position) "
-          f"{frl['drift']}", flush=True)
+    if "free_f32" in checks:
+        frl = checks["free_f32"]
+        print(f"lm {arch} float32 free-running at full depth (R5, not "
+              f"gated): {frl['exact']}/{frl['rows']} picks equal, max "
+              f"|logit diff| {frl['max_abs_logit_diff']:.4f}; hidden drift "
+              f"by depth (max |prefill - decode| / max |prefill| at the "
+              f"last position) {frl['drift']}", flush=True)
     del lm, res, cache
     torch.cuda.empty_cache()
     return row
 
 
+def lm_oversize(torch, arch: str) -> str:
+    """``launch.serve.run(arch, full=True)`` for a config that does not
+    fit the card must raise ``torch.OutOfMemoryError`` naming its weight
+    bytes → the message."""
+    import gc
+    from repro_torch.launch.serve import run
+    msg = None
+    try:
+        run(arch, max_new=1, full=True, device="cuda")
+    except torch.OutOfMemoryError as e:
+        msg = str(e)
+    gc.collect()
+    torch.cuda.empty_cache()
+    if msg is None or "bytes of bfloat16 weights" not in msg:
+        raise AssertionError(f"{arch} --full: {msg!r}")
+    return msg
+
+
 def lm_phase(torch, rt, card: str) -> dict:
-    """Phase 13: the LM zoo's dense, ssm and hybrid families served at
-    full width on cuda.
+    """Phase 13: the LM zoo's families served at full width on cuda.
     It reaches none of the port's CUDA kernels: their counters are zeroed
     before and must read 0 after."""
     counted = ("swar_fused_votes", "clause_votes", "train_deltas_keyed",
@@ -2522,14 +2965,16 @@ def lm_phase(torch, rt, card: str) -> dict:
     for k in counted:
         rt[k].launches = 0
     t0 = time.perf_counter()
+    oversize = lm_oversize(torch, LM_OVERSIZE)
+    print(f"lm {LM_OVERSIZE} --full: {oversize}", flush=True)
     rows = [lm_serve_arch(torch, arch, card) for arch in LM_ARCHS]
     launched = {k: rt[k].launches for k in counted if rt[k].launches}
     if launched:
         raise AssertionError(f"the LM path launched TM kernels: {launched}")
     wall = time.perf_counter() - t0
     print(f"phase 13 (LM serving) wall {wall:.1f}s, {card}", flush=True)
-    print(json.dumps({"lm_serving": rows, "card": card, "wall_s": wall}),
-          flush=True)
+    print(json.dumps({"lm_serving": rows, "card": card, "wall_s": wall,
+                      "oversize": oversize}), flush=True)
     return {"rows": rows, "wall_s": wall}
 
 

@@ -265,8 +265,8 @@ def card_readings() -> None:
               device="cuda")
     depth = smoke.lm_depth(res["cfg"], smoke.LM_FREE_DEPTH)
     fr = smoke.lm_free_running(
-        torch, smoke.lm_truncated(torch, res["lm"], depth, torch.bfloat16),
-        res["prompts"][:, :smoke.LM_CONSIST_LEN])
+        torch, res["lm"], smoke.lm_first_units(res["lm"], depth),
+        res["prompts"][:, :smoke.LM_CONSIST_LEN], torch.bfloat16)
     print(json.dumps({"reading": "free_running", "arch": res["cfg"].name,
                       "layers": depth, "dtype": "bfloat16", "card": card,
                       **{k: fr[k] for k in ("exact", "rows", "max_gap",

@@ -1,8 +1,10 @@
-"""LM serving launcher: batched greedy decode of a dense, ssm or hybrid
-family LM (port of ``repro.launch.serve``).
+"""LM serving launcher: batched greedy decode of an LM of any family
+(port of ``repro.launch.serve``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-4b --full
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch llama4-scout-17b-a16e --full --layers 8
 
 Builds ``--arch`` (its reduced smoke config unless ``--full``) in
 bfloat16 on ``--device`` (default cuda; raises where no GPU is visible),
@@ -14,6 +16,14 @@ It generates once to warm up, then times a second run (host clock,
 ending in a device sync) and prints the JAX launcher's closing line,
 ``name: (B, max_new) in N ms (R tok/s)``.
 
+``--layers N`` (not in the JAX launcher) cuts the depth to N layers at
+unchanged widths, for the configs whose published size does not fit
+the card (llama4-scout: a multiple of ``global_every``; deepseek-v2: its
+dense first layer and N − 1 MoE layers; seamless: the decoder).  A
+config that does not fit raises ``torch.OutOfMemoryError`` naming its
+weight bytes.  ``encdec`` configs decode as the JAX ``generate`` does,
+without ``frames`` (ROADMAP.md, R6).
+
 The JAX launcher's ``--mesh`` has no counterpart: the port has no
 tensor-parallel mesh for LMs yet (ROADMAP.md, queue 1, item 7f).
 """
@@ -21,6 +31,7 @@ tensor-parallel mesh for LMs yet (ROADMAP.md, queue 1, item 7f).
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
@@ -34,10 +45,20 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _weight_bytes(cfg, dtype) -> int:
+    """Bytes of ``cfg``'s weights as ``LM`` stores them (nothing
+    allocated: counted on the meta device)."""
+    from repro_torch.models.model import LM
+    lm = LM(cfg, device="meta", dtype=dtype)
+    return sum(p.numel() * p.element_size() for p in lm.parameters())
+
+
 def run(arch: str = "qwen1.5-4b", *, batch: int = 8, prompt_len: int = 32,
-        max_new: int = 16, full: bool = False, device=None) -> dict:
+        max_new: int = 16, full: bool = False, layers: int | None = None,
+        device=None) -> dict:
     """Build, warm up and time one ``generate`` → ``{"cfg", "lm",
-    "prompts", "out", "seconds", "tok_per_s", "line"}``."""
+    "prompts", "out", "seconds", "tok_per_s", "line"}``.  ``layers``
+    cuts the depth (see the module docstring)."""
     from repro_torch.configs import get_config
     from repro_torch.configs.reduce import reduced
     from repro_torch.kernels.ops import resolve_device
@@ -48,8 +69,20 @@ def run(arch: str = "qwen1.5-4b", *, batch: int = 8, prompt_len: int = 32,
     cfg = get_config(arch)
     if not full:
         cfg = reduced(cfg)
-    lm = LM(cfg, tp=1, device=dev, dtype=torch.bfloat16)
-    lm.init(torch.Generator(device=dev).manual_seed(0))
+    if layers is not None:
+        if cfg.global_every and layers % cfg.global_every:
+            raise ValueError(f"{cfg.name}: --layers must be a multiple of "
+                             f"its superblock of {cfg.global_every}")
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    try:
+        lm = LM(cfg, tp=1, device=dev, dtype=torch.bfloat16)
+        lm.init(torch.Generator(device=dev).manual_seed(0))
+    except torch.OutOfMemoryError as e:
+        raise torch.OutOfMemoryError(
+            f"{cfg.name} at {cfg.n_layers} layers holds "
+            f"{_weight_bytes(cfg, torch.bfloat16):,} bytes of bfloat16 "
+            f"weights, more than {dev} can hold: cut its depth with "
+            f"--layers") from e
     rng = np.random.default_rng(0)
     prompts = torch.as_tensor(rng.integers(
         0, cfg.vocab_size, (batch, prompt_len), np.int32), device=dev)
@@ -75,11 +108,15 @@ def main(argv: list[str] | None = None) -> dict:
     ap.add_argument("--full", action="store_true",
                     help="the published widths (default: the reduced "
                          "smoke config)")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth to this many layers at unchanged "
+                         "widths (default: the config's)")
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda)")
     args = ap.parse_args(argv)
     res = run(args.arch, batch=args.batch, prompt_len=args.prompt_len,
-              max_new=args.max_new, full=args.full, device=args.device)
+              max_new=args.max_new, full=args.full, layers=args.layers,
+              device=args.device)
     print(res["line"], flush=True)
     return res
 

@@ -12,7 +12,8 @@ drops query heads: ROADMAP.md, R4).
 
 ``p`` is any mapping of the block's tensors by JAX leaf name (``wq``,
 ``wk``, ``wv``, ``wo`` and, with ``qkv_bias``, ``bq``, ``bk``, ``bv``):
-a dict, or the ``nn.ParameterDict`` an :class:`~.model.LM` layer holds.
+a dict, or the module an :class:`~.model.LM` layer holds its
+parameters in.
 """
 
 from __future__ import annotations

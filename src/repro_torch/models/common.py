@@ -56,8 +56,9 @@ def draw_param(d: ParamDef, generator: torch.Generator,
         return torch.ones(d.shape, dtype=dtype, device=dev)
     fan_in = d.shape[-2] if len(d.shape) >= 2 else d.shape[-1]
     scale = d.scale if d.scale is not None else fan_in ** -0.5
-    return scale * torch.randn(d.shape, generator=generator, dtype=dtype,
-                               device=dev)
+    # scaled in place: one transient of the leaf's size, not two
+    return torch.randn(d.shape, generator=generator, dtype=dtype,
+                       device=dev).mul_(scale)
 
 
 def init_params(defs, generator: torch.Generator, dtype=torch.float32):

@@ -1,8 +1,17 @@
-"""Architecture assembly (port of ``repro.models.model``): the dense
-family (tinyllama-1.1b, qwen1.5-4b, qwen1.5-110b, starcoder2-7b and
-internvl2-26b with its patch-embedding prefix), the ``ssm`` family
-(mamba2-130m) and the ``hybrid`` family (zamba2-2.7b: mamba superblocks
-with one shared attention + MLP block applied after each).
+"""Architecture assembly (port of ``repro.models.model``): every family
+of the LM zoo —
+
+- ``dense``: tinyllama-1.1b, qwen1.5-4b, qwen1.5-110b, starcoder2-7b and
+  internvl2-26b with its patch-embedding prefix;
+- ``moe``: llama4-scout (superblocks of ``global_every − 1``
+  chunked-local attention layers and one global NoPE layer, each with
+  routed experts) and deepseek-v2 (MLA attention, a dense first layer,
+  then routed experts);
+- ``ssm``: mamba2-130m;
+- ``hybrid``: zamba2-2.7b (mamba superblocks with one shared attention
+  + MLP block applied after each);
+- ``encdec``: seamless-m4t-large-v2 (a bidirectional encoder over
+  ``frames``, a decoder with self- and cross-attention).
 
 :class:`LM` is an ``nn.Module`` that holds its parameters; its methods
 mirror the JAX ``LM``'s without the ``params`` argument:
@@ -17,15 +26,25 @@ mirror the JAX ``LM``'s without the ``params`` argument:
 - ``decode_step(cache, token, pos)``      — one-token greedy decode
   (argmax without softmax — the paper's tournament argmax).
 
+As in the reference, a ``moe`` layer computes its prefill and its
+decode step with different expert capacities (``T = B·S`` tokens
+against ``T = B``; ROADMAP.md, R7), and an ``encdec`` decode step
+attends to the cache's ``xk`` / ``xv``, which ``init_cache`` zeroes and
+``generate`` never fills (R6).
+
 Storage.  ``lm.params`` is the JAX parameter tree: one tensor per JAX
-leaf, the layer axis stacked first (``layers``; ``blocks`` stacked
-twice, ``(superblock, layer)``), so it flattens, checkpoints and
-optimizes as the JAX tree does.  The modules the forward code reads —
-``embed``, ``final_norm``, ``lm_head``, ``layers.{i}.ln1`` / ``ln2`` /
-``ln``, ``layers.{i}.attn.{wq,wk,wv,wo,bq,bk,bv}``,
-``layers.{i}.mlp.{w1,w2,w3}``, ``layers.{i}.mamba.{in_proj,...}``,
-``blocks.{s}.{j}...``, ``shared...`` — hold parameters that are views of
-those tensors.  Two constructor arguments set the storage:
+leaf, the layer axes stacked first (``layers`` and ``encoder`` once;
+zamba2's ``blocks`` twice, ``(superblock, layer)``; llama4's
+``blocks/local`` twice, ``(superblock, local layer)``, and
+``blocks/global`` once), so it flattens, checkpoints and optimizes as
+the JAX tree does.  The modules the forward code reads hold parameters
+that are views of those tensors, nested as the JAX tree nests them,
+each stacked axis a ``ModuleList``: ``embed``, ``final_norm``,
+``lm_head``, ``layers[i].ln1`` / ``.attn["wq"]`` / ``.mlp`` /
+``.moe["shared"]["w1"]`` / ``.mamba``, ``blocks[s][j]`` (zamba2),
+``blocks[s].local[j]`` and ``blocks[s]["global"]`` (llama4), ``first``
+(deepseek), ``encoder[i]``, ``enc_norm``, ``shared``.  Two constructor
+arguments set the storage:
 
 - ``trainable=False`` (serving): matrices, biases and the embedding are
   stored in the compute dtype, vectors (norm weights, the mamba block's
@@ -39,14 +58,13 @@ those tensors.  Two constructor arguments set the storage:
   ``loss.backward()`` accumulates each leaf's gradient there (zero it
   in place, never with ``zero_grad(set_to_none=True)``).
 
-``remat=True`` (the JAX default) wraps each layer (a ``hybrid``
-superblock as a whole) in ``torch.utils.checkpoint`` when a trainable
-LM runs with autograd recording, where the JAX package's
-``_maybe_remat`` wraps the scan body.
+``remat=True`` (the JAX default) wraps each scanned body of the JAX
+package (a layer; a ``hybrid`` or llama4 superblock as a whole) in
+``torch.utils.checkpoint`` when a trainable LM runs with autograd
+recording, where the JAX package's ``_maybe_remat`` wraps it.
 
-The ``moe`` and ``encdec`` families raise ``NotImplementedError``
-(ROADMAP.md, queue 1).  ``input_specs`` and ``input_shardings`` come
-with the sharding and dry-run slice.
+``input_specs`` and ``input_shardings`` come with the sharding and
+dry-run slice (ROADMAP.md, queue 1, item 7f).
 """
 
 from __future__ import annotations
@@ -63,14 +81,16 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.popcount import argmax_tournament
 from repro_torch.kernels.ops import resolve_device
 
-from .attention import AttnCfg, attn_apply, attn_decode, attn_defs
-from .common import ParamDef, draw_param, flatten_defs, rms_norm
+from .attention import (AttnCfg, _out_proj, _proj, attn_apply, attn_decode,
+                        attn_defs)
+from .common import ParamDef, attention, draw_param, flatten_defs, rms_norm
 from .mamba2 import MambaCfg, mamba_apply, mamba_decode, mamba_defs
-from .moe import mlp_apply, mlp_defs
+from .mla import MLACfg, mla_apply, mla_decode, mla_defs
+from .moe import MoECfg, mlp_apply, mlp_defs, moe_apply, moe_defs
 
-__all__ = ["LM"]
+__all__ = ["LM", "FAMILIES"]
 
-FAMILIES = ("dense", "ssm", "hybrid")
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec")
 
 
 def _stack(defs, n: int):
@@ -96,22 +116,47 @@ def _set(tree: dict, path: tuple, value) -> None:
     tree[path[-1]] = value
 
 
+def _stack_outs(outs: list):
+    """Per-layer cache outputs (nested tuples of tensors) → one nested
+    tuple of tensors stacked on a new leading axis, as ``lax.scan``
+    stacks its outputs."""
+    if isinstance(outs[0], torch.Tensor):
+        return torch.stack(outs)
+    return tuple(_stack_outs(list(t)) for t in zip(*outs))
+
+
+def _node(v):
+    """A parameter, or the module of a subtree (int keys: a stacked
+    axis → ``ModuleList``)."""
+    if isinstance(v, nn.Parameter):
+        return v
+    if all(isinstance(k, int) for k in v):
+        return nn.ModuleList(_node(v[i]) for i in range(len(v)))
+    return _Layer(v)
+
+
 class _Layer(nn.Module):
-    """One layer's parameters (or the shared block's) under the JAX leaf
-    names: vectors as attributes (``ln1``, ``ln``), each sub-block
-    (``attn``, ``mlp``, ``mamba``) an ``nn.ParameterDict``."""
+    """One layer's parameters (or a superblock's, or the shared block's)
+    under the JAX leaf names, nested as the JAX tree nests them: a
+    tensor is a parameter, a subtree a child module; ``lp[name]`` reads
+    either (``lp.attn["wq"]``, ``lp.moe["shared"]["w1"]``,
+    ``bp["global"]``)."""
 
     def __init__(self, leaves: dict):
         super().__init__()
         for k, v in leaves.items():
-            if isinstance(v, dict):
-                setattr(self, k, nn.ParameterDict(v))
-            else:
+            v = _node(v)
+            if isinstance(v, nn.Parameter):
                 self.register_parameter(k, v)
+            else:
+                self.add_module(k, v)
+
+    def __getitem__(self, name: str):
+        return getattr(self, name)
 
 
 class LM(nn.Module):
-    """An LM of a ported family at ``cfg``'s widths on ``device``
+    """An LM of any family at ``cfg``'s widths on ``device``
     (``None`` → cuda; raises where no GPU is visible), computing in
     ``dtype`` (the JAX ``compute_dtype``).  ``tp`` pads heads as the JAX
     ``LM`` does for a model axis of that size, so its parameter trees
@@ -123,10 +168,7 @@ class LM(nn.Module):
                  remat: bool = True):
         super().__init__()
         if cfg.family not in FAMILIES:
-            raise NotImplementedError(
-                f"{cfg.name}: the {cfg.family!r} family is not ported yet "
-                f"(ROADMAP.md, queue 1, item 7); the port runs the "
-                f"{', '.join(FAMILIES)} families")
+            raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}")
         self.cfg = cfg
         self.tp = tp
         self.dtype = dtype
@@ -134,31 +176,40 @@ class LM(nn.Module):
         self.remat = remat
         self.device = resolve_device(device)
         c = cfg
-        if c.family in ("dense", "hybrid"):
-            self.attn_cfg = AttnCfg(
-                c.d_model, c.n_heads, c.n_kv_heads, c.head_dim,
-                qkv_bias=c.qkv_bias if c.family == "dense" else False,
-                rope_theta=c.rope_theta,
-                window=c.window if c.family == "dense" else 0, chunk=0, tp=tp)
+        if c.family in ("dense", "moe", "encdec"):
+            if c.use_mla:
+                self.mla_cfg = MLACfg(
+                    c.d_model, c.n_heads, kv_lora=c.kv_lora, q_lora=c.q_lora,
+                    rope_head_dim=c.rope_head_dim,
+                    nope_head_dim=c.nope_head_dim, v_head_dim=c.v_head_dim,
+                    rope_theta=c.rope_theta, tp=tp)
+            else:
+                self.attn_cfg = AttnCfg(
+                    c.d_model, c.n_heads, c.n_kv_heads, c.head_dim,
+                    qkv_bias=c.qkv_bias, rope_theta=c.rope_theta,
+                    window=c.window, chunk=0, tp=tp)
+                if c.chunk:   # llama4: local layers chunked, global NoPE
+                    self.attn_local = self.attn_cfg._replace(chunk=c.chunk)
+                    self.attn_global = self.attn_cfg._replace(use_rope=False)
+        if c.n_experts:
+            self.moe_cfg = MoECfg(
+                c.d_model, c.n_experts, c.top_k, c.moe_d_ff,
+                n_shared=c.n_shared_experts, shared_d_ff=c.shared_d_ff)
         if c.family in ("ssm", "hybrid"):
             self.mamba_cfg = MambaCfg(
                 c.d_model, d_state=c.ssm_state, head_dim=c.ssm_head_dim,
                 expand=c.ssm_expand, conv_kernel=c.conv_kernel,
                 chunk=c.ssm_chunk, norm_eps=c.norm_eps)
+        if c.family == "hybrid":
+            self.attn_cfg = AttnCfg(
+                c.d_model, c.n_heads, c.n_kv_heads, c.head_dim,
+                rope_theta=c.rope_theta, tp=tp)
         self._allocate()
 
     # ------------------------------------------------------------ param defs
-    def _layer_defs(self) -> dict:
-        c, e = self.cfg, self.cfg.d_model
-        if c.family == "dense":
-            return {"ln1": _norm_def(e), "ln2": _norm_def(e),
-                    "attn": attn_defs(self.attn_cfg),
-                    "mlp": mlp_defs(e, c.d_ff)}
-        return {"ln": _norm_def(e), "mamba": mamba_defs(self.mamba_cfg)}
-
     def param_defs(self) -> dict:
-        """The JAX ``LM.param_defs()`` tree: layers stacked on a leading
-        axis (``blocks`` on two), as the JAX package stores them."""
+        """The JAX ``LM.param_defs()`` tree: layers stacked on leading
+        axes, as the JAX package stores them."""
         c = self.cfg
         e, vp = c.d_model, c.padded_vocab
         defs: dict[str, Any] = {
@@ -167,16 +218,56 @@ class LM(nn.Module):
         }
         if not c.tie_embeddings:
             defs["lm_head"] = ParamDef((e, vp), ("embed", "vocab"))
-        if c.family == "hybrid":
-            nsb = c.n_layers // c.shared_attn_every
-            defs["blocks"] = _stack(_stack(self._layer_defs(),
-                                           c.shared_attn_every), nsb)
-            defs["shared"] = {"ln1": _norm_def(e), "ln2": _norm_def(e),
-                              "attn": attn_defs(self.attn_cfg),
-                              "mlp": mlp_defs(e, c.d_ff)}
-        else:
-            defs["layers"] = _stack(self._layer_defs(), c.n_layers)
+
+        def layer(attn, ffn, **extra):
+            return {"ln1": _norm_def(e), "ln2": _norm_def(e), **extra,
+                    "attn": attn, **ffn}
+
+        if c.family == "dense":
+            defs["layers"] = _stack(layer(attn_defs(self.attn_cfg),
+                                          {"mlp": mlp_defs(e, c.d_ff)}),
+                                    c.n_layers)
+        elif c.family == "moe" and not c.use_mla:     # llama4 superblocks
+            moe = {"moe": moe_defs(self.moe_cfg)}
+            local = layer(attn_defs(self.attn_local), moe)
+            glob = layer(attn_defs(self.attn_global), moe)
+            defs["blocks"] = _stack({"local": _stack(local,
+                                                     c.global_every - 1),
+                                     "global": glob},
+                                    c.n_layers // c.global_every)
+        elif c.family == "moe":                       # deepseek (MLA)
+            defs["first"] = layer(mla_defs(self.mla_cfg),
+                                  {"mlp": mlp_defs(e, c.d_ff)})
+            defs["layers"] = _stack(layer(mla_defs(self.mla_cfg),
+                                          {"moe": moe_defs(self.moe_cfg)}),
+                                    c.n_layers - c.first_dense)
+        elif c.family == "ssm":
+            defs["layers"] = _stack({"ln": _norm_def(e),
+                                     "mamba": mamba_defs(self.mamba_cfg)},
+                                    c.n_layers)
+        elif c.family == "hybrid":
+            mlayer = {"ln": _norm_def(e), "mamba": mamba_defs(self.mamba_cfg)}
+            defs["blocks"] = _stack(_stack(mlayer, c.shared_attn_every),
+                                    c.n_layers // c.shared_attn_every)
+            defs["shared"] = layer(attn_defs(self.attn_cfg),
+                                   {"mlp": mlp_defs(e, c.d_ff)})
+        else:                                         # encdec
+            mlp = {"mlp": mlp_defs(e, c.d_ff)}
+            defs["encoder"] = _stack(layer(attn_defs(self.attn_cfg), mlp),
+                                     c.n_enc_layers)
+            defs["enc_norm"] = _norm_def(e)
+            defs["layers"] = _stack(
+                layer(attn_defs(self.attn_cfg), mlp, ln3=_norm_def(e),
+                      xattn=attn_defs(self.attn_cfg)), c.n_layers)
         return defs
+
+    @staticmethod
+    def _module_path(path: tuple, idx: tuple) -> tuple:
+        """Where the view of JAX leaf ``path`` at stacking index ``idx``
+        sits in the module tree (ints index a ``ModuleList``)."""
+        if path[:2] == ("blocks", "local"):     # llama4 (superblock, layer)
+            return ("blocks", idx[0], "local", idx[1], *path[2:])
+        return (path[0], *idx, *path[1:])
 
     def _allocate(self) -> None:
         """One tensor per JAX leaf (``self.params``), per-layer parameter
@@ -184,8 +275,8 @@ class LM(nn.Module):
         tree ``self.grads`` that the parameters' ``.grad`` view."""
         self.params: dict = {}
         self.grads: dict | None = {} if self.trainable else None
-        top: dict = {}
-        per: dict = {}                 # layer index tuple → leaves
+        self._views: dict = {}          # JAX leaf path → its parameters
+        tree: dict = {}
         for path, d in flatten_defs(self.param_defs()):
             n_stack = 0
             while n_stack < len(d.axes) and d.axes[n_stack] == "layers":
@@ -197,51 +288,43 @@ class LM(nn.Module):
             if n_stack == 0:
                 buf = nn.Parameter(buf, requires_grad=self.trainable)
                 buf.grad = grad
-                _set(top, path, buf)
+                views = [(path, buf)]
             else:
+                views = []
                 for idx in itertools.product(*map(range, d.shape[:n_stack])):
                     p = nn.Parameter(buf[idx], requires_grad=self.trainable)
                     if grad is not None:
                         p.grad = grad[idx]
-                    _set(per.setdefault(idx, {}), path[1:], p)
+                    views.append((self._module_path(path, idx), p))
+            for where, p in views:
+                _set(tree, where, p)
+            self._views[path] = [p for _, p in views]
             _set(self.params, path, buf)
             if grad is not None:
                 _set(self.grads, path, grad)
-        for name in ("embed", "final_norm", "lm_head"):
-            if name in top:
-                self.register_parameter(name, top[name])
-        c = self.cfg
-        if c.family == "hybrid":
-            k = c.shared_attn_every
-            self.blocks = nn.ModuleList(
-                nn.ModuleList(_Layer(per[(s, j)]) for j in range(k))
-                for s in range(c.n_layers // k))
-            self.shared = _Layer(top["shared"])
-        else:
-            self.layers = nn.ModuleList(_Layer(per[(i,)])
-                                        for i in range(c.n_layers))
+        for name, v in tree.items():
+            v = _node(v)
+            if isinstance(v, nn.Parameter):
+                self.register_parameter(name, v)
+            else:
+                self.add_module(name, v)
 
     def leaf_parameters(self, path: tuple) -> list[nn.Parameter]:
         """The parameters that view the JAX leaf at ``path``: one per
-        layer, in stacking order, for a ``layers`` / ``blocks`` leaf."""
-        name = ".".join(path[1:])
-        if path[0] == "layers":
-            return [layer.get_parameter(name) for layer in self.layers]
-        if path[0] == "blocks":
-            return [layer.get_parameter(name) for blk in self.blocks
-                    for layer in blk]
-        return [self.get_parameter(".".join(path))]
+        stacked index, in stacking order."""
+        return self._views[tuple(path)]
 
     @torch.no_grad()
     def load_leaf(self, path: tuple, value: torch.Tensor) -> None:
-        """Copy one JAX-layout leaf (stacked for ``layers`` / ``blocks``)
-        into ``self.params``, cast to its dtype and device."""
+        """Copy one JAX-layout leaf (layer axes stacked) into
+        ``self.params``, cast to its dtype and device."""
         _get(self.params, path).copy_(value)
 
     def init(self, generator: torch.Generator) -> "LM":
-        """Seeded weights: each leaf of :meth:`param_defs` drawn in
+        """Seeded weights: each leaf of :meth:`param_defs` drawn whole in
         ``jax.tree.flatten`` order from ``generator`` (float32, on the
-        generator's device), then stored.  Returns ``self``."""
+        generator's device, so a stacked leaf's float32 draw is a
+        transient of its full size), then stored.  Returns ``self``."""
         for path, d in flatten_defs(self.param_defs()):
             self.load_leaf(path, draw_param(d, generator))
         return self
@@ -261,21 +344,58 @@ class LM(nn.Module):
         return logits
 
     # ---------------------------------------------------------------- layers
-    def _layer(self, lp: _Layer, x: torch.Tensor):
-        """One dense layer over the whole sequence → (x', (k, v))."""
-        eps = self.cfg.norm_eps
-        a, kv = attn_apply(self.attn_cfg, lp.attn, rms_norm(x, lp.ln1, eps))
-        x = x + a
-        return x + mlp_apply(lp.mlp, rms_norm(x, lp.ln2, eps)), kv
+    def _attn(self, cfg, lp, x: torch.Tensor, kind: str = "causal"):
+        """A layer's attention half over the whole sequence: ``x +
+        attention(ln1(x))`` → (x', its cache: (k, v), or MLA's (c_kv,
+        k_pe))."""
+        h = rms_norm(x, lp.ln1, self.cfg.norm_eps)
+        if isinstance(cfg, MLACfg):
+            a, kv = mla_apply(cfg, lp.attn, h)
+        else:
+            a, kv = attn_apply(cfg, lp.attn, h, kind=kind)
+        return x + a, kv
 
-    def _mamba_layer(self, lp: _Layer, x: torch.Tensor):
+    def _attn_decode(self, cfg, lp, x: torch.Tensor, cache_a: torch.Tensor,
+                     cache_b: torch.Tensor, pos: int) -> torch.Tensor:
+        """A layer's attention half for one token (B, 1, E), its keys and
+        values (MLA: latents) written into the layer's cache at ``pos``."""
+        h = rms_norm(x, lp.ln1, self.cfg.norm_eps)
+        fn = mla_decode if isinstance(cfg, MLACfg) else attn_decode
+        a, _, _ = fn(cfg, lp.attn, h, cache_a, cache_b, pos)
+        return x + a
+
+    def _ffn(self, lp, x: torch.Tensor, ln: str = "ln2") -> torch.Tensor:
+        """A layer's FFN half: ``x + ffn(norm(x))``, the routed experts
+        where the layer has them, else the SwiGLU MLP."""
+        h = rms_norm(x, lp[ln], self.cfg.norm_eps)
+        if hasattr(lp, "moe"):
+            return x + moe_apply(self.moe_cfg, lp.moe, h)
+        return x + mlp_apply(lp.mlp, h)
+
+    def _layer(self, lp, x: torch.Tensor, cfg=None, kind: str = "causal"):
+        """One attention + FFN layer over the whole sequence (``cfg``:
+        its attention config, default ``attn_cfg``) → (x', its cache)."""
+        x, kv = self._attn(cfg or self.attn_cfg, lp, x, kind)
+        return self._ffn(lp, x), kv
+
+    def _decode_layer(self, lp, x: torch.Tensor, cache_k: torch.Tensor,
+                      cache_v: torch.Tensor, pos: int,
+                      cfg=None) -> torch.Tensor:
+        """One attention + FFN layer (or the shared block) for one token
+        (B, 1, E), its keys and values written into the layer's cache
+        (B, S_cache, hkv, D; MLA: the latent caches) at ``pos``."""
+        x = self._attn_decode(cfg or self.attn_cfg, lp, x, cache_k, cache_v,
+                              pos)
+        return self._ffn(lp, x)
+
+    def _mamba_layer(self, lp, x: torch.Tensor):
         """One mamba layer over the whole sequence → (x', (conv_state,
         ssm_state))."""
         y, st = mamba_apply(self.mamba_cfg, lp.mamba,
                             rms_norm(x, lp.ln, self.cfg.norm_eps))
         return x + y, st
 
-    def _superblock(self, bp: nn.ModuleList, x: torch.Tensor):
+    def _superblock(self, bp, x: torch.Tensor):
         """A hybrid superblock: its mamba layers, then the shared block
         → (x', ((conv, ssm) stacked over the layers, (k, v)))."""
         sts = []
@@ -283,14 +403,73 @@ class LM(nn.Module):
             x, st = self._mamba_layer(lp, x)
             sts.append(st)
         x, kv = self._layer(self.shared, x)
-        return x, (tuple(torch.stack(t) for t in zip(*sts)), kv)
+        return x, (_stack_outs(sts), kv)
 
-    def _forward(self, tokens: torch.Tensor, *, prefix=None,
+    def _local_global(self, bp, x: torch.Tensor):
+        """A llama4 superblock: its chunked-local layers, then the global
+        NoPE layer → (x', ((k, v) stacked over the local layers, (k, v)
+        of the global one))."""
+        kvs = []
+        for lp in bp.local:
+            x, kv = self._layer(lp, x, self.attn_local)
+            kvs.append(kv)
+        x, gkv = self._layer(bp["global"], x, self.attn_global)
+        return x, (_stack_outs(kvs), gkv)
+
+    def _enc_layer(self, lp, x: torch.Tensor):
+        """One encoder layer: bidirectional attention, then the MLP."""
+        return self._layer(lp, x, kind="bidir")
+
+    def _cross_attn(self, p, x: torch.Tensor, enc: torch.Tensor):
+        """Cross-attention: queries from ``x``, keys and values from the
+        encoder output; no RoPE, biases or head mask → (y, (k, v))."""
+        k, v = _proj(enc, p["wk"]), _proj(enc, p["wv"])
+        out = attention(_proj(x, p["wq"]), k, v, kind="bidir")
+        return _out_proj(out, p["wo"]), (k, v)
+
+    def _dec_layer(self, lp, x: torch.Tensor, enc: torch.Tensor):
+        """One decoder layer over the whole sequence → (x', ((k, v),
+        the cross-attention's (k, v)))."""
+        eps = self.cfg.norm_eps
+        x, kv = self._attn(self.attn_cfg, lp, x)
+        xa, xkv = self._cross_attn(lp.xattn, rms_norm(x, lp.ln2, eps), enc)
+        return self._ffn(lp, x + xa, "ln3"), (kv, xkv)
+
+    def _dec_decode_layer(self, lp, x: torch.Tensor, cache_k: torch.Tensor,
+                          cache_v: torch.Tensor, xk: torch.Tensor,
+                          xv: torch.Tensor, pos: int) -> torch.Tensor:
+        """One decoder layer for one token: self-attention over the
+        layer's cache (written at ``pos``), cross-attention over the
+        cache's ``xk`` / ``xv`` (not written)."""
+        x = self._attn_decode(self.attn_cfg, lp, x, cache_k, cache_v, pos)
+        return self._ffn(lp, self._cross_decode(lp, x, xk, xv), "ln3")
+
+    def _cross_decode(self, lp, x: torch.Tensor, xk: torch.Tensor,
+                      xv: torch.Tensor) -> torch.Tensor:
+        """A decoder layer's cross-attention half for one token: ``x +
+        xattn(ln2(x))`` over the cached keys ``xk`` and values ``xv``."""
+        h = rms_norm(x, lp.ln2, self.cfg.norm_eps)
+        out = attention(_proj(h, lp.xattn["wq"]), xk, xv, kind="bidir")
+        return x + _out_proj(out, lp.xattn["wo"])
+
+    def _encode(self, frames: torch.Tensor, call=None) -> torch.Tensor:
+        """The encoder over ``frames`` (B, S_enc, E), then ``enc_norm``."""
+        call = call or (lambda fn, lp, x: fn(lp, x))
+        enc = frames.to(self.dtype)
+        for lp in self.encoder:
+            enc, _ = call(self._enc_layer, lp, enc)
+        return rms_norm(enc, self.enc_norm, self.cfg.norm_eps)
+
+    def _forward(self, tokens: torch.Tensor, *, prefix=None, frames=None,
                  emit_cache: bool = False):
         """→ (hidden (B,S,E), cache-or-None). S includes any prefix.
         The cache is the JAX scan's output: dense ``(k, v)`` each
-        (L, B, S, hkv, D); ssm ``(conv, ssm)``; hybrid ``((conv, ssm)
-        each (nsb, k, ...), (k, v) each (nsb, B, S, hkv, D))``."""
+        (L, B, S, hkv, D); llama4 ``((k, v) each (nsb, nloc, B, S, hkv,
+        D), (k, v) each (nsb, B, S, hkv, D))``; deepseek ``((c_kv, k_pe)
+        of the first layer, (c_kv, k_pe) stacked over the others)``; ssm
+        ``(conv, ssm)``; hybrid ``((conv, ssm) each (nsb, k, ...), (k, v)
+        each (nsb, B, S, hkv, D))``; encdec ``((k, v), (xk, xv))`` each
+        stacked over the decoder layers."""
         c = self.cfg
         x = self._embed(tokens)
         if prefix is not None:
@@ -302,10 +481,21 @@ class LM(nn.Module):
                 return checkpoint(fn, lp, x, use_reentrant=False)
             return fn(lp, x)
 
+        first = None
         if c.family == "hybrid":
             body, stack = self._superblock, self.blocks
+        elif c.family == "moe" and not c.use_mla:
+            body, stack = self._local_global, self.blocks
+        elif c.family == "moe":          # the dense first layer, unscanned
+            x, first = self._layer(self.first, x, self.mla_cfg)
+            body, stack = (lambda lp, x: self._layer(lp, x, self.mla_cfg),
+                           self.layers)
         elif c.family == "ssm":
             body, stack = self._mamba_layer, self.layers
+        elif c.family == "encdec":
+            enc = self._encode(frames, call)
+            body, stack = (lambda lp, x: self._dec_layer(lp, x, enc),
+                           self.layers)
         else:
             body, stack = self._layer, self.layers
         outs = []
@@ -316,26 +506,31 @@ class LM(nn.Module):
         x = rms_norm(x, self.final_norm, c.norm_eps)
         if not emit_cache:
             return x, None
-        if c.family == "hybrid":
-            sts, kvs = zip(*outs)
-            return x, (tuple(torch.stack(t) for t in zip(*sts)),
-                       tuple(torch.stack(t) for t in zip(*kvs)))
-        return x, tuple(torch.stack(t) for t in zip(*outs))
+        cache = _stack_outs(outs)
+        return x, (cache if first is None else (first, cache))
 
     # ------------------------------------------------------------------ loss
+    def _inputs(self, batch: dict) -> dict:
+        kw = {}
+        if self.cfg.prefix_len:
+            kw["prefix"] = batch["prefix"]
+        if self.cfg.family == "encdec":
+            kw["frames"] = batch["frames"]
+        return kw
+
     def loss(self, batch: dict):
         """Next-token cross entropy over ``batch["tokens"]`` (B, S)
         against ``batch["targets"]`` (B, S) (plus ``batch["prefix"]``
-        where the config has one; the loss covers token positions only)
-        → (loss, {"loss", "acc"}), float32 scalars.
+        where the config has one, ``batch["frames"]`` for ``encdec``; the
+        loss covers token positions only) → (loss, {"loss", "acc"}),
+        float32 scalars.
 
         As the JAX function: the max through a stop-gradient, then
         log-sum-exp, then the one-hot contraction; ``acc`` uses argmax's
         first-index tie rule.  The padded vocabulary's ``-1e30`` columns
         get zero gradient."""
         c = self.cfg
-        kw = {"prefix": batch["prefix"]} if c.prefix_len else {}
-        h, _ = self._forward(batch["tokens"], **kw)
+        h, _ = self._forward(batch["tokens"], **self._inputs(batch))
         if c.prefix_len:                  # loss only over token positions
             h = h[:, c.prefix_len:]
         logits = self._logits(h)
@@ -351,13 +546,12 @@ class LM(nn.Module):
     # --------------------------------------------------------------- prefill
     @torch.no_grad()
     def prefill(self, batch: dict):
-        """``batch["tokens"]`` (B, S) (and ``batch["prefix"]``
-        (B, P, E) where the config has a prefix) → (next token (B,)
-        int32, the prefill cache of :meth:`_forward`)."""
-        kw = {"emit_cache": True}
-        if self.cfg.prefix_len:
-            kw["prefix"] = batch["prefix"]
-        h, cache = self._forward(batch["tokens"], **kw)
+        """``batch["tokens"]`` (B, S) (and ``batch["prefix"]`` (B, P, E)
+        where the config has a prefix, ``batch["frames"]`` (B, S_enc, E)
+        for ``encdec``) → (next token (B,) int32, the prefill cache of
+        :meth:`_forward`)."""
+        h, cache = self._forward(batch["tokens"], emit_cache=True,
+                                 **self._inputs(batch))
         logits = self._logits(h[:, -1:])
         return argmax_tournament(logits[:, 0]), cache
 
@@ -365,24 +559,50 @@ class LM(nn.Module):
     def init_cache(self, batch: int, cache_len: int, dtype=None) -> dict:
         """Zeroed decode cache, as the JAX ``init_cache``: dense
         ``{"k", "v"}`` each (L, B, len, hkv, D) (a sliding-window config
-        keeps ``min(window, cache_len)`` slots); ssm ``{"conv" (L, B,
-        conv_dim, K−1), "ssm" (L, B, H, P, N) float32}``; hybrid the same
-        with (nsb, k) leading axes plus ``"attn": {"k", "v"}`` each
-        (nsb, B, len, hkv, D)."""
+        keeps ``min(window, cache_len)`` slots); llama4 ``{"local":
+        {"k", "v"} each (nsb, nloc, B, min(chunk, len), hkv, D),
+        "global": {"k", "v"} each (nsb, B, len, hkv, D)}``; deepseek
+        ``{"first": {"ckv" (B, len, kv_lora), "kpe" (B, len,
+        rope_head_dim)}, "rest": the same with a leading n_layers − 1}``;
+        ssm ``{"conv" (L, B, conv_dim, K−1), "ssm" (L, B, H, P, N)
+        float32}``; hybrid the same with (nsb, k) leading axes plus
+        ``"attn": {"k", "v"}`` each (nsb, B, len, hkv, D); encdec
+        ``{"k", "v"}`` each (L, B, len, hkv, D) and ``"xk"``, ``"xv"``
+        each (L, B, max(1, len // enc_len_ratio), hkv, D)."""
         c = self.cfg
         dt = dtype or self.dtype
 
         def zeros(*shape, dtype=dt):
             return torch.zeros(shape, dtype=dtype, device=self.device)
 
-        def kv(n, length):
+        def kv(lead, length):
             a = self.attn_cfg
-            return {"k": zeros(n, batch, length, a.hkv, a.head_dim),
-                    "v": zeros(n, batch, length, a.hkv, a.head_dim)}
+            shape = (*lead, batch, length, a.hkv, a.head_dim)
+            return {"k": zeros(*shape), "v": zeros(*shape)}
 
         if c.family == "dense":
-            return kv(c.n_layers,
+            return kv((c.n_layers,),
                       min(c.window, cache_len) if c.window else cache_len)
+        if c.family == "moe" and not c.use_mla:       # llama4
+            nsb = c.n_layers // c.global_every
+            return {"local": kv((nsb, c.global_every - 1),
+                                min(c.chunk, cache_len)),
+                    "global": kv((nsb,), cache_len)}
+        if c.family == "moe":                          # deepseek MLA latent
+            m = self.mla_cfg
+
+            def latent(*lead):
+                return {"ckv": zeros(*lead, batch, cache_len, m.kv_lora),
+                        "kpe": zeros(*lead, batch, cache_len,
+                                     m.rope_head_dim)}
+            # ``rest`` holds n_layers − 1 layers, as the reference sizes it,
+            # where the stack holds n_layers − first_dense (ROADMAP.md, R8)
+            return {"first": latent(), "rest": latent(c.n_layers - 1)}
+        if c.family == "encdec":
+            out = kv((c.n_layers,), cache_len)
+            xkv = kv((c.n_layers,), max(1, cache_len // c.enc_len_ratio))
+            out["xk"], out["xv"] = xkv["k"], xkv["v"]
+            return out
         m = self.mamba_cfg
         lead = (c.n_layers,) if c.family == "ssm" else \
             (c.n_layers // c.shared_attn_every, c.shared_attn_every)
@@ -390,24 +610,10 @@ class LM(nn.Module):
                "ssm": zeros(*lead, batch, m.n_heads, m.head_dim, m.d_state,
                             dtype=torch.float32)}
         if c.family == "hybrid":
-            out["attn"] = kv(lead[0], cache_len)
+            out["attn"] = kv(lead[:1], cache_len)
         return out
 
-    def _decode_layer(self, lp: _Layer, x: torch.Tensor,
-                      cache_k: torch.Tensor, cache_v: torch.Tensor,
-                      pos: int) -> torch.Tensor:
-        """One dense layer (or the shared block) for one token
-        (B, 1, E), its keys and values written into the layer's cache
-        (B, S_cache, hkv, D) at ``pos``."""
-        eps = self.cfg.norm_eps
-        a, _, _ = attn_decode(self.attn_cfg, lp.attn,
-                              rms_norm(x, lp.ln1, eps), cache_k, cache_v,
-                              pos)
-        x = x + a
-        return x + mlp_apply(lp.mlp, rms_norm(x, lp.ln2, eps))
-
-    def _mamba_decode_layer(self, lp: _Layer, x: torch.Tensor,
-                            conv: torch.Tensor,
+    def _mamba_decode_layer(self, lp, x: torch.Tensor, conv: torch.Tensor,
                             ssm: torch.Tensor) -> torch.Tensor:
         """One mamba layer for one token (B, 1, E), its states written
         into ``conv`` (B, conv_dim, K−1) and ``ssm`` (B, H, P, N)."""
@@ -422,7 +628,8 @@ class LM(nn.Module):
     def _decode_hidden(self, cache: dict, token: torch.Tensor,
                        pos: int) -> torch.Tensor:
         """The final-normed hidden state (B, 1, E) of one decode step;
-        writes the step's keys, values and states into ``cache``."""
+        writes the step's keys, values, latents and states into
+        ``cache``."""
         c = self.cfg
         pos = int(pos)
         x = self._embed(token)
@@ -430,17 +637,38 @@ class LM(nn.Module):
             for i, lp in enumerate(self.layers):
                 x = self._decode_layer(lp, x, cache["k"][i], cache["v"][i],
                                        pos)
+        elif c.family == "moe" and not c.use_mla:      # llama4
+            loc, glo = cache["local"], cache["global"]
+            for s, bp in enumerate(self.blocks):
+                for j, lp in enumerate(bp.local):
+                    x = self._decode_layer(lp, x, loc["k"][s, j],
+                                           loc["v"][s, j], pos,
+                                           self.attn_local)
+                x = self._decode_layer(bp["global"], x, glo["k"][s],
+                                       glo["v"][s], pos, self.attn_global)
+        elif c.family == "moe":                        # deepseek
+            first, rest = cache["first"], cache["rest"]
+            x = self._decode_layer(self.first, x, first["ckv"], first["kpe"],
+                                   pos, self.mla_cfg)
+            for i, lp in enumerate(self.layers):
+                x = self._decode_layer(lp, x, rest["ckv"][i],
+                                       rest["kpe"][i], pos, self.mla_cfg)
         elif c.family == "ssm":
             for i, lp in enumerate(self.layers):
                 x = self._mamba_decode_layer(lp, x, cache["conv"][i],
                                              cache["ssm"][i])
-        else:
+        elif c.family == "hybrid":
             for s, bp in enumerate(self.blocks):
                 for j, lp in enumerate(bp):
                     x = self._mamba_decode_layer(lp, x, cache["conv"][s, j],
                                                  cache["ssm"][s, j])
                 x = self._decode_layer(self.shared, x, cache["attn"]["k"][s],
                                        cache["attn"]["v"][s], pos)
+        else:                                          # encdec
+            for i, lp in enumerate(self.layers):
+                x = self._dec_decode_layer(lp, x, cache["k"][i],
+                                           cache["v"][i], cache["xk"][i],
+                                           cache["xv"][i], pos)
         return rms_norm(x, self.final_norm, c.norm_eps)
 
     def decode_step(self, cache: dict, token: torch.Tensor, pos):

@@ -1233,3 +1233,117 @@ def test_bf16_and_train_state_checkpoint_from_cuda(cuda, tmp_path):
     for a, b in zip(ttree.leaves(got), ttree.leaves(want)):
         assert a.device.type == "cuda" and a.dtype == b.dtype
         assert torch.equal(a, b)
+
+
+# -- the moe and encdec families: cuda against the CPU
+#
+# float32, reduced widths, LM_TOL.  Routing: the inputs' k-th and
+# (k+1)-th gates must lie more than 1e-5 apart (a stated precondition:
+# cuBLAS and the CPU round the router product differently, so a closer
+# pair could route differently on the two devices); then the expert
+# picks are equal.
+
+LM_MOE_ENCDEC = ["llama4-scout-17b-a16e", "deepseek-v2-236b",
+                 "seamless-m4t-large-v2"]
+
+
+@pytest.mark.parametrize("case", [(64, 4, 1, 128, 1, 128, 3, 12),
+                                  (64, 8, 2, 64, 2, 128, 3, 12),
+                                  (64, 160, 6, 16, 2, 32, 8, 1)],
+                         ids=["llama4-reduced", "deepseek-reduced",
+                              "deepseek-E160-decode"])
+def test_moe_apply_on_cuda_equals_cpu(cuda, case):
+    """``moe_apply`` with dropped tokens (and a decode step's B=8, S=1
+    at deepseek's E and k) on both devices: routing equal, output within
+    LM_TOL."""
+    from repro_torch.models import moe
+    from repro_torch.models.common import init_params
+    *args, b, s = case
+    c = moe.MoECfg(*args)
+    p = init_params(moe.moe_defs(c), torch.Generator().manual_seed(7))
+    p["router"] = p["router"] * 8.0
+    g = torch.Generator().manual_seed(8)
+    x = torch.randn((64,), generator=g) + torch.randn((b, s, 64), generator=g)
+    r = moe.moe_route(c, p["router"], x.reshape(-1, 64))
+    top = r.gates.sort(-1, descending=True).values
+    assert float((top[:, c.top_k - 1] - top[:, c.top_k]).min()) > 1e-5
+    assert int((~r.keep).sum()) > 0
+    dp = {k: ({n: t.to(cuda) for n, t in v.items()} if isinstance(v, dict)
+              else v.to(cuda)) for k, v in p.items()}
+    dr = moe.moe_route(c, dp["router"], x.reshape(-1, 64).to(cuda))
+    np.testing.assert_array_equal(dr.top_i.cpu().numpy(), r.top_i.numpy())
+    np.testing.assert_array_equal(dr.keep.cpu().numpy(), r.keep.numpy())
+    _lm_close(moe.moe_apply(c, dp, x.to(cuda)), moe.moe_apply(c, p, x))
+
+
+@pytest.mark.parametrize("absorbed", [True, False])
+@pytest.mark.parametrize("tp", [1, 3])
+def test_mla_decode_on_cuda_equals_cpu(cuda, tp, absorbed):
+    """``mla_decode`` step by step over 12 positions into a 10-slot
+    latent cache (the last two clamp), both forms, padded heads."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.reduce import reduced
+    from repro_torch.models import mla
+    from repro_torch.models.common import init_params
+    cfg = reduced(get_config("deepseek-v2-236b"))
+    c = mla.MLACfg(cfg.d_model, cfg.n_heads, kv_lora=cfg.kv_lora,
+                   q_lora=cfg.q_lora, rope_head_dim=cfg.rope_head_dim,
+                   nope_head_dim=cfg.nope_head_dim,
+                   v_head_dim=cfg.v_head_dim, tp=tp)
+    p = init_params(mla.mla_defs(c), torch.Generator().manual_seed(9))
+    dp = {n: t.to(cuda) for n, t in p.items()}
+    ckv, kpe = torch.zeros(2, 10, c.kv_lora), torch.zeros(2, 10,
+                                                          c.rope_head_dim)
+    dckv, dkpe = ckv.to(cuda), kpe.to(cuda)
+    xs = torch.randn((12, 2, 1, 64), generator=torch.Generator()
+                     .manual_seed(10))
+    for pos in range(12):
+        y, ckv, kpe = mla.mla_decode(c, p, xs[pos], ckv, kpe, pos,
+                                     absorbed=absorbed)
+        dy, dckv, dkpe = mla.mla_decode(c, dp, xs[pos].to(cuda), dckv, dkpe,
+                                        pos, absorbed=absorbed)
+        _lm_close(dy, y)
+        _lm_close(dckv, ckv)
+        _lm_close(dkpe, kpe)
+
+
+@pytest.mark.parametrize("arch", LM_MOE_ENCDEC)
+def test_lm_moe_encdec_prefill_and_decode_on_cuda_equal_cpu(cuda, arch):
+    """llama4 / deepseek / seamless: prefill (hidden states, logits,
+    token, every cache leaf; seamless with ``frames``) at S = 24 and 24
+    decode steps (tokens and every cache leaf; llama4's chunk-16 ring
+    wraps at position 16, a wrap that published widths, chunk 8,192,
+    never reach in ``chip_smoke.py``) on both devices."""
+    from repro_torch import tree as ttree
+    cfg, cpu, dev = _lm_pair(cuda, arch)
+    rng = np.random.default_rng(11)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 24),
+                                        np.int32))
+    batch = {"tokens": toks}
+    if cfg.family == "encdec":
+        batch["frames"] = torch.as_tensor(rng.normal(
+            0, 1, (2, 24 // cfg.enc_len_ratio, cfg.d_model))
+            .astype(np.float32))
+    dbatch = {k: t.to(cuda) for k, t in batch.items()}
+    kw = {k: v for k, v in batch.items() if k == "frames"}
+    h, _ = cpu._forward(toks, **kw)
+    dh, _ = dev._forward(toks.to(cuda),
+                         **{k: v for k, v in dbatch.items() if k == "frames"})
+    logits = cpu._logits(h[:, -1:])[:, 0]
+    _lm_close(dh, h)
+    _lm_close(dev._logits(dh[:, -1:])[:, 0], logits)
+    tok, cache = cpu.prefill(batch)
+    dtok, dcache = dev.prefill(dbatch)
+    _lm_tokens_agree(dtok, tok, logits)
+    for got, want in zip(ttree.leaves(dcache), ttree.leaves(cache)):
+        _lm_close(got, want)
+    cache, dcache = cpu.init_cache(2, 24), dev.init_cache(2, 24)
+    for pos in range(24):
+        t = toks[:, pos:pos + 1]
+        logits = cpu._logits(cpu._decode_hidden(
+            ttree.map(torch.clone, cache), t, pos))[:, 0]
+        nxt, cache = cpu.decode_step(cache, t, pos)
+        dnxt, dcache = dev.decode_step(dcache, t.to(cuda), pos)
+        _lm_tokens_agree(dnxt, nxt, logits)
+        for got, want in zip(ttree.leaves(dcache), ttree.leaves(cache)):
+            _lm_close(got, want)

@@ -500,14 +500,17 @@ def test_bf16_prefill_and_decode_near_ties():
 
 @pytest.mark.parametrize("arch", OTHER)
 def test_other_families_raise(arch):
-    """The ``moe`` and ``encdec`` families raise; the ``ssm`` and
-    ``hybrid`` ones build (their parity: ``tests/test_torch_lm_ssm.py``)."""
-    cfg = reduced(get_config(arch))
-    if cfg.family in ("ssm", "hybrid"):
-        assert LM(cfg, device="meta").cfg.family == cfg.family
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1"):
-        LM(cfg, device="cpu")
+    """Every family builds now (the name is kept from when ``moe`` and
+    ``encdec`` raised): each config's reduced and published trees build
+    on the meta device, and ``FAMILIES`` names its family (their
+    parity: ``tests/test_torch_lm_ssm.py``, ``test_torch_lm_moe.py``,
+    ``test_torch_lm_encdec.py``)."""
+    from repro_torch.models.model import FAMILIES
+    for cfg in (reduced(get_config(arch)), get_config(arch)):
+        assert cfg.family in FAMILIES
+        lm = LM(cfg, device="meta")
+        assert lm.cfg.family == cfg.family
+        assert all(p.device.type == "meta" for p in lm.parameters())
 
 
 def test_lm_params_from_numpy_rejects_bad_trees():
