@@ -15,8 +15,9 @@ device mesh (the card's own, and four simulated shards of it) through a
 kill and an elastic restore onto another mesh size, serves the LM
 zoo's qwen1.5-4b, tinyllama-1.1b, mamba2-130m, zamba2-2.7b,
 llama4-scout-17b-a16e and deepseek-v2-236b (depth cut) and
-seamless-m4t-large-v2 at their published widths, and trains
-tinyllama-1.1b at its published width.
+seamless-m4t-large-v2 at their published widths, trains
+tinyllama-1.1b at its published width, and serves qwen1.5-4b and trains
+tinyllama-1.1b tensor- and data-parallel on a (2, 2) LM mesh.
 
     python3 chip_smoke.py
 
@@ -209,7 +210,19 @@ package.  Phases, each on its own lines:
    card vs CPU at 2 layers, gate 2 the loss falling on a fixed batch
    at 2 layers of the same weights, gate 3 ``launch.train.run`` killed once and resumed equal to an
    unbroken run; K1–K6's counters read 0;
-15. a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
+15. the LM mesh (``LM_MESH``'s comment): qwen1.5-4b at its published
+   width through ``launch.serve.run(full=True, mesh="host4")`` on a
+   (2, 2) ``("data", "model")`` mesh (4 distinct GPUs where visible,
+   else cuda:0 four times); 2 layers float32 sharded against unsharded
+   within phase 13's check-2 limit (a TF32 control above it; the ratio
+   to the CPU test's tolerance printed) and bfloat16 greedy picks under
+   the near-tie rule; each member's stored bytes against the dry-run's
+   argument bytes; decode-step p50/p99 sharded and unsharded;
+   tinyllama-1.1b one float32 step at 2 layers on the mesh against the
+   unsharded one under phase 14's gate-1 bounds, 3 full-width bfloat16
+   mesh steps (p50), and ``launch.train.run(mesh="host4")`` at reduced
+   width; K1–K6's counters read 0; a ``{"lm_mesh": ...}`` line;
+16. a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero; without a CUDA device it exits 1
@@ -455,6 +468,35 @@ LM_TRAIN_FIT_STEPS, LM_TRAIN_FIT_LR, LM_TRAIN_FIT_DROP = 8, 1e-3, 0.5
 LM_TRAIN_KILL_STEPS, LM_TRAIN_KILL_EVERY, LM_TRAIN_KILL_AT = 6, 2, 3
 # H100 SXM dense bf16 tensor-core peak (NVIDIA H100 datasheet, 700 W)
 BF16_FLOPS = 989e12
+# phase 15, the LM mesh: the serving launcher's --mesh host4 builds a
+# (data=2, model=2) mesh with tp = 2 (the JAX launcher's arithmetic:
+# model = min(2, N)) over 4 distinct GPUs where 4 are visible, else over
+# cuda:0 listed 4 times, whose members then run one after another: on one
+# card the mesh measures its extra launches and copies, not a speedup.
+# qwen1.5-4b (LM_MESH_ARCH) serves at published width; at LM_MESH_LAYERS
+# layers of seeded weights the mesh is held against the unsharded model
+# on the card: float32 logits over the prompts (teacher-forced: every
+# position of the same tokens) within phase 13's check-2 limit for the
+# model (LM_F32_TOL), with a TF32 control that must land above it, and
+# the ratio to tests/test_torch_lm_sharding.py's tolerance (|got - want|
+# <= LM_MESH_ATOL * max(1, max |want|) + LM_MESH_RTOL * |want|) printed:
+# at published width the two float32 computations differ by more (read
+# 1.19e-3 on the H100, R5's growth over 2 layers; PERF.md §6), and
+# bfloat16 greedy decode in lockstep (both fed the unsharded model's
+# picks) under phase 13's near-tie rule; at full depth every member's
+# stored bytes (parameter shards, decode-cache shards, its token rows)
+# must equal the port dry-run's argument bytes for the (LM_BATCH, cache
+# LM_PROMPT + LM_NEW) decode cell on a (2, 2) meta mesh, to the byte.
+# tinyllama-1.1b (LM_TRAIN_ARCH) trains on the same mesh: one float32
+# step at LM_TRAIN_F32_LAYERS layers against the unsharded step under
+# phase 14's gate-1 bounds, then LM_MESH_TRAIN_STEPS bfloat16 steps at
+# published width (step p50), then launch.train.run(mesh="host4") at
+# reduced width.
+LM_MESH = "host4"
+LM_MESH_ARCH = "qwen1.5-4b"
+LM_MESH_LAYERS = 2
+LM_MESH_RTOL = LM_MESH_ATOL = 1e-4
+LM_MESH_TRAIN_STEPS = 3
 
 
 def smi(query: str) -> str:
@@ -2172,88 +2214,6 @@ def bf16_ulp(torch, v):
                       - 7)
 
 
-def lm_state_bytes(lm, batch: int) -> int:
-    """Bytes of the mamba layers' decode state at ``batch`` rows: the
-    conv window in the compute dtype and the float32 SSM state (0 for
-    the families without mamba layers)."""
-    c = lm.cfg
-    if c.family not in ("ssm", "hybrid"):
-        return 0
-    m = lm.mamba_cfg
-    conv = m.conv_dim * (m.conv_kernel - 1) * lm.embed.element_size()
-    return c.n_layers * batch * (conv + m.n_heads * m.head_dim * m.d_state
-                                 * 4)
-
-
-def lm_cache_moves(lm, pos: int, cache_len: int) -> list:
-    """What a decode step at ``pos`` (in a cache of ``cache_len``
-    positions) must read and write of the attention caches, per row: ``(sites, entries read, entries written, bytes an
-    entry)`` — the valid slots of every self-attention site (a window
-    or chunk keeps fewer), MLA's latent (``c_kv`` and ``k_pe``), and the
-    ``encdec`` decoder's cross-attention ``xk`` / ``xv`` (read, never
-    written)."""
-    c, elt = lm.cfg, lm.embed.element_size()
-    if c.family == "ssm":
-        return []
-    if c.use_mla:
-        m = lm.mla_cfg
-        return [(c.n_layers, pos + 1, 1, (m.kv_lora + m.rope_head_dim) * elt)]
-    a = lm.attn_cfg
-    kv = a.hkv * a.head_dim * 2 * elt
-    if c.family == "hybrid":
-        return [(c.n_layers // c.shared_attn_every, pos + 1, 1, kv)]
-    if c.family == "moe":                      # llama4: chunked + global
-        nsb = c.n_layers // c.global_every
-        return [(nsb * (c.global_every - 1), pos % c.chunk + 1, 1, kv),
-                (nsb, pos + 1, 1, kv)]
-    slots = min(pos + 1, c.window) if c.window else pos + 1
-    out = [(c.n_layers, slots, 1, kv)]
-    if c.family == "encdec":
-        out.append((c.n_layers, max(1, cache_len // c.enc_len_ratio), 0, kv))
-    return out
-
-
-def lm_expert_bytes(lm) -> tuple[int, int]:
-    """(MoE layers, bytes of one routed expert's three matrices)."""
-    if not lm.cfg.n_experts:
-        return 0, 0
-    c = lm.moe_cfg
-    elt = lm.embed.element_size()
-    n_moe = sum(1 for name, _ in lm.named_parameters()
-                if name.endswith(".moe.router"))
-    return n_moe, 3 * c.d_model * c.d_ff * elt
-
-
-def lm_decode_bytes(lm, batch: int, pos: int, cache_len: int,
-                    experts_hit: list | None = None) -> int:
-    """Bytes one decode step at ``pos`` (in a cache of ``cache_len``
-    positions) must move: every stored matrix,
-    bias and float32 vector the step uses read once (of the embedding
-    only the batch's rows, unless it is the tied head; not the
-    encoder's, nor the cross-attention's key and value projections),
-    the attention caches'
-    ``lm_cache_moves``, and the mamba layers' state read and written
-    once.  The routed experts count whole (the reference's formulation
-    computes every expert), or, with ``experts_hit`` (per MoE layer, the
-    distinct experts the step's kept tokens route to), only those."""
-    c = lm.cfg
-    nbytes = 0
-    for name, p in lm.named_parameters():
-        if name.startswith(("encoder.", "enc_norm")) or \
-                name.endswith((".xattn.wk", ".xattn.wv")):
-            continue              # the encoder's side: no decode step reads it
-        if name == "embed" and not c.tie_embeddings:
-            nbytes += batch * p.shape[1] * p.element_size()
-        else:
-            nbytes += p.numel() * p.element_size()
-    if experts_hit is not None:
-        n_moe, per = lm_expert_bytes(lm)
-        nbytes -= (n_moe * c.n_experts - sum(experts_hit)) * per
-    for sites, read, written, entry in lm_cache_moves(lm, pos, cache_len):
-        nbytes += sites * batch * entry * (read + written)
-    return nbytes + 2 * lm_state_bytes(lm, batch)
-
-
 def experts_hit(torch, fn) -> list:
     """The distinct experts each ``moe_apply`` call of ``fn()`` routes
     its kept tokens to, in call order (the routing recomputed by
@@ -2791,6 +2751,7 @@ def lm_serve_arch(torch, arch: str, card: str) -> dict:
     from repro_torch.engine.base import nearest_rank
     from repro_torch.launch.serve import run
     from repro_torch.models.common import count_params
+    from repro_torch.roofline.analysis import lm_decode_bytes, lm_state_bytes
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -3290,6 +3251,308 @@ def train_phase(torch, rt, card: str) -> dict:
     return row
 
 
+def mesh_members(torch, mesh) -> str:
+    """Which devices a mesh's members are, for the phase's lines."""
+    devs = mesh.distinct_devices()
+    if len(devs) == mesh.size:
+        return f"{mesh.size} distinct GPUs"
+    return f"{', '.join(str(d) for d in devs)} listed {mesh.size} times " \
+        f"(members run one after another: extra launches and copies, " \
+        f"not a speedup)"
+
+
+def copy_weights(src, dst) -> None:
+    """Every leaf of the unsharded ``src`` into ``dst`` (sliced where
+    ``dst`` is sharded)."""
+    from repro_torch.models.common import flatten_defs
+    for path, _ in flatten_defs(src.param_defs()):
+        leaf = src.params
+        for k in path:
+            leaf = leaf[k]
+        dst.load_leaf(path, leaf)
+
+
+def decode_times(torch, lm, prompts, n_new: int) -> tuple:
+    """Host time of every decode step (with a sync) of a greedy run over
+    ``prompts`` and ``n_new`` generated tokens → (p50 ms, p99 ms)."""
+    from repro_torch.engine.base import nearest_rank
+    b, s = prompts.shape
+    cache = lm.init_cache(b, s + n_new)
+    times, last = [], None
+    for pos in range(s + n_new):
+        tok = prompts[:, pos:pos + 1] if pos < s else last[:, None]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        last, cache = lm.decode_step(cache, tok, pos)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    times.sort()
+    return nearest_rank(times, 0.50) * 1e3, nearest_rank(times, 0.99) * 1e3
+
+
+def mesh_check_layers(torch, mesh, prompts) -> dict:
+    """Phase 15, the serving checks at LM_MESH_LAYERS layers: float32
+    logits and bfloat16 lockstep picks, sharded against unsharded."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.core.popcount import argmax_tournament
+    from repro_torch.models.model import LM
+    cfg = dataclasses.replace(get_config(LM_MESH_ARCH),
+                              n_layers=LM_MESH_LAYERS)
+    tp = mesh.shape["model"]
+    out = {}
+    flat = LM(cfg, tp=tp, device="cuda", dtype=torch.float32)
+    flat.init(torch.Generator(device="cuda").manual_seed(0))
+    shard = LM(cfg, tp=tp, mesh=mesh, dtype=torch.float32)
+    copy_weights(flat, shard)
+    v = cfg.vocab_size           # the padded columns are -1e30 on both
+    with torch.no_grad():
+        want = flat._logits(flat._forward(prompts)[0])[..., :v]
+        got = shard._mesh_exec().logits({"tokens": prompts})[..., :v]
+        # the control: the mesh's products in TF32 must land above the limit
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            ctl = float((shard._mesh_exec().logits({"tokens": prompts})
+                         [..., :v] - want).abs().max())
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+    err = (got - want).abs()
+    atol = LM_MESH_ATOL * max(1.0, float(want.abs().max()))
+    ratio = float((err / (atol + LM_MESH_RTOL * want.abs())).max())
+    tol = LM_F32_TOL[LM_MESH_ARCH]
+    out.update(f32_max_abs_err=float(err.max()),
+               f32_max_abs_logit=float(want.abs().max()),
+               f32_err_over_test_tol=ratio, f32_tol=tol,
+               tf32_control_err=ctl)
+    if not torch.isfinite(got).all() or float(err.max()) > tol or ctl <= tol:
+        raise AssertionError(f"mesh float32 logits: max |err| "
+                             f"{float(err.max())} (limit {tol}; "
+                             f"{ratio} of the CPU test's tolerance), TF32 "
+                             f"control {ctl} (must exceed {tol})")
+    del flat, shard, want, got, err
+    flat = LM(cfg, tp=tp, device="cuda", dtype=torch.bfloat16)
+    flat.init(torch.Generator(device="cuda").manual_seed(0))
+    shard = LM(cfg, tp=tp, mesh=mesh, dtype=torch.bfloat16)
+    copy_weights(flat, shard)
+    b, s = prompts.shape
+    cf, cs = flat.init_cache(b, s + LM_NEW), shard.init_cache(b, s + LM_NEW)
+    rows = torch.arange(b, device="cuda")
+    tok, exact, steps, worst = prompts[:, :1], 0, 0, 0.0
+    for pos in range(s + LM_NEW - 1):
+        lg = flat._logits(flat._decode_hidden(cf, tok, pos))[:, 0]
+        pick = argmax_tournament(lg).long()
+        got, _ = shard.decode_step(cs, tok, pos)
+        got = got.long()
+        top = lg[:, :v].max(-1).values
+        gap = top - lg[rows, got]
+        tol = LM_TIE_ULPS * bf16_ulp(torch, top)
+        worst = max(worst, float((gap / tol).max()))
+        if not (gap <= tol).all():
+            raise AssertionError(f"mesh bfloat16 step {pos}: picks "
+                                 f"{got.tolist()} vs {pick.tolist()}, "
+                                 f"gaps {gap.tolist()} > {tol.tolist()}")
+        exact += int((got == pick).sum())
+        steps += b
+        tok = prompts[:, pos + 1:pos + 2] if pos + 1 < s else pick[:, None]
+    out.update(bf16_exact=exact, bf16_picks=steps,
+               bf16_worst_gap_over_tol=worst)
+    del flat, shard, cf, cs
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_stored_bytes(lm, cache, batch: int) -> list:
+    """Bytes each member holds: its parameter shards, decode-cache shards
+    and token rows."""
+    from repro_torch import tree as ttree
+    rows = lm._mesh_exec()._rows(batch)
+    out = []
+    for k in range(lm.mesh.size):
+        n = sum(t.nbytes(k) for t in ttree.leaves(lm.params))
+        n += sum(t.nbytes(k) for t in ttree.leaves(cache))
+        out.append(n + len(range(batch)[rows[k]]) * 4)
+    return out
+
+
+def mesh_train_check(torch, mesh) -> dict:
+    """Phase 15, training: one float32 step at LM_TRAIN_F32_LAYERS layers
+    on the mesh against the unsharded step on the card, under phase 14's
+    gate-1 bounds."""
+    import dataclasses
+    from repro_torch import tree as ttree
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import LM
+    from repro_torch.train.step import (TrainHParams, init_train_state,
+                                        make_train_step)
+    cfg = dataclasses.replace(get_config(LM_TRAIN_ARCH),
+                              n_layers=LM_TRAIN_F32_LAYERS)
+    tp = mesh.shape["model"]
+    flat = LM(cfg, tp=tp, device="cuda", dtype=torch.float32, trainable=True)
+    flat.init(torch.Generator(device="cuda").manual_seed(1))
+    shard = LM(cfg, tp=tp, mesh=mesh, dtype=torch.float32, trainable=True)
+    copy_weights(flat, shard)
+    before = [t.detach().clone() for t in ttree.leaves(flat.params)]
+    rng = np.random.default_rng(SEED)
+    batch = {k: rng.integers(0, cfg.vocab_size, (LM_TRAIN_F32_BATCH,
+                                                 LM_TRAIN_F32_SEQ), np.int32)
+             for k in ("tokens", "targets")}
+    hp = TrainHParams(peak_lr=LM_TRAIN_F32_LR, warmup=0, total_steps=10)
+    fm = {k: float(v) for k, v in make_train_step(flat, hp)(
+        init_train_state(flat.params), batch)[1].items()}
+    sm = {k: float(v) for k, v in make_train_step(shard, hp)(
+        init_train_state(shard.params), batch)[1].items()}
+    tol, lr = LM_TRAIN_GRAD_TOL, LM_TRAIN_F32_LR
+    grad_err, total, n, flips = 0.0, 0.0, 0, 0
+    for g, w, p, q, p0 in zip(ttree.leaves(shard.grads),
+                              ttree.leaves(flat.grads),
+                              ttree.leaves(shard.params),
+                              ttree.leaves(flat.params), before):
+        g = g.gather("cuda")
+        grad_err = max(grad_err, float((g - w).abs().max() / w.abs().max()))
+        p, q = p.gather("cuda"), q.detach()
+        total += float((p - q).abs().sum())
+        n += p.numel()
+        sure = w.abs() > tol * w.abs().max()
+        flips += int(((p - p0).sign() != (q - p0).sign())[sure].sum())
+    norm_err = abs(sm["grad_norm"] - fm["grad_norm"]) / fm["grad_norm"]
+    row = {"loss": (sm["loss"], fm["loss"]),
+           "grad_norm": (sm["grad_norm"], fm["grad_norm"]),
+           "grad_max_rel_err": grad_err, "param_mean_abs_diff": total / n,
+           "param_sign_flips": flips}
+    if abs(sm["loss"] - fm["loss"]) > 1e-5 * abs(fm["loss"]) or \
+            norm_err > tol or grad_err > tol or total / n > 1e-2 * lr or \
+            flips:
+        raise AssertionError(f"mesh train step vs unsharded: {row}")
+    del flat, shard, before
+    torch.cuda.empty_cache()
+    return row
+
+
+def lm_mesh_phase(torch, rt, card: str) -> dict:
+    """Phase 15: the LM mesh (LM_MESH's comment).  Its counters of K1–K6
+    are zeroed before and must read 0 after."""
+    from repro_torch import tree as ttree
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.data import ShardedLoader, lm_token_stream
+    from repro_torch.distributed.sharding import Mesh
+    from repro_torch.engine.base import nearest_rank
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import train as train_launch
+    from repro_torch.launch.serve import run
+    from repro_torch.launch.train import STREAM_TOKENS
+    from repro_torch.models.model import LM
+    from repro_torch.train.step import (TrainHParams, init_train_state,
+                                        make_train_step)
+    counted = ("swar_fused_votes", "clause_votes", "train_deltas_keyed",
+               "popcount_words", "pdl_race", "binary_matmul")
+    for k in counted:
+        rt[k].launches = 0
+    t0 = time.perf_counter()
+    res = run(LM_MESH_ARCH, batch=LM_BATCH, prompt_len=LM_PROMPT,
+              max_new=LM_NEW, full=True, device="cuda", mesh=LM_MESH)
+    lm, mesh, prompts, out = res["lm"], res["mesh"], res["prompts"], \
+        res["out"]
+    where = mesh_members(torch, mesh)
+    print(f"{res['line']} on a {mesh.dims} mesh of {where}; {card}",
+          flush=True)
+    if tuple(out.shape) != (LM_BATCH, LM_NEW) or int(out.min()) < 0 or \
+            int(out.max()) >= lm.cfg.vocab_size:
+        raise AssertionError(f"mesh serve: tokens {tuple(out.shape)} "
+                             f"{int(out.min())}..{int(out.max())}")
+    row = {"arch": LM_MESH_ARCH, "mesh": list(mesh.dims), "members": where,
+           "serve_line": res["line"]}
+    row.update(mesh_check_layers(torch, mesh, prompts))
+    # each member's storage against the dry-run's argument bytes
+    cache_len = LM_PROMPT + LM_NEW
+    stored = mesh_stored_bytes(lm, lm.init_cache(LM_BATCH, cache_len),
+                               LM_BATCH)
+    meta = Mesh((torch.device("meta"),) * mesh.size, mesh.axis_names,
+                mesh.dims)
+    rec = dryrun.run_cell(LM_MESH_ARCH, "serve", False, roofline=False,
+                          cfg=lm.cfg, mesh=meta,
+                          shape=ShapeSpec("serve", cache_len, LM_BATCH,
+                                          "decode"))
+    want = rec["memory"]["bytes"]["argument"]
+    row["member_bytes"], row["dryrun_argument_bytes"] = stored, want
+    if any(n != want for n in stored):
+        raise AssertionError(f"mesh members hold {stored} bytes, the "
+                             f"dry-run's argument is {want}")
+    # decode steps at full depth, sharded and unsharded
+    flat = LM(lm.cfg, tp=lm.tp, device="cuda", dtype=torch.bfloat16)
+    flat.init(torch.Generator(device="cuda").manual_seed(0))
+    p50, p99 = decode_times(torch, lm, prompts, LM_NEW)
+    f50, f99 = decode_times(torch, flat, prompts, LM_NEW)
+    row.update(decode_p50_ms=p50, decode_p99_ms=p99,
+               unsharded_decode_p50_ms=f50, unsharded_decode_p99_ms=f99)
+    print(f"lm mesh {LM_MESH_ARCH}, {card}: {mesh.dims} mesh of {where}; "
+          f"float32 at {LM_MESH_LAYERS} layers max |logit err| "
+          f"{row['f32_max_abs_err']:.3g} (<= {row['f32_tol']}; TF32 control "
+          f"{row['tf32_control_err']:.3g}; {row['f32_err_over_test_tol']:.3g}"
+          f" of the CPU test's tolerance at max |logit| "
+          f"{row['f32_max_abs_logit']:.3g}), bfloat16 picks {row['bf16_exact']}/"
+          f"{row['bf16_picks']} exact, all within the near-tie rule; each "
+          f"member stores {stored[0]:,} bytes == the dry-run's argument "
+          f"bytes; decode step p50/p99 {p50:.2f}/{p99:.2f} ms sharded, "
+          f"{f50:.2f}/{f99:.2f} ms unsharded", flush=True)
+    del res, lm, flat
+    torch.cuda.empty_cache()
+
+    row["train_check"] = mesh_train_check(torch, mesh)
+    cfg = get_config(LM_TRAIN_ARCH)
+    tlm = LM(cfg, tp=mesh.shape["model"], mesh=mesh, dtype=torch.bfloat16,
+             trainable=True)
+    tlm.init(torch.Generator(device="cuda").manual_seed(0))
+    step = make_train_step(tlm, TrainHParams(total_steps=10))
+    state = init_train_state(tlm.params)
+    loader = ShardedLoader(lm_token_stream(STREAM_TOKENS, cfg.vocab_size,
+                                           seed=0),
+                           global_batch=LM_TRAIN_BATCH, seq_len=LM_TRAIN_SEQ)
+    times, losses = [], []
+    try:
+        for _ in range(LM_MESH_TRAIN_STEPS):
+            batch = dict(zip(("tokens", "targets"), next(loader)))
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t1)
+            losses.append(float(m["loss"]))
+    finally:
+        loader.close()
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"mesh train losses {losses}")
+    times.sort()
+    row.update(train_step_p50_ms=nearest_rank(times, 0.5) * 1e3,
+               train_losses=losses,
+               train_state_bytes_per_member=sum(
+                   t.nbytes(0) for t in ttree.leaves(
+                       (tlm.params, tlm.grads, state.opt.mu,
+                        state.opt.nu))))
+    del tlm, state, step
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        small = train_launch.run(LM_TRAIN_ARCH, steps=2, device="cuda",
+                                 mesh=LM_MESH, ckpt_dir=tmp, ckpt_every=1)
+    row["train_launcher_losses"] = small["losses"]
+    print(f"lm mesh train {LM_TRAIN_ARCH}, {card}: float32 step at "
+          f"{LM_TRAIN_F32_LAYERS} layers mesh vs unsharded {row['train_check']};"
+          f" {LM_MESH_TRAIN_STEPS} bfloat16 steps at published width on the "
+          f"mesh: p50 {row['train_step_p50_ms']:.1f} ms, losses {losses}, "
+          f"{row['train_state_bytes_per_member']:,} bytes of masters, "
+          f"gradients and moments per member; launch.train --mesh "
+          f"{LM_MESH} at reduced width: losses {small['losses']}",
+          flush=True)
+    launched = {k: rt[k].launches for k in counted if rt[k].launches}
+    if launched:
+        raise AssertionError(f"the LM mesh path launched TM kernels: "
+                             f"{launched}")
+    wall = time.perf_counter() - t0
+    print(f"phase 15 (LM mesh) wall {wall:.1f}s, {card}", flush=True)
+    print(json.dumps({"lm_mesh": row, "card": card, "wall_s": wall}),
+          flush=True)
+    return row
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3411,6 +3674,7 @@ def main() -> int:
     mesh = mesh_phase(torch, rt, ta, learn, card)
     lm_phase(torch, rt, card)
     train_phase(torch, rt, card)
+    lm_mesh_phase(torch, rt, card)
 
     meta = {
         "swar_fused_votes": ("src/repro_torch/csrc/swar_fused.cu",

@@ -51,6 +51,7 @@ import numpy as np
 import torch
 
 from repro_torch import tree as _tree
+from repro_torch.distributed.sharding import NamedSharding, ShardedTensor
 
 from ._msgpack import packb, unpackb
 
@@ -108,7 +109,8 @@ class _RawLeaf:
         self.dtype, self.raw = dtype, raw
 
 
-_LEAF_TYPES = (torch.Tensor, np.ndarray, np.generic, int, float, _RawLeaf)
+_LEAF_TYPES = (torch.Tensor, np.ndarray, np.generic, int, float, _RawLeaf,
+               ShardedTensor)
 
 
 def _tree_flatten(tree) -> tuple[list, str]:
@@ -127,7 +129,10 @@ def _tree_flatten(tree) -> tuple[list, str]:
 def _host(leaf):
     """One leaf as a host numpy array (a ``bfloat16`` tensor as a
     :class:`_RawLeaf`); a tensor is always copied (off its device, or in
-    host memory), so the caller may go on mutating it."""
+    host memory), so the caller may go on mutating it.  A sharded leaf
+    is gathered: the file holds the global array, as without a mesh."""
+    if isinstance(leaf, ShardedTensor):
+        leaf = leaf.gather("cpu")
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().to("cpu", copy=True)
         if t.dtype == torch.bfloat16:
@@ -251,7 +256,12 @@ def _place(tree, shardings):
     """Move every leaf of ``tree`` (numpy, or a bfloat16 tensor) to the
     device ``shardings`` names for it (a tree with ``tree`` as its
     prefix: a device or ``None`` covers the whole subtree where it
-    stands) → tensors."""
+    stands; a :class:`NamedSharding` slices its leaf into a
+    :class:`ShardedTensor` over its mesh) → tensors."""
+    if isinstance(shardings, NamedSharding):
+        return ShardedTensor.from_full(
+            tree if isinstance(tree, torch.Tensor) else torch.from_numpy(tree),
+            shardings)
     if shardings is None or isinstance(shardings, torch.device):
         def put(x):
             t = x if isinstance(x, torch.Tensor) else torch.from_numpy(x)

@@ -1,10 +1,14 @@
 """Multi-device execution (port of ``repro.distributed``): the 1-D data
 mesh of the TM data-parallel paths, and fault tolerance for training
-(:mod:`.fault_tolerance`).  The LM zoo's sharding rules come with the
-sharding slice (ROADMAP.md, queue 1, item 7f)."""
+(:mod:`.fault_tolerance`), and the LM zoo's logical-axis sharding
+over a ``("data", "model")`` or ``("pod", "data", "model")`` mesh."""
 
-from .sharding import (DATA_AXIS, Mesh, data_mesh, mesh_device,
-                       resolve_mesh, visible_devices)
+from .sharding import (DATA_AXIS, Mesh, NamedSharding, PartitionSpec,
+                       ShardedTensor, batch_axes, constrainer, data_mesh,
+                       make_rules, mesh_device, named_sharding, resolve_mesh,
+                       visible_devices)
 
-__all__ = ["DATA_AXIS", "Mesh", "data_mesh", "mesh_device", "resolve_mesh",
+__all__ = ["DATA_AXIS", "Mesh", "NamedSharding", "PartitionSpec",
+           "ShardedTensor", "batch_axes", "constrainer", "data_mesh",
+           "make_rules", "mesh_device", "named_sharding", "resolve_mesh",
            "visible_devices"]

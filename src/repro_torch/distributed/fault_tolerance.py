@@ -27,7 +27,7 @@ import torch
 from repro_torch import checkpoint as ckpt
 from repro_torch import tree as _tree
 
-from .sharding import visible_devices
+from .sharding import ShardedTensor, visible_devices
 
 __all__ = ["ElasticRunner", "StragglerWatchdog", "run_with_recovery"]
 
@@ -65,9 +65,10 @@ class ElasticRunner:
 
     ``mesh_factory(devices)`` returns the port's
     :class:`~repro_torch.distributed.sharding.Mesh` over exactly those
-    devices; ``shardings_factory(mesh)`` gives the restore's
-    ``shardings=`` tree (``torch.device`` leaves or ``None``), the same
-    function a cold start uses.
+    devices (e.g. ``launch.mesh.mesh_from_devices``); ``shardings_factory(
+    mesh)`` gives the restore's ``shardings=`` tree (``torch.device`` or
+    ``NamedSharding`` leaves, or ``None``; an ``LM``'s
+    ``param_shardings()``), the same function a cold start uses.
     """
 
     mesh_factory: Callable[[list], Any]
@@ -99,11 +100,16 @@ def _restore_like(ckpt_dir: str, step: int, state):
     """Restore ``step`` into ``state``'s structure, each leaf that is a
     tensor in ``state`` back on that tensor's device (the JAX restore's
     numpy leaves go back onto the device when the jitted step reads
-    them)."""
+    them), and each sharded one re-sliced over its mesh."""
     tree, _ = ckpt.restore(ckpt_dir, step, state)
-    return _tree.map(
-        lambda new, old: torch.as_tensor(new).to(old.device)
-        if isinstance(old, torch.Tensor) else new, tree, state)
+
+    def place(new, old):
+        if isinstance(old, ShardedTensor):
+            return ShardedTensor.from_full(new, old.sharding, old.dtype)
+        if isinstance(old, torch.Tensor):
+            return torch.as_tensor(new).to(old.device)
+        return new
+    return _tree.map(place, tree, state)
 
 
 def run_with_recovery(step_fn: Callable[[Any, int], Any], state: Any, *,

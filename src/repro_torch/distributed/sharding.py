@@ -16,20 +16,32 @@ another on that device: the port's counterpart of
 one-card machine get D > 1.  The code path is the same for a simulated
 mesh and a real one: ``.to(owner)`` is a no-op where the devices match.
 
-``make_rules`` / ``named_sharding`` / ``constrainer`` / ``batch_axes``
-(the LM zoo's logical-axis sharding) come with the model zoo (see
-ROADMAP.md).
+The LM half: :func:`make_rules` maps the model zoo's logical axes
+(``batch``, ``embed``, ``heads``, ...) onto a ``("data", "model")`` or
+``("pod", "data", "model")`` mesh, :func:`batch_axes` and
+:func:`constrainer` resolve them for a given shape (a dimension that
+does not divide its mesh extent stays unsharded, as in JAX), and
+:class:`NamedSharding` is the port's ``(mesh, spec)`` pair with
+``shard_shape`` and each member's slice.  A :class:`ShardedTensor` holds
+one tensor per mesh member, the slice its sharding gives that member,
+on that member's device: repeated members hold separate tensors, so
+what a member holds is its shard.  JAX's ``constrainer`` returns the
+array under a ``with_sharding_constraint``; the port's returns the
+resolved :class:`NamedSharding`, since the port moves data itself.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Any
 
 import torch
 
 __all__ = ["DATA_AXIS", "Mesh", "data_mesh", "visible_devices",
-           "resolve_mesh", "mesh_device"]
+           "resolve_mesh", "mesh_device", "PartitionSpec", "NamedSharding",
+           "ShardedTensor", "leaf_parts", "make_rules", "batch_axes",
+           "named_sharding", "constrainer"]
 
 # the one mesh axis name the TM data-parallel paths shard over
 DATA_AXIS = "data"
@@ -88,6 +100,14 @@ class Mesh:
         """The members without repeats, in mesh order."""
         return tuple(dict.fromkeys(self.devices))
 
+    def coords(self, member: int) -> dict:
+        """``{axis name: index}`` of flat member ``member`` (row-major)."""
+        out, rest = {}, member
+        for name, n in reversed(list(zip(self.axis_names, self.dims))):
+            out[name] = rest % n
+            rest //= n
+        return {n: out[n] for n in self.axis_names}
+
 
 def visible_devices() -> list[torch.device]:
     """Every CUDA device torch sees, in index order (none on a CPU-only
@@ -141,3 +161,265 @@ def mesh_device(mesh: Mesh, device=None) -> torch.device:
         raise ValueError(f"device {str(device)!r} is not in the mesh "
                          f"{[str(d) for d in mesh.distinct_devices()]}")
     return mesh.devices[0]
+
+
+# -- the LM zoo's logical-axis sharding ----------------------------------
+
+
+def _names(entry) -> tuple:
+    """A spec entry (``None``, an axis name or a tuple of them) → the
+    tuple of mesh axis names it shards over."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def _extent(mesh: Mesh, entry) -> int:
+    return math.prod(mesh.shape[n] for n in _names(entry))
+
+
+class PartitionSpec(tuple):
+    """A tuple of per-dimension entries — ``None``, a mesh axis name or a
+    tuple of names — as ``jax.sharding.PartitionSpec(*entries)``; a
+    one-name tuple is stored as the name, as JAX stores it."""
+
+    def __new__(cls, *entries):
+        norm = []
+        for e in entries:
+            if isinstance(e, (tuple, list)):
+                e = tuple(e)
+                e = e[0] if len(e) == 1 else (e or None)
+            norm.append(e)
+        return super().__new__(cls, norm)
+
+    def __repr__(self) -> str:
+        return f"PartitionSpec{tuple(self)!r}"
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """``spec`` over ``mesh`` (``jax.sharding.NamedSharding``'s
+    counterpart): dimension ``i`` of an array is split over the mesh
+    axes ``spec[i]`` names, in their order; dimensions past the spec and
+    mesh axes it does not name are replicated."""
+
+    mesh: Mesh
+    spec: PartitionSpec
+
+    def __post_init__(self):
+        spec = PartitionSpec(*self.spec)
+        used = [n for e in spec for n in _names(e)]
+        unknown = [n for n in used if n not in self.mesh.axis_names]
+        if unknown or len(used) != len(set(used)):
+            raise ValueError(f"spec {spec} does not fit the mesh axes "
+                             f"{self.mesh.axis_names}")
+        object.__setattr__(self, "spec", spec)
+
+    def shard_shape(self, global_shape) -> tuple:
+        """Each member's shape; raises ``ValueError`` where a sharded
+        dimension does not divide its mesh extent (as JAX does)."""
+        shape = tuple(int(n) for n in global_shape)
+        if len(self.spec) > len(shape):
+            raise ValueError(f"spec {self.spec} has more entries than the "
+                             f"shape {shape} has dimensions")
+        out = list(shape)
+        for i, e in enumerate(self.spec):
+            k = _extent(self.mesh, e)
+            if shape[i] % k:
+                raise ValueError(f"dimension {i} of {shape} does not split "
+                                 f"{k} ways under {self.spec}")
+            out[i] = shape[i] // k
+        return tuple(out)
+
+    def member_index(self, member: int, global_shape) -> tuple:
+        """The slices of a ``global_shape`` array that ``member`` holds."""
+        local = self.shard_shape(global_shape)
+        co = self.mesh.coords(member)
+        idx = []
+        for i, n in enumerate(local):
+            block = 0
+            for name in _names(self.spec[i] if i < len(self.spec) else None):
+                block = block * self.mesh.shape[name] + co[name]
+            idx.append(slice(block * n, (block + 1) * n))
+        return tuple(idx)
+
+    def block(self, member: int) -> tuple:
+        """The member's block coordinates, one per sharded dimension:
+        members with equal blocks hold the same slice."""
+        co = self.mesh.coords(member)
+        return tuple(tuple(co[n] for n in _names(e)) for e in self.spec)
+
+
+class ShardedTensor:
+    """A global array held as one tensor per member of ``sharding.mesh``:
+    ``shards[k]`` is the :meth:`NamedSharding.member_index` slice of
+    member ``k``, on member ``k``'s device.  A leaf of a sharded ``LM``'s
+    ``params`` / ``grads`` and of the optimizer moments."""
+
+    def __init__(self, sharding: NamedSharding, shape, shards):
+        self.sharding = sharding
+        self.shape = tuple(int(n) for n in shape)
+        self.shards = list(shards)
+        if len(self.shards) != sharding.mesh.size:
+            raise ValueError(f"{len(self.shards)} shards for a mesh of "
+                             f"{sharding.mesh.size} members")
+
+    @classmethod
+    def empty(cls, sharding: NamedSharding, shape, dtype) -> "ShardedTensor":
+        local = sharding.shard_shape(shape)
+        return cls(sharding, shape, [torch.empty(local, dtype=dtype,
+                                                 device=d)
+                                     for d in sharding.mesh.devices])
+
+    @classmethod
+    def from_full(cls, full, sharding: NamedSharding,
+                  dtype=None) -> "ShardedTensor":
+        """``full`` (a tensor or array of the global shape) sliced for
+        every member, each slice copied onto its member's device."""
+        full = torch.as_tensor(full)
+        dtype = dtype or full.dtype
+        out = []
+        for k, dev in enumerate(sharding.mesh.devices):
+            part = full[sharding.member_index(k, full.shape)]
+            out.append(part.to(device=dev, dtype=dtype, copy=True))
+        return cls(sharding, full.shape, out)
+
+    @property
+    def dtype(self):
+        return self.shards[0].dtype
+
+    @property
+    def device(self):
+        return self.shards[0].device
+
+    def distinct(self) -> list:
+        """``[(member, shard)]`` of the first member holding each slice,
+        in member order (a replicated slice counted once)."""
+        seen, out = set(), []
+        for k, t in enumerate(self.shards):
+            b = self.sharding.block(k)
+            if b not in seen:
+                seen.add(b)
+                out.append((k, t))
+        return out
+
+    def gather(self, device="cpu") -> torch.Tensor:
+        """The global array on ``device``: every distinct shard copied
+        (``.to``, bitwise) into its slice."""
+        first = self.shards[0]
+        full = torch.empty(self.shape, dtype=first.dtype, device=device)
+        with torch.no_grad():
+            for k, t in self.distinct():
+                full[self.sharding.member_index(k, self.shape)] = \
+                    t.detach().to(device)
+        return full
+
+    def map(self, fn) -> "ShardedTensor":
+        """``fn`` applied to every shard → a ShardedTensor of the same
+        sharding and shape (``fn`` keeps each shard's shape)."""
+        return ShardedTensor(self.sharding, self.shape,
+                             [fn(t) for t in self.shards])
+
+    @torch.no_grad()
+    def copy_(self, src) -> "ShardedTensor":
+        """Copy ``src`` in: another ShardedTensor of the same sharding
+        (shard by shard), or a global tensor or array (sliced)."""
+        if isinstance(src, ShardedTensor):
+            for dst, s in zip(self.shards, src.shards):
+                if s is not dst:
+                    dst.copy_(s)
+            return self
+        full = torch.as_tensor(src)
+        if tuple(full.shape) != self.shape:
+            raise ValueError(f"cannot copy a {tuple(full.shape)} array into "
+                             f"a sharded {self.shape} leaf")
+        for k, dst in enumerate(self.shards):
+            dst.copy_(full[self.sharding.member_index(k, self.shape)])
+        return self
+
+    def nbytes(self, member: int = 0) -> int:
+        t = self.shards[member]
+        return t.numel() * t.element_size()
+
+    def __repr__(self) -> str:
+        return (f"ShardedTensor({self.shape}, {self.dtype}, "
+                f"{self.sharding.spec}, {self.sharding.mesh.dims})")
+
+
+def leaf_parts(x) -> list:
+    """A tree leaf's tensors: every shard of a :class:`ShardedTensor`,
+    else the leaf itself."""
+    return x.shards if isinstance(x, ShardedTensor) else [x]
+
+
+def make_rules(mesh: Mesh | None, overrides: tuple[tuple[str, Any], ...] = ()
+               ) -> dict[str, Any]:
+    """Default logical→mesh mapping for a ('pod'?, 'data', 'model') mesh."""
+    axes = mesh.axis_names if mesh is not None else ()
+    dp = tuple(a for a in ("pod", "data") if a in axes) or None
+    if dp and len(dp) == 1:
+        dp = dp[0]
+    model = "model" if "model" in axes else None
+    data = "data" if "data" in axes else None
+    rules: dict[str, Any] = {
+        "batch": dp,
+        "embed": data,        # FSDP
+        "vocab": model,
+        "heads": model,
+        "kv_heads": model,
+        "mlp": model,
+        "experts": model,
+        "expert_mlp": None,   # expert FF dim: EP only (no nested TP)
+        "ssm_inner": model,
+        "ssm_heads": model,
+        "layers": None,
+        "seq": data,          # long-context KV cache seq sharding
+        "act_seq": None,      # Megatron-SP residual-stream seq sharding
+        "conv": None,
+        # flattened token-dispatch dim (MoE): sharded over every axis
+        "tokens": tuple(a for a in ("pod", "data", "model") if a in axes)
+        or None,
+    }
+    rules.update(dict(overrides))
+    return rules
+
+
+def batch_axes(rules: dict, batch: int, mesh: Mesh | None):
+    """Batch-dim sharding if the global batch divides the dp extent."""
+    dp = rules.get("batch")
+    if mesh is None or dp is None:
+        return None
+    return dp if batch % _extent(mesh, dp) == 0 else None
+
+
+def named_sharding(mesh: Mesh | None, spec) -> NamedSharding | None:
+    if mesh is None:
+        return None
+    return NamedSharding(mesh, PartitionSpec(*spec))
+
+
+def constrainer(mesh: Mesh | None, rules: dict):
+    """Return ``c(x, *logical_axes)`` → the :class:`NamedSharding` an
+    array of ``x``'s shape takes under ``rules`` (``None`` without a
+    mesh).  A logical axis may be a str (looked up in rules), None, or a
+    raw tuple of mesh axis names; a dimension that does not divide its
+    mesh extent, or that ``x`` lacks, stays unsharded."""
+    if mesh is None:
+        return lambda x, *axes: None
+
+    def c(x, *axes):
+        resolved = []
+        for i, a in enumerate(axes):
+            if a is None:
+                r = None
+            elif isinstance(a, str):
+                r = rules.get(a)
+            else:
+                r = a
+            if r is not None and (i >= len(x.shape)
+                                  or x.shape[i] % _extent(mesh, r)):
+                r = None        # non-dividing dims stay unconstrained
+            resolved.append(r)
+        return NamedSharding(mesh, PartitionSpec(*resolved))
+
+    return c

@@ -24,8 +24,17 @@ config that does not fit raises ``torch.OutOfMemoryError`` naming its
 weight bytes.  ``encdec`` configs decode as the JAX ``generate`` does,
 without ``frames`` (ROADMAP.md, R6).
 
-The JAX launcher's ``--mesh`` has no counterpart: the port has no
-tensor-parallel mesh for LMs yet (ROADMAP.md, queue 1, item 7f).
+``--mesh host<N>`` serves on a (data, model) mesh of N members with
+``model = min(2, N)`` and ``tp`` its model extent, as the JAX launcher
+(``launch.mesh.mesh_from_flag``: the first N GPUs where that many are
+visible, else ``--device`` listed N times, whose members then run one
+after another); ``single`` / ``multi`` build the production mesh and
+need 256 / 512 visible GPUs.  A mesh runs the dense family (other
+families raise ``NotImplementedError``: ROADMAP.md, queue 1, item
+7f-ii).  Without ``--mesh`` the model is unsharded on one device (the
+JAX launcher defaults to ``host8``).
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --mesh host4
 """
 
 from __future__ import annotations
@@ -55,17 +64,21 @@ def _weight_bytes(cfg, dtype) -> int:
 
 def run(arch: str = "qwen1.5-4b", *, batch: int = 8, prompt_len: int = 32,
         max_new: int = 16, full: bool = False, layers: int | None = None,
-        device=None) -> dict:
+        device=None, mesh=None) -> dict:
     """Build, warm up and time one ``generate`` → ``{"cfg", "lm",
-    "prompts", "out", "seconds", "tok_per_s", "line"}``.  ``layers``
-    cuts the depth (see the module docstring)."""
+    "prompts", "out", "seconds", "tok_per_s", "line", "mesh"}``.
+    ``layers`` cuts the depth, ``mesh`` a ``--mesh`` string or a
+    ``Mesh`` (see the module docstring)."""
     from repro_torch.configs import get_config
     from repro_torch.configs.reduce import reduced
     from repro_torch.kernels.ops import resolve_device
+    from repro_torch.launch.mesh import mesh_from_flag
     from repro_torch.models.model import LM
     from repro_torch.serve.decode import generate
 
     dev = resolve_device(device)
+    mesh = mesh_from_flag(mesh, dev)
+    tp = mesh.shape["model"] if mesh is not None else 1
     cfg = get_config(arch)
     if not full:
         cfg = reduced(cfg)
@@ -75,7 +88,7 @@ def run(arch: str = "qwen1.5-4b", *, batch: int = 8, prompt_len: int = 32,
                              f"its superblock of {cfg.global_every}")
         cfg = dataclasses.replace(cfg, n_layers=layers)
     try:
-        lm = LM(cfg, tp=1, device=dev, dtype=torch.bfloat16)
+        lm = LM(cfg, tp=tp, device=dev, mesh=mesh, dtype=torch.bfloat16)
         lm.init(torch.Generator(device=dev).manual_seed(0))
     except torch.OutOfMemoryError as e:
         raise torch.OutOfMemoryError(
@@ -95,7 +108,8 @@ def run(arch: str = "qwen1.5-4b", *, batch: int = 8, prompt_len: int = 32,
     line = (f"{cfg.name}: {tuple(out.shape)} in {dt * 1000:.0f} ms "
             f"({batch * max_new / dt:,.0f} tok/s)")
     return {"cfg": cfg, "lm": lm, "prompts": prompts, "out": out,
-            "seconds": dt, "tok_per_s": batch * max_new / dt, "line": line}
+            "seconds": dt, "tok_per_s": batch * max_new / dt, "line": line,
+            "mesh": mesh}
 
 
 def main(argv: list[str] | None = None) -> dict:
@@ -113,10 +127,12 @@ def main(argv: list[str] | None = None) -> dict:
                          "widths (default: the config's)")
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda)")
+    ap.add_argument("--mesh", default=None,
+                    help="host<N> | single | multi (default: no mesh)")
     args = ap.parse_args(argv)
     res = run(args.arch, batch=args.batch, prompt_len=args.prompt_len,
               max_new=args.max_new, full=args.full, layers=args.layers,
-              device=args.device)
+              device=args.device, mesh=args.mesh)
     print(res["line"], flush=True)
     return res
 

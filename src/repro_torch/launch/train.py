@@ -24,8 +24,15 @@ batch ``i`` (the loader is re-opened at the step a restart resumes
 from; the JAX launcher's loader runs on from where it stood), so a
 resumed run sees the batches an unbroken run sees.
 
-The JAX launcher's ``--mesh`` waits for the LM sharding slice
-(ROADMAP.md, queue 1, item 7f): passing it raises.
+``--mesh host<N>`` / ``single`` / ``multi`` trains on a mesh as
+``launch.serve`` builds it (``tp`` its model extent): the dense family
+only (ROADMAP.md, queue 1, item 7f-ii for the others).  The checkpoints
+hold the gathered JAX layout, file for file as without a mesh, and a
+restart re-slices them for the run's mesh.  Without ``--mesh`` the model
+is unsharded (the JAX launcher defaults to ``host8``).
+
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
+        --steps 4 --mesh host4
 """
 
 from __future__ import annotations
@@ -52,29 +59,30 @@ def run(arch: str = "tinyllama-1.1b", *, steps: int = 100,
         full: bool = False, ckpt_dir: str | None = None,
         ckpt_every: int = 50, device=None, mesh=None) -> dict:
     """Train ``steps`` steps → ``{"cfg", "lm", "state", "losses",
-    "step_s", "tokens_per_step"}``: the loss of every step run (a
+    "step_s", "tokens_per_step", "mesh"}``: the loss of every step run (a
     restart's replayed steps included) and its host time, each step
-    ending in a device sync."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "--mesh: the port has no LM sharding yet (ROADMAP.md, queue 1, "
-            "item 7f)")
+    ending in a device sync.  ``mesh``: a ``--mesh`` string or a
+    ``Mesh``."""
     from repro_torch.configs import get_config
     from repro_torch.configs.reduce import reduced
     from repro_torch.data import ShardedLoader, lm_token_stream
     from repro_torch.distributed.fault_tolerance import run_with_recovery
     from repro_torch.kernels.ops import resolve_device
+    from repro_torch.launch.mesh import mesh_from_flag
     from repro_torch.models.model import LM
     from repro_torch.train.step import (TrainHParams, init_train_state,
                                         make_train_step)
 
     dev = resolve_device(device)
+    mesh = mesh_from_flag(mesh, dev)
+    tp = mesh.shape["model"] if mesh is not None else 1
     ckpt_dir = ckpt_dir or os.path.join(tempfile.gettempdir(),
                                         "repro_torch_launch_ckpt")
     cfg = get_config(arch)
     if not full:
         cfg = reduced(cfg)
-    lm = LM(cfg, tp=1, device=dev, dtype=torch.bfloat16, trainable=True)
+    lm = LM(cfg, tp=tp, device=dev, mesh=mesh, dtype=torch.bfloat16,
+            trainable=True)
     lm.init(torch.Generator(device=dev).manual_seed(0))
     hp = TrainHParams(total_steps=steps, n_micro=n_micro)
     step_fn = make_train_step(lm, hp)
@@ -112,7 +120,8 @@ def run(arch: str = "tinyllama-1.1b", *, steps: int = 100,
             loaders[0].close()
     print(f"training complete; final step {int(state.step)}", flush=True)
     return {"cfg": cfg, "lm": lm, "state": state, "losses": losses,
-            "step_s": step_s, "tokens_per_step": global_batch * seq}
+            "step_s": step_s, "tokens_per_step": global_batch * seq,
+            "mesh": mesh}
 
 
 def main(argv: list[str] | None = None) -> dict:
@@ -124,7 +133,7 @@ def main(argv: list[str] | None = None) -> dict:
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--n-micro", type=int, default=1)
     ap.add_argument("--mesh", default=None,
-                    help="not ported yet (ROADMAP.md, queue 1, item 7f)")
+                    help="host<N> | single | multi (default: no mesh)")
     ap.add_argument("--full", action="store_true",
                     help="the published widths (default: the reduced "
                          "smoke config)")

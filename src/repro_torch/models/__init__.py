@@ -1,6 +1,7 @@
-"""The LM model zoo (port of ``repro.models``): the dense family —
-tinyllama-1.1b, qwen1.5-4b, qwen1.5-110b, starcoder2-7b and internvl2-26b —
-the ssm family (mamba2-130m) and the hybrid family (zamba2-2.7b) through
-:class:`~repro_torch.models.model.LM`.  The MoE, MLA and
-encoder-decoder families are ROADMAP.md queue 1 work.
+"""The LM model zoo (port of ``repro.models``): every family — dense
+(tinyllama-1.1b, qwen1.5-4b, qwen1.5-110b, starcoder2-7b, internvl2-26b),
+moe (llama4-scout, deepseek-v2 with MLA), ssm (mamba2-130m), hybrid
+(zamba2-2.7b) and encdec (seamless-m4t-large-v2) — through
+:class:`~repro_torch.models.model.LM`; :mod:`.sharded` runs the dense
+family over a device mesh.
 """

@@ -114,12 +114,27 @@ def _project_qkv(c: AttnCfg, p, x: torch.Tensor, positions: torch.Tensor):
     return q, k, v
 
 
-def _mask_heads(c: AttnCfg, out: torch.Tensor) -> torch.Tensor:
-    """Zero padded heads. out: (B, S, hq, D) laid out as (hkv, rep)."""
+def _mask_heads(c: AttnCfg, out: torch.Tensor,
+                heads: slice | None = None) -> torch.Tensor:
+    """Zero padded heads. out: (B, S, hq, D) laid out as (hkv, rep), or
+    the query heads ``heads`` of them."""
     if c.hq == c.n_heads:
         return out
-    m = c.head_mask(out.device).reshape(1, 1, c.hq, 1)
-    return out * m.to(out.dtype)
+    m = c.head_mask(out.device).reshape(c.hq)
+    if heads is not None:
+        m = m[heads]
+    return out * m.reshape(1, 1, -1, 1).to(out.dtype)
+
+
+def _kv_for(c: AttnCfg, q: torch.Tensor, k: torch.Tensor,
+            heads: slice | None) -> torch.Tensor:
+    """Keys or values for the query heads ``q`` holds: on a mesh whose
+    model extent does not divide the KV heads, a member holds every KV
+    head and computes only its query heads ``heads``, so the KV heads
+    are repeated to the full query count and cut to that range."""
+    if heads is None or k.shape[2] * c.rep == q.shape[2]:
+        return k
+    return expand_kv(k, c.rep)[:, :, heads]
 
 
 def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
@@ -129,23 +144,26 @@ def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
 
 
 def attn_apply(c: AttnCfg, p, x: torch.Tensor, *, kind: str = "causal",
-               q_offset: int = 0) -> tuple[torch.Tensor, tuple]:
+               q_offset: int = 0,
+               heads: slice | None = None) -> tuple[torch.Tensor, tuple]:
     """Full-sequence attention (prefill). x: (B, S, E).
 
-    Returns (y, (k, v)) so prefill can emit the KV cache.
+    Returns (y, (k, v)) so prefill can emit the KV cache.  On a mesh,
+    ``p`` holds one member's heads (the query heads ``heads`` of the
+    padded ``hq``) and ``y`` is its partial output projection.
     """
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device) + q_offset
     q, k, v = _project_qkv(c, p, x, positions)
     fn = blockwise_attention if s > BLOCKWISE_THRESHOLD else attention
-    out = fn(q, k, v, kind=kind, window=c.window, chunk=c.chunk,
-             q_offset=q_offset)
-    out = _mask_heads(c, out)
+    out = fn(q, _kv_for(c, q, k, heads), _kv_for(c, q, v, heads),
+             kind=kind, window=c.window, chunk=c.chunk, q_offset=q_offset)
+    out = _mask_heads(c, out, heads)
     return _out_proj(out, p["wo"]), (k, v)
 
 
 def attn_decode(c: AttnCfg, p, x: torch.Tensor, cache_k: torch.Tensor,
-                cache_v: torch.Tensor, pos: int
+                cache_v: torch.Tensor, pos: int, heads: slice | None = None
                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One-token decode. x: (B, 1, E); cache: (B, S_cache, hkv, D) holding
     rotated keys; ``pos``: current absolute position (an int, or a 0-d
@@ -158,6 +176,8 @@ def attn_decode(c: AttnCfg, p, x: torch.Tensor, cache_k: torch.Tensor,
     keeps exactly the positions a full cache would have kept.  As
     ``jax.lax.dynamic_update_slice``, a write index past the cache clamps
     to its last slot (the mask still uses the unclamped index).
+    ``heads``: as in :func:`attn_apply` (the cache holds the member's
+    KV heads).
     """
     pos = int(pos)
     s_cache = cache_k.shape[1]
@@ -187,10 +207,12 @@ def attn_decode(c: AttnCfg, p, x: torch.Tensor, cache_k: torch.Tensor,
 
     ke = expand_kv(cache_k, c.rep)
     ve = expand_kv(cache_v, c.rep)
+    if ke.shape[2] != q.shape[2]:   # every KV head held: cut to ``heads``
+        ke, ve = ke[:, :, heads], ve[:, :, heads]
     scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), ke.float()) \
         / (c.head_dim ** 0.5)
     scores = torch.where(valid[None, None, None, :], scores, -1e30)
     w = torch.softmax(scores, dim=-1).to(x.dtype)
     out = torch.einsum("bhqk,bkhd->bqhd", w, ve)
-    out = _mask_heads(c, out)
+    out = _mask_heads(c, out, heads)
     return _out_proj(out, p["wo"]), cache_k, cache_v

@@ -12,19 +12,54 @@ Matrix products stay in float32 on the card as on the CPU: the port
 never turns TF32 on (``torch.backends.cuda.matmul.allow_tf32`` keeps its
 default, False), so a float32 score is a float32 product.
 
-Not yet ported (they belong to the sharding and roofline slices):
-``specs``, ``DEFAULT_RULES``, ``scan`` and ``unroll_scans``.
+:func:`specs` derives the ``PartitionSpec`` tree from logical-axis
+rules, so a sharding change is a rules change, never a model change.
+:func:`scan` is a plain Python loop and :func:`unroll_scans` a context
+manager that changes nothing (an API difference: JAX's switch makes XLA
+unroll its layer scans so cost analysis counts every body; eager torch
+runs every iteration anyway, and ``FlopCounterMode`` counts each one).
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, NamedTuple
 
 import torch
 
+from repro_torch import tree as _tree
+from repro_torch.distributed.sharding import PartitionSpec
+
 __all__ = ["ParamDef", "init_params", "draw_param", "flatten_defs",
-           "count_params", "rms_norm", "rotary", "apply_rope",
-           "expand_kv", "attention", "blockwise_attention"]
+           "specs", "count_params", "rms_norm", "rotary", "apply_rope",
+           "expand_kv", "attention", "blockwise_attention",
+           "DEFAULT_RULES", "scan", "unroll_scans"]
+
+
+@contextlib.contextmanager
+def unroll_scans(kv_block: int | None = 4096):
+    """JAX's roofline lowering mode; a no-op here (every loop already
+    runs each iteration)."""
+    yield
+
+
+def scan(body, init, xs, **kw):
+    """``lax.scan`` as a loop: ``body(carry, x) → (carry, y)`` over the
+    leading axis of ``xs`` (a tensor or a tree of them) → ``(carry,
+    ys)``, the ``y``s stacked on a new leading axis (``None`` where
+    ``body`` returns ``None``)."""
+    leaves = _tree.leaves(xs)
+    n = leaves[0].shape[0] if leaves else kw.get("length", 0)
+    carry, ys = init, []
+    for i in range(n):
+        x = _tree.unflatten(xs, iter([t[i] for t in leaves]))
+        carry, y = body(carry, x)
+        ys.append(y)
+    if not ys or _tree.leaves(ys[0]) == []:
+        return carry, None
+    flat = [_tree.leaves(y) for y in ys]
+    return carry, _tree.unflatten(ys[0], iter(
+        torch.stack(list(col)) for col in zip(*flat)))
 
 
 class ParamDef(NamedTuple):
@@ -71,6 +106,29 @@ def init_params(defs, generator: torch.Generator, dtype=torch.float32):
             node = node.setdefault(k, {})
         node[path[-1]] = draw_param(d, generator, dtype)
     return out
+
+
+DEFAULT_RULES: dict[str, Any] = {
+    "batch": ("pod", "data"),
+    "embed": "data",          # FSDP: weight d_model dim sharded over data
+    "vocab": "model",
+    "heads": "model",
+    "kv_heads": "model",      # only when divisible; configs override to None
+    "mlp": "model",
+    "experts": "model",
+    "ssm_inner": "model",
+    "layers": None,
+    "seq": None,
+    "conv": None,
+}
+
+
+def specs(defs, rules: dict[str, Any]):
+    """ParamDef tree → PartitionSpec tree via logical-axis rules."""
+    if isinstance(defs, ParamDef):
+        return PartitionSpec(*(rules.get(a) if a is not None else None
+                               for a in defs.axes))
+    return {k: specs(v, rules) for k, v in defs.items()}
 
 
 def count_params(params) -> int:

@@ -63,8 +63,23 @@ package (a layer; a ``hybrid`` or llama4 superblock as a whole) in
 ``torch.utils.checkpoint`` when a trainable LM runs with autograd
 recording, where the JAX package's ``_maybe_remat`` wraps it.
 
-``input_specs`` and ``input_shardings`` come with the sharding and
-dry-run slice (ROADMAP.md, queue 1, item 7f).
+Sharding.  ``LM(cfg, tp=, mesh=)`` builds ``self.rules`` and the
+constrainer ``self._c`` as the JAX ``__init__`` does (``kv_heads`` and
+the mamba axes demoted where they cannot divide ``tp``; ``kv_seq`` set);
+``param_specs()`` / ``param_shardings()`` and ``input_specs(shape)`` /
+``input_shardings(shape)`` are the JAX methods' (``input_specs`` gives
+meta-device stand-ins, nothing allocated).  With a ``mesh``, each leaf
+of ``lm.params`` (and ``lm.grads``) is a
+:class:`~repro_torch.distributed.sharding.ShardedTensor`: one tensor per
+mesh member, the slice its spec gives that member, on its device;
+``gather_params()`` returns the JAX layout.  The ``dense`` family then
+runs over the mesh (:mod:`.sharded`): batch over ``pod``/``data``,
+heads, MLP columns and vocabulary over ``model``, the ``embed`` dimension
+gathered over ``data`` before use (FSDP).  The other families under a
+mesh build their specs and storage, and their ``prefill`` /
+``decode_step`` / ``loss`` raise ``NotImplementedError`` (ROADMAP.md,
+queue 1, item 7f-ii), as does a decode cache whose spec shards its
+length.
 """
 
 from __future__ import annotations
@@ -77,20 +92,27 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeSpec
 from repro_torch.core.popcount import argmax_tournament
+from repro_torch.distributed.sharding import (NamedSharding, ShardedTensor,
+                                              batch_axes, constrainer,
+                                              make_rules, named_sharding)
 from repro_torch.kernels.ops import resolve_device
 
 from .attention import (AttnCfg, _out_proj, _proj, attn_apply, attn_decode,
                         attn_defs)
-from .common import ParamDef, attention, draw_param, flatten_defs, rms_norm
+from .common import (ParamDef, attention, draw_param, flatten_defs, rms_norm,
+                     specs)
 from .mamba2 import MambaCfg, mamba_apply, mamba_decode, mamba_defs
 from .mla import MLACfg, mla_apply, mla_decode, mla_defs
 from .moe import MoECfg, mlp_apply, mlp_defs, moe_apply, moe_defs
 
-__all__ = ["LM", "FAMILIES"]
+__all__ = ["LM", "FAMILIES", "MESH_TODO"]
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec")
+
+# what a mesh cannot run yet
+MESH_TODO = "ROADMAP.md, queue 1, item 7f-ii"
 
 
 def _stack(defs, n: int):
@@ -98,6 +120,14 @@ def _stack(defs, n: int):
         return ParamDef((n, *defs.shape), ("layers", *defs.axes), defs.init,
                         defs.scale)
     return {k: _stack(v, n) for k, v in defs.items()}
+
+
+def _n_stacked(d: ParamDef) -> int:
+    """How many leading ``layers`` axes a leaf stacks."""
+    n = 0
+    while n < len(d.axes) and d.axes[n] == "layers":
+        n += 1
+    return n
 
 
 def _norm_def(e: int) -> ParamDef:
@@ -114,6 +144,11 @@ def _set(tree: dict, path: tuple, value) -> None:
     for k in path[:-1]:
         tree = tree.setdefault(k, {})
     tree[path[-1]] = value
+
+
+def _map_leaves(tree: dict, fn) -> dict:
+    return {k: _map_leaves(v, fn) if isinstance(v, dict) else fn(v)
+            for k, v in tree.items()}
 
 
 def _stack_outs(outs: list):
@@ -160,21 +195,27 @@ class LM(nn.Module):
     (``None`` → cuda; raises where no GPU is visible), computing in
     ``dtype`` (the JAX ``compute_dtype``).  ``tp`` pads heads as the JAX
     ``LM`` does for a model axis of that size, so its parameter trees
-    carry across.  ``trainable`` and ``remat``: see the module
-    docstring."""
+    carry across.  ``mesh``: a
+    :class:`~repro_torch.distributed.sharding.Mesh` to shard over (its
+    first member is ``self.device``; ``device=`` is then ignored).
+    ``trainable`` and ``remat``: see the module docstring."""
 
     def __init__(self, cfg: ModelConfig, *, tp: int = 1, device=None,
-                 dtype=torch.bfloat16, trainable: bool = False,
+                 mesh=None, dtype=torch.bfloat16, trainable: bool = False,
                  remat: bool = True):
         super().__init__()
         if cfg.family not in FAMILIES:
             raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}")
         self.cfg = cfg
         self.tp = tp
+        self.mesh = mesh
         self.dtype = dtype
         self.trainable = trainable
         self.remat = remat
-        self.device = resolve_device(device)
+        self.device = mesh.devices[0] if mesh is not None else \
+            resolve_device(device)
+        self.rules = make_rules(mesh, cfg.rules_overrides)
+        self._c = constrainer(mesh, self.rules)
         c = cfg
         if c.family in ("dense", "moe", "encdec"):
             if c.use_mla:
@@ -204,7 +245,27 @@ class LM(nn.Module):
             self.attn_cfg = AttnCfg(
                 c.d_model, c.n_heads, c.n_kv_heads, c.head_dim,
                 rope_theta=c.rope_theta, tp=tp)
-        self._allocate()
+        # auto-demote rules whose dims cannot divide the model axis (as
+        # the JAX ``_build``: e.g. 4 KV heads on a 16-way axis stay
+        # replicated)
+        tpn = max(1, tp)
+        if hasattr(self, "attn_cfg") and self.attn_cfg.hkv % tpn:
+            self.rules["kv_heads"] = None
+            # decode runs sequence-parallel over the KV cache instead
+            self.rules["kv_seq"] = "model" if mesh is not None else None
+        else:
+            self.rules["kv_seq"] = None
+        if hasattr(self, "mamba_cfg"):
+            m = self.mamba_cfg
+            if any(d % tpn for d in (m.d_in_proj, m.conv_dim, m.d_inner)):
+                self.rules["ssm_inner"] = None
+            if m.n_heads % tpn:
+                self.rules["ssm_heads"] = None
+        self._spmd = None
+        if mesh is None:
+            self._allocate()
+        else:
+            self._allocate_sharded()
 
     # ------------------------------------------------------------ param defs
     def param_defs(self) -> dict:
@@ -278,12 +339,9 @@ class LM(nn.Module):
         self._views: dict = {}          # JAX leaf path → its parameters
         tree: dict = {}
         for path, d in flatten_defs(self.param_defs()):
-            n_stack = 0
-            while n_stack < len(d.axes) and d.axes[n_stack] == "layers":
-                n_stack += 1
-            vector = len(d.shape) - n_stack <= 1
-            dt = torch.float32 if self.trainable or vector else self.dtype
-            buf = torch.empty(d.shape, dtype=dt, device=self.device)
+            n_stack = _n_stacked(d)
+            buf = torch.empty(d.shape, dtype=self._leaf_dtype(d),
+                              device=self.device)
             grad = torch.zeros_like(buf) if self.trainable else None
             if n_stack == 0:
                 buf = nn.Parameter(buf, requires_grad=self.trainable)
@@ -308,6 +366,48 @@ class LM(nn.Module):
                 self.register_parameter(name, v)
             else:
                 self.add_module(name, v)
+
+    def _leaf_dtype(self, d: ParamDef):
+        """float32 for a trainable LM and for vectors (norm weights, the
+        mamba block's per-channel leaves), else the compute dtype."""
+        vector = len(d.shape) - _n_stacked(d) <= 1
+        return torch.float32 if self.trainable or vector else self.dtype
+
+    def _allocate_sharded(self) -> None:
+        """``self.params`` (and with ``trainable`` ``self.grads``) as
+        :class:`ShardedTensor` leaves laid out by :meth:`param_shardings`,
+        in the dtypes :meth:`_allocate` stores."""
+        self.params: dict = {}
+        self.grads: dict | None = {} if self.trainable else None
+        shardings = self.param_shardings()
+        for path, d in flatten_defs(self.param_defs()):
+            dt = self._leaf_dtype(d)
+            sh = _get(shardings, path)
+            _set(self.params, path, ShardedTensor.empty(sh, d.shape, dt))
+            if self.trainable:
+                _set(self.grads, path, ShardedTensor.empty(
+                    sh, d.shape, dt).map(torch.zero_))
+
+    def param_specs(self):
+        """The ``PartitionSpec`` tree of :meth:`param_defs` under
+        ``self.rules`` (the JAX method's)."""
+        return specs(self.param_defs(), self.rules)
+
+    def param_shardings(self):
+        """:meth:`param_specs` as :class:`NamedSharding` leaves over
+        ``self.mesh`` (``None`` leaves without a mesh)."""
+        def walk(t):
+            if isinstance(t, dict):
+                return {k: walk(v) for k, v in t.items()}
+            return named_sharding(self.mesh, t)
+        return walk(self.param_specs())
+
+    def gather_params(self, device="cpu") -> dict:
+        """The parameters in the JAX layout: ``self.params`` without a
+        mesh, else every leaf gathered onto ``device``."""
+        if self.mesh is None:
+            return self.params
+        return _map_leaves(self.params, lambda t: t.gather(device))
 
     def leaf_parameters(self, path: tuple) -> list[nn.Parameter]:
         """The parameters that view the JAX leaf at ``path``: one per
@@ -518,6 +618,26 @@ class LM(nn.Module):
             kw["frames"] = batch["frames"]
         return kw
 
+    def _mesh_exec(self):
+        """The dense family's executor over ``self.mesh`` (built on first
+        use); any other family raises."""
+        if self.cfg.family != "dense":
+            raise NotImplementedError(
+                f"{self.cfg.name}: the {self.cfg.family} family does not run "
+                f"on a mesh yet ({MESH_TODO}); its specs and shardings are "
+                f"built")
+        if self._spmd is None:
+            from .sharded import DenseMesh
+            self._spmd = DenseMesh(self)
+        return self._spmd
+
+    def reduce_grads(self) -> None:
+        """On a mesh: sum each gradient leaf's copies held by members that
+        share a slice, in member order, into every copy (the all-reduce
+        GSPMD inserts for replicated parameters).  No-op without one."""
+        if self.mesh is not None:
+            self._mesh_exec().reduce_grads()
+
     def loss(self, batch: dict):
         """Next-token cross entropy over ``batch["tokens"]`` (B, S)
         against ``batch["targets"]`` (B, S) (plus ``batch["prefix"]``
@@ -530,6 +650,8 @@ class LM(nn.Module):
         first-index tie rule.  The padded vocabulary's ``-1e30`` columns
         get zero gradient."""
         c = self.cfg
+        if self.mesh is not None:
+            return self._mesh_exec().loss(batch)
         h, _ = self._forward(batch["tokens"], **self._inputs(batch))
         if c.prefix_len:                  # loss only over token positions
             h = h[:, c.prefix_len:]
@@ -549,7 +671,9 @@ class LM(nn.Module):
         """``batch["tokens"]`` (B, S) (and ``batch["prefix"]`` (B, P, E)
         where the config has a prefix, ``batch["frames"]`` (B, S_enc, E)
         for ``encdec``) → (next token (B,) int32, the prefill cache of
-        :meth:`_forward`)."""
+        :meth:`_forward`; on a mesh, each cache leaf a ShardedTensor)."""
+        if self.mesh is not None:
+            return self._mesh_exec().prefill(batch)
         h, cache = self._forward(batch["tokens"], emit_cache=True,
                                  **self._inputs(batch))
         logits = self._logits(h[:, -1:])
@@ -568,12 +692,35 @@ class LM(nn.Module):
         float32}``; hybrid the same with (nsb, k) leading axes plus
         ``"attn": {"k", "v"}`` each (nsb, B, len, hkv, D); encdec
         ``{"k", "v"}`` each (L, B, len, hkv, D) and ``"xk"``, ``"xv"``
-        each (L, B, max(1, len // enc_len_ratio), hkv, D)."""
+        each (L, B, max(1, len // enc_len_ratio), hkv, D).
+
+        On a mesh every leaf is a :class:`ShardedTensor` laid out by
+        ``input_shardings``; a layout that shards the cache length raises
+        ``NotImplementedError``."""
+        if self.mesh is None:
+            return self._zero_cache(batch, cache_len, dtype, self.device)
+        self._mesh_exec()
+        shape = ShapeSpec("cache", cache_len, batch, "decode")
+        out = {}
+        for name, sh in self.input_shardings(shape)["cache"].items():
+            if sh.spec[2] is not None:
+                raise NotImplementedError(
+                    f"{self.cfg.name}: a decode cache of {cache_len} "
+                    f"positions at batch {batch} shards its length "
+                    f"({sh.spec}) on this mesh ({MESH_TODO})")
+            like = self._zero_cache(batch, cache_len, dtype, "meta")[name]
+            out[name] = ShardedTensor.empty(sh, like.shape, like.dtype).map(
+                torch.zero_)
+        return out
+
+    def _zero_cache(self, batch: int, cache_len: int, dtype,
+                    device) -> dict:
+        """:meth:`init_cache`'s global tree on ``device``."""
         c = self.cfg
         dt = dtype or self.dtype
 
         def zeros(*shape, dtype=dt):
-            return torch.zeros(shape, dtype=dtype, device=self.device)
+            return torch.zeros(shape, dtype=dtype, device=device)
 
         def kv(lead, length):
             a = self.attn_cfg
@@ -676,6 +823,103 @@ class LM(nn.Module):
 
         The cache is updated in place and returned (the JAX method
         returns a new one)."""
+        if self.mesh is not None:
+            return self._mesh_exec().decode_step(cache, token, pos)
         x = self._decode_hidden(cache, token, pos)
         logits = self._logits(x)
         return argmax_tournament(logits[:, 0]), cache    # no softmax (paper)
+
+    # ---------------------------------------------------------- dry-run I/O
+    def input_specs(self, shape: ShapeSpec) -> dict:
+        """Meta-device stand-ins (shape and dtype, no allocation) for every
+        model input of ``shape``, as the JAX ``ShapeDtypeStruct``s: train
+        ``tokens`` / ``targets`` (and ``prefix`` / ``frames``), prefill
+        ``tokens`` (and ``prefix`` / ``frames``), decode ``token`` (B, 1),
+        ``pos`` () and the global ``cache`` tree."""
+        c = self.cfg
+        b, s = shape.global_batch, shape.seq_len
+
+        def sd(*shp, dtype=torch.int32):
+            return torch.empty(shp, dtype=dtype, device="meta")
+        if shape.kind in ("train", "prefill"):
+            out = {"tokens": sd(b, s)}
+            if shape.kind == "train":
+                out["targets"] = sd(b, s)
+            if c.prefix_len:
+                out["prefix"] = sd(b, c.prefix_len, c.d_model,
+                                   dtype=self.dtype)
+            if c.family == "encdec":
+                out["frames"] = sd(b, s // c.enc_len_ratio, c.d_model,
+                                   dtype=self.dtype)
+            return out
+        # decode: one new token against a cache of length seq_len
+        return {"token": sd(b, 1), "pos": sd(),
+                "cache": self._zero_cache(b, s, None, "meta")}
+
+    def input_shardings(self, shape: ShapeSpec):
+        """:class:`NamedSharding` trees matching :meth:`input_specs`
+        (``None`` without a mesh), by the JAX method's rules: the batch
+        over the data extent where it divides; a decode cache's heads over
+        ``model`` where they divide, else its length (1,024 or more) over
+        ``model``, and over the data axes too where the batch cannot be
+        sharded; never ``head_dim``."""
+        if self.mesh is None:
+            return None
+        c = self.cfg
+        mesh = self.mesh
+        bspec = batch_axes(self.rules, shape.global_batch, mesh)
+
+        def ns(*axes):
+            return named_sharding(mesh, axes)
+
+        if shape.kind in ("train", "prefill"):
+            out = {"tokens": ns(bspec, None)}
+            if shape.kind == "train":
+                out["targets"] = ns(bspec, None)
+            if c.prefix_len:
+                out["prefix"] = ns(bspec, None, None)
+            if c.family == "encdec":
+                out["frames"] = ns(bspec, None, None)
+            return out
+
+        cache = self._zero_cache(shape.global_batch, shape.seq_len, None,
+                                 "meta")
+        return {"token": ns(bspec, None), "pos": ns(),
+                "cache": _map_leaves(cache, lambda x: self.cache_sharding(
+                    x.shape, shape.global_batch))}
+
+    def cache_sharding(self, shp, global_batch: int) -> NamedSharding:
+        """The JAX ``kv_spec`` rule for one cache leaf of shape ``shp``
+        (layout ``(..layer dims.., B, S, [H, D])``): batch over the data
+        extent when it divides; heads over ``model`` when they divide
+        (keeps attention local); else the length (1,024 or more) over
+        ``model``; a batch that cannot be sharded puts the length over
+        the data axes too.  Never ``head_dim``: RoPE halves it."""
+        mesh = self.mesh
+        bspec = batch_axes(self.rules, global_batch, mesh)
+        tpn = mesh.shape.get("model", 1)
+        dp = self.rules.get("batch")
+        dp_names = (dp,) if isinstance(dp, str) else tuple(dp or ())
+        dpn = 1
+        for nme in dp_names:
+            dpn *= mesh.shape[nme]
+        shp = tuple(shp)
+        nd = len(shp)
+        spec = [None] * nd
+        try:
+            bdim = shp.index(global_batch)
+        except ValueError:
+            return named_sharding(mesh, spec)
+        if bspec is not None:
+            spec[bdim] = bspec
+        sdim = bdim + 1 if nd > bdim + 1 else None
+        hdim = bdim + 2 if nd >= bdim + 4 else None
+        if hdim is not None and shp[hdim] % tpn == 0:
+            spec[hdim] = "model"
+        elif sdim is not None and shp[sdim] >= 1024 and shp[sdim] % tpn == 0:
+            spec[sdim] = "model"
+        if bspec is None and sdim is not None and shp[sdim] >= 1024 and \
+                shp[sdim] % dpn == 0 and spec[sdim] is None and \
+                dp is not None:
+            spec[sdim] = dp
+        return named_sharding(mesh, spec)

@@ -21,7 +21,8 @@ torch's defaults differ from JAX's are pinned to JAX's:
   sum them in no fixed order and could move a greedy pick between runs.
 
 The sharding hooks of the JAX function (``constrain``, ``dp_groups``)
-come with the sharding slice (ROADMAP.md, queue 1, item 7f).
+come with mesh execution for the moe family (ROADMAP.md, queue 1, item
+7f-ii).
 """
 
 from __future__ import annotations

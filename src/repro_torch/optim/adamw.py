@@ -12,6 +12,11 @@ JAX does.
 The JAX function returns new trees; :func:`adamw_update` writes the new
 parameters and moments into the given tensors (no second copy of a
 model's masters and moments) and returns them.
+
+A leaf may be a :class:`~repro_torch.distributed.sharding.ShardedTensor`
+(a sharded ``LM``'s): the update runs shard by shard on each member's
+device, and the global norm sums every distinct slice's squares once,
+in leaf and then member order.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ from typing import Any, NamedTuple
 import torch
 
 from repro_torch import tree as _tree
+from repro_torch.distributed.sharding import ShardedTensor, leaf_parts
 
 __all__ = ["AdamWConfig", "OptState", "adamw_init", "adamw_update",
            "global_norm"]
@@ -42,19 +48,32 @@ class OptState(NamedTuple):
     count: torch.Tensor
 
 
+def _zeros_like(x):
+    if isinstance(x, ShardedTensor):
+        return x.map(torch.zeros_like)
+    return torch.zeros_like(x)
+
+
 def adamw_init(params) -> OptState:
     """Zero moments shaped like ``params``; ``count`` an int32 scalar on
     the first leaf's device."""
     dev = _tree.leaves(params)[0].device
-    return OptState(mu=_tree.map(torch.zeros_like, params),
-                    nu=_tree.map(torch.zeros_like, params),
+    return OptState(mu=_tree.map(_zeros_like, params),
+                    nu=_tree.map(_zeros_like, params),
                     count=torch.zeros((), dtype=torch.int32, device=dev))
 
 
 def global_norm(tree) -> torch.Tensor:
-    """``√Σ leaf²`` in float32, the per-leaf sums added in leaf order."""
-    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
-                          for x in _tree.leaves(tree)))
+    """``√Σ leaf²`` in float32, the per-leaf sums added in leaf order (a
+    ShardedTensor's distinct shards one after another), on the first
+    leaf's device."""
+    leaves = _tree.leaves(tree)
+    dev = leaves[0].device
+    sq = [torch.sum(torch.square(t.float())).to(dev)
+          for x in leaves
+          for t in ([t for _, t in x.distinct()]
+                    if isinstance(x, ShardedTensor) else [x])]
+    return torch.sqrt(sum(sq))
 
 
 @torch.no_grad()
@@ -75,12 +94,15 @@ def adamw_update(cfg: AdamWConfig, grads, state: OptState, params,
     ms, vs = _tree.leaves(state.mu), _tree.leaves(state.nu)
     if not len(ps) == len(gs) == len(ms) == len(vs):
         raise ValueError("params, grads and moments differ in structure")
-    for p, g, m, v in zip(ps, gs, ms, vs):
-        g = g * scale
+    parts = [list(zip(*map(leaf_parts, t))) for t in zip(ps, gs, ms, vs)]
+    for p, g, m, v in (t for leaf in parts for t in leaf):
+        dev = p.device
+        g = g * scale.to(dev)
         m.copy_(cfg.b1 * m + (1 - cfg.b1) * g)
         v.copy_(cfg.b2 * v + (1 - cfg.b2) * g * g)
-        update = (m / c1) / (torch.sqrt(v / c2) + cfg.eps)
+        update = (m / c1.to(dev)) / (torch.sqrt(v / c2.to(dev)) + cfg.eps)
         pf = p.float()
-        p.copy_(pf - lr * (update + cfg.weight_decay * pf))
+        lr_d = lr.to(dev) if isinstance(lr, torch.Tensor) else lr
+        p.copy_(pf - lr_d * (update + cfg.weight_decay * pf))
     return params, OptState(mu=state.mu, nu=state.nu, count=count), \
         {"grad_norm": gnorm}

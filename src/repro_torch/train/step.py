@@ -11,6 +11,10 @@ over ``n_micro`` row slices (the first slice added to zeros) and divides
 them by ``n_micro``, as the JAX ``lax.scan`` does (the loss is not
 scaled); the learning rate comes from ``state.step`` before its
 increment; the metrics are ``loss``, ``acc``, ``grad_norm`` and ``lr``.
+
+On a sharded ``LM`` (``LM(mesh=...)``) each member's gradient is its
+shard's; the copies of a replicated slice are summed in member order
+(``lm.reduce_grads()``) before AdamW, which runs shard by shard.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ from typing import Any, NamedTuple
 import torch
 
 from repro_torch import tree as _tree
+from repro_torch.distributed.sharding import ShardedTensor, leaf_parts
 from repro_torch.optim.adamw import (AdamWConfig, OptState, adamw_init,
                                      adamw_update)
 from repro_torch.optim.schedule import cosine_warmup
@@ -52,6 +57,16 @@ def init_train_state(params) -> TrainState:
                                        device=opt.count.device))
 
 
+def _like(x, p, device):
+    """A state leaf ``x`` placed as parameter leaf ``p``: a global
+    array sliced for a sharded ``p``, else a tensor on ``device``."""
+    if isinstance(x, ShardedTensor):
+        return x
+    if isinstance(p, ShardedTensor):
+        return ShardedTensor.from_full(x, p.sharding, p.dtype)
+    return torch.as_tensor(x, device=device)
+
+
 def make_train_step(lm, hp: TrainHParams):
     """``lm`` an ``LM(trainable=True)`` → ``train_step(state, batch)`` →
     ``(state', metrics)``.
@@ -76,7 +91,8 @@ def make_train_step(lm, hp: TrainHParams):
         with torch.no_grad():
             for dst, src in zip(p_leaves, got):
                 if src is not dst:
-                    dst.copy_(torch.as_tensor(src))
+                    dst.copy_(src if isinstance(dst, ShardedTensor)
+                              else torch.as_tensor(src))
 
     def grads_of(batch) -> dict:
         loss, metrics = lm.loss(batch)
@@ -88,7 +104,8 @@ def make_train_step(lm, hp: TrainHParams):
         batch = {k: torch.as_tensor(v, device=lm.device)
                  for k, v in batch.items()}
         for g in g_leaves:
-            g.zero_()
+            for t in leaf_parts(g):
+                t.zero_()
         if hp.n_micro > 1:
             n = hp.n_micro
             rows = next(iter(batch.values())).shape[0]
@@ -102,17 +119,22 @@ def make_train_step(lm, hp: TrainHParams):
                 m = grads_of({k: v[i * mb:(i + 1) * mb]
                               for k, v in batch.items()})
                 m_sum = {k: m_sum[k] + m[k] for k in m_sum}
+            lm.reduce_grads()
             with torch.no_grad():
                 for g in g_leaves:
-                    g.div_(n)
+                    for t in leaf_parts(g):
+                        t.div_(n)
             metrics = {k: v / n for k, v in m_sum.items()}
         else:
             metrics = grads_of(batch)
+            lm.reduce_grads()
         lr = cosine_warmup(state.step, peak_lr=hp.peak_lr, warmup=hp.warmup,
                            total=hp.total_steps)
         step = torch.as_tensor(state.step, device=lm.device)
-        opt = OptState(*[_tree.map(lambda x: torch.as_tensor(
-            x, device=lm.device), t) for t in state.opt])
+        mu, nu, count = state.opt
+        opt = OptState(*[_tree.map(lambda x, p: _like(x, p, lm.device), t,
+                                   params) for t in (mu, nu)],
+                       torch.as_tensor(count, device=lm.device))
         new_params, opt, opt_metrics = adamw_update(hp.adamw, grads, opt,
                                                     params, lr)
         return TrainState(params=new_params, opt=opt, step=step + 1), \

@@ -1347,3 +1347,126 @@ def test_lm_moe_encdec_prefill_and_decode_on_cuda_equal_cpu(cuda, arch):
         _lm_tokens_agree(dnxt, nxt, logits)
         for got, want in zip(ttree.leaves(dcache), ttree.leaves(cache)):
             _lm_close(got, want)
+
+
+# -- LM sharding: the dense family on a mesh of cuda members against the
+# unsharded port on the CPU (float32, reduced widths, the tolerances
+# above; gradients within 5e-4 of each leaf's largest, as
+# tests/test_torch_lm_sharding.py)
+
+
+def _mesh_of(cuda, kind):
+    from repro_torch.launch.mesh import mesh_from_devices
+    cpu = torch.device("cpu")
+    if kind == "mixed":         # cross-device copies in every collective
+        return mesh_from_devices([cuda, cpu, cuda, cpu], model=2)
+    model = {"2x2": 2, "1x4": 4, "4x1": 1}[kind]
+    return mesh_from_devices([cuda] * 4, model=model)
+
+
+def _flat_leaves(tree, prefix=()):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _flat_leaves(tree[k], prefix + (k,))
+    else:
+        yield prefix, tree
+
+
+@pytest.mark.parametrize("kind", ["2x2", "1x4", "4x1", "mixed"])
+def test_lm_mesh_on_cuda_equals_unsharded_cpu(cuda, kind):
+    """tinyllama reduced on a mesh of cuda members (1x4: the KV heads
+    replicated): logits, the prefill token, 4 decode steps, ``loss`` and
+    every gradient against the unsharded model on the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.reduce import reduced
+    from repro_torch.models.model import LM
+    mesh = _mesh_of(cuda, kind)
+    tp = mesh.shape["model"]
+    cfg = reduced(get_config("tinyllama-1.1b"))
+    cpu = LM(cfg, tp=tp, device="cpu", dtype=torch.float32, trainable=True,
+             remat=False).init(torch.Generator().manual_seed(0))
+    dev = LM(cfg, tp=tp, mesh=mesh, dtype=torch.float32, trainable=True)
+    for path, t in _flat_leaves(cpu.params):
+        dev.load_leaf(path, t)
+    for _, st in _flat_leaves(dev.params):
+        assert [t.device.type for t in st.shards] == \
+            [d.type for d in mesh.devices]
+    rng = np.random.default_rng(3)
+    batch = {k: torch.as_tensor(rng.integers(0, cfg.vocab_size, (4, 12),
+                                             np.int32))
+             for k in ("tokens", "targets")}
+    with torch.no_grad():
+        logits = cpu._logits(cpu._forward(batch["tokens"])[0])
+    _lm_close(dev._mesh_exec().logits(batch), logits)
+    tok, _ = cpu.prefill(batch)
+    dtok, _ = dev.prefill(batch)
+    _lm_tokens_agree(dtok, tok, logits[:, -1])
+    cache, dcache = cpu.init_cache(4, 16), dev.init_cache(4, 16)
+    for pos in range(4):
+        t = batch["tokens"][:, pos:pos + 1]
+        nxt, cache = cpu.decode_step(cache, t, pos)
+        dnxt, dcache = dev.decode_step(dcache, t.to(cuda), pos)
+        assert (dnxt.cpu() == nxt).all()
+    _lm_close(dcache["k"].gather(), cache["k"])
+    loss, _ = cpu.loss(batch)
+    loss.backward()
+    dloss, _ = dev.loss(batch)
+    dloss.backward()
+    dev.reduce_grads()
+    np.testing.assert_allclose(float(dloss.detach()), float(loss.detach()),
+                               rtol=1e-5)
+    for path, g in _flat_leaves(dev.grads):
+        want = _flat_get(cpu.grads, path).numpy()
+        np.testing.assert_allclose(g.gather().numpy(), want, rtol=0,
+                                   atol=5e-4 * np.abs(want).max())
+
+
+def _flat_get(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def test_lm_mesh_train_step_and_launchers_on_cuda(cuda, tmp_path):
+    """Two 2-microbatch AdamW steps on a (2, 2) mesh of cuda members
+    against the unsharded CPU steps (the bounds of
+    ``test_train_step_on_cuda_equals_cpu``), then both LM launchers'
+    ``--mesh host4`` on cuda at reduced width."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.reduce import reduced
+    from repro_torch.launch import serve, train
+    from repro_torch.models.model import LM
+    from repro_torch.train import (TrainHParams, init_train_state,
+                                   make_train_step)
+    cfg = reduced(get_config("tinyllama-1.1b"))
+    cpu = LM(cfg, tp=2, device="cpu", dtype=torch.float32,
+             trainable=True).init(torch.Generator().manual_seed(1))
+    dev = LM(cfg, tp=2, mesh=_mesh_of(cuda, "2x2"), dtype=torch.float32,
+             trainable=True)
+    for path, t in _flat_leaves(cpu.params):
+        dev.load_leaf(path, t)
+    hp = TrainHParams(peak_lr=1e-3, warmup=0, total_steps=10, n_micro=2)
+    sc, sd = init_train_state(cpu.params), init_train_state(dev.params)
+    step_c, step_d = make_train_step(cpu, hp), make_train_step(dev, hp)
+    rng = np.random.default_rng(9)
+    lr_sum = 0.0
+    for _ in range(2):
+        batch = {k: rng.integers(0, cfg.vocab_size, (4, 10), np.int32)
+                 for k in ("tokens", "targets")}
+        sc, mc = step_c(sc, batch)
+        sd, md = step_d(sd, batch)
+        lr_sum += float(mc["lr"])
+        np.testing.assert_allclose(float(md["loss"]), float(mc["loss"]),
+                                   rtol=1e-5)
+        np.testing.assert_allclose(float(md["grad_norm"]),
+                                   float(mc["grad_norm"]), rtol=5e-4)
+    for path, st in _flat_leaves(sd.params):
+        diff = (st.gather() - _flat_get(sc.params, path).detach()).abs()
+        assert float(diff.max()) <= 0.1 * lr_sum
+        assert float(diff.mean()) <= 1e-3 * lr_sum
+    res = serve.run(device="cuda", mesh="host4", max_new=4)
+    assert res["mesh"].dims == (2, 2) and tuple(res["out"].shape) == (8, 4)
+    out = train.run(device="cuda", mesh="host4", steps=2, seq=16,
+                    ckpt_dir=str(tmp_path), ckpt_every=1)
+    assert int(out["state"].step) == 2
+    assert all(np.isfinite(out["losses"]))

@@ -59,7 +59,7 @@ from repro_torch.configs import get_config
 from repro_torch.configs.reduce import reduced
 from repro_torch.convert import lm_params_from_numpy
 from repro_torch.data import ShardedLoader, lm_token_stream
-from repro_torch.distributed import Mesh
+from repro_torch.distributed import Mesh, ShardedTensor
 from repro_torch.distributed.fault_tolerance import (ElasticRunner,
                                                      StragglerWatchdog,
                                                      run_with_recovery)
@@ -476,7 +476,8 @@ def test_train_launcher_on_cpu_resumes_and_jax_restores(tmp_path, capsys,
     replays from its checkpoint and ends at the unbroken run's state
     (to 1e-6); its checkpoint is
     the JAX ``TrainState`` tree, which the JAX ``restore`` reads back
-    bitwise; ``--n-micro 2`` runs; ``--mesh`` raises."""
+    bitwise; ``--n-micro 2`` runs; ``--mesh host8`` runs on a (4, 2) CPU
+    mesh and checkpoints the gathered tree, which JAX reads back."""
     whole = _launch(tmp_path, "whole")
     assert "training complete; final step 6" in capsys.readouterr().out
     assert len(whole["losses"]) == 6 and all(np.isfinite(whole["losses"]))
@@ -517,8 +518,16 @@ def test_train_launcher_on_cpu_resumes_and_jax_restores(tmp_path, capsys,
 
     micro = _launch(tmp_path, "micro", "--n-micro", "2")
     assert int(micro["state"].step) == 6
-    with pytest.raises(NotImplementedError, match="item 7f"):
-        _launch(tmp_path, "mesh", "--mesh", "host8")
+    # --mesh host8: a (4, 2) mesh of the CPU, tp 2; its checkpoint is
+    # the gathered JAX tree, which the JAX restore reads back bitwise
+    meshed = _launch(tmp_path, "mesh", "--mesh", "host8")
+    assert meshed["mesh"].dims == (4, 2) and int(meshed["state"].step) == 6
+    jlm2 = JLM(jreduced(jget_config("tinyllama-1.1b")), tp=2)
+    like2 = jinit_train_state(jlm2.init(jax.random.key(0)))
+    jtree2, _ = jckpt.restore(str(tmp_path / "mesh"), 6, like2)
+    for a, b in zip(ttree.leaves(meshed["state"]), jax.tree.leaves(jtree2)):
+        a = a.gather() if isinstance(a, ShardedTensor) else a
+        np.testing.assert_array_equal(a.detach().numpy(), np.asarray(b))
 
 
 def test_train_launcher_replays_a_step_failed_after_its_update(

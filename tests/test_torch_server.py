@@ -490,7 +490,9 @@ def test_port_imports_no_jax_and_no_repro():
             "repro_torch.train, repro_torch.train.step, "
             "repro_torch.data.pipeline, repro_torch.data.datasets, "
             "repro_torch.distributed.fault_tolerance, "
-            "repro_torch.launch.train\n"
+            "repro_torch.launch.train, repro_torch.launch.mesh, "
+            "repro_torch.launch.dryrun, repro_torch.roofline, "
+            "repro_torch.roofline.analysis, repro_torch.models.sharded\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.') or m == 'ml_dtypes' or "
