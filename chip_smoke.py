@@ -222,6 +222,17 @@ package.  Phases, each on its own lines:
    unsharded one under phase 14's gate-1 bounds, 3 full-width bfloat16
    mesh steps (p50), and ``launch.train.run(mesh="host4")`` at reduced
    width; K1–K6's counters read 0; a ``{"lm_mesh": ...}`` line;
+15b. the moe family on the LM mesh (``LM_MOE_MESH_LAYERS``' comment):
+   llama4-scout at one superblock and deepseek-v2 at 3 layers, published
+   widths, through ``launch.serve.run(full=True, mesh="host4")`` on the
+   (2, 2) mesh (experts split over ``model``, routing once; deepseek's
+   latent cache of 1,024 positions split over ``model`` by length);
+   float32 sharded against unsharded (deepseek at 2 layers, llama4 at
+   reduced width) with a TF32 control above the limit, bfloat16 lockstep
+   picks under the near-tie rule with the expert choices compared by
+   ``route_flips``, each member's bytes against the dry-run's, decode
+   p50/p99 sharded and unsharded; K1–K6's counters read 0; a
+   ``{"lm_moe_mesh": ...}`` line;
 16. a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -497,6 +508,34 @@ LM_MESH_ARCH = "qwen1.5-4b"
 LM_MESH_LAYERS = 2
 LM_MESH_RTOL = LM_MESH_ATOL = 1e-4
 LM_MESH_TRAIN_STEPS = 3
+# phase 15b, the moe family on the mesh: llama4-scout and deepseek-v2 at
+# published widths through launch.serve.run(full=True, mesh="host4") on
+# phase 15's (2, 2) mesh, depth cut to LM_MOE_MESH_LAYERS (one
+# superblock; the dense first layer and two MoE layers) and the traffic
+# to (LM_BATCH, LM_MOE_MESH_PROMPT) prompts and LM_MOE_MESH_NEW new
+# tokens; deepseek decodes into a cache of LM_MOE_MESH_CACHE positions,
+# so its latent cache (no head axis) splits its length over model and
+# the decode runs sequence-parallel.  Checks: float32 logits over the
+# prompts sharded against unsharded on the card, deepseek at
+# LM_MOE_MESH_F32_LAYERS layers of published width within phase 13's
+# LM_F32_TOL with a TF32 control above it, llama4 at configs/reduce.py's
+# width (a float32 superblock at published width is 43.5 GB, twice that
+# does not fit) within tests/test_torch_lm_moe_mesh.py's tolerance (the
+# LM_MESH_RTOL / LM_MESH_ATOL rule: phase 13's 0.3 for llama4 was set for
+# R5's growth at published width, which a TF32 control at d_model 64
+# cannot reach), its TF32 control above that; bfloat16 greedy picks in
+# lockstep at the served depth under phase 13's near-tie rule, each MoE
+# layer's expert choices on the mesh against the unsharded model's by
+# route_flips (a flip outside a near tie fails; since a decode step's
+# capacity is one slot an expert at B = 8 (R7), one token's flip can
+# push another past its expert's slot, so a row whose experts or kept
+# slots differ leaves the pick rule from then on, counted); every
+# member's stored bytes against the dry-run's argument bytes to the
+# byte; decode-step p50/p99 sharded and unsharded from the lockstep run.
+LM_MOE_MESH_LAYERS = {"llama4-scout-17b-a16e": 4, "deepseek-v2-236b": 3}
+LM_MOE_MESH_CACHE = {"deepseek-v2-236b": 1024}
+LM_MOE_MESH_F32_LAYERS = 2
+LM_MOE_MESH_PROMPT, LM_MOE_MESH_NEW = 16, 8
 
 
 def smi(query: str) -> str:
@@ -3553,6 +3592,256 @@ def lm_mesh_phase(torch, rt, card: str) -> dict:
     return row
 
 
+def moe_mesh_f32(torch, mesh, arch: str, prompts) -> dict:
+    """Phase 15b, float32: the mesh's logits over ``prompts`` against the
+    unsharded model's on the card (LM_MOE_MESH's comment), the unsharded
+    copy freed before the mesh computes (a deepseek pair at 2 layers is
+    42.8 GB, and each member gathers its experts' embed halves)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.configs.reduce import reduced
+    from repro_torch.models.model import LM
+    full = arch == "deepseek-v2-236b"
+    cfg = dataclasses.replace(get_config(arch),
+                              n_layers=LM_MOE_MESH_F32_LAYERS) if full \
+        else reduced(get_config(arch))
+    prompts = prompts % cfg.vocab_size
+    tp = mesh.shape["model"]
+    flat = LM(cfg, tp=tp, device="cuda", dtype=torch.float32)
+    flat.init(torch.Generator(device="cuda").manual_seed(1))
+    shard = LM(cfg, tp=tp, mesh=mesh, dtype=torch.float32)
+    copy_weights(flat, shard)
+    v = cfg.vocab_size
+    with torch.no_grad():
+        want = flat._logits(flat._forward(prompts)[0])[..., :v]
+    del flat
+    torch.cuda.empty_cache()
+    ex = shard._mesh_exec()
+    got = ex.logits({"tokens": prompts})[..., :v]
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        ctl = ex.logits({"tokens": prompts})[..., :v]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    atol = LM_MESH_ATOL * max(1.0, float(want.abs().max()))
+
+    def over(x):
+        return float(((x - want).abs() / (atol + LM_MESH_RTOL
+                                          * want.abs())).max())
+    err, ctl_err = float((got - want).abs().max()), \
+        float((ctl - want).abs().max())
+    row = {"f32_config": f"{cfg.n_layers} layers" + ("" if full else
+                                                     ", reduced width"),
+           "f32_max_abs_err": err, "f32_max_abs_logit":
+           float(want.abs().max()), "f32_err_over_test_tol": over(got),
+           "tf32_control_err": ctl_err,
+           "tf32_control_over_test_tol": over(ctl)}
+    if full:
+        tol = LM_F32_TOL[arch]
+        row["f32_tol"] = tol
+        ok = err <= tol < ctl_err
+    else:
+        row["f32_tol"] = "tests/test_torch_lm_moe_mesh.py's"
+        ok = row["f32_err_over_test_tol"] <= 1.0 < \
+            row["tf32_control_over_test_tol"]
+    if not torch.isfinite(got).all() or not ok:
+        raise AssertionError(f"{arch} mesh float32 logits: {row}")
+    del shard, ex, want, got, ctl
+    torch.cuda.empty_cache()
+    return row
+
+
+def moe_mesh_lockstep(torch, lm, prompts, cache_len: int) -> dict:
+    """Phase 15b, bfloat16: the mesh ``lm`` and an unsharded copy of its
+    weights decode in lockstep (both fed the unsharded model's picks),
+    each step timed with a sync; each MoE layer's expert choices on the
+    mesh held against the unsharded model's (LM_MOE_MESH's comment)."""
+    from repro_torch.core.popcount import argmax_tournament
+    from repro_torch.engine.base import nearest_rank
+    from repro_torch.models import moe as moe_module
+    from repro_torch.models import sharded
+    from repro_torch.models.model import LM
+    flat = LM(lm.cfg, tp=lm.tp, device="cuda", dtype=torch.bfloat16)
+    flat.init(torch.Generator(device="cuda").manual_seed(0))
+    routes = {"mesh": [], "flat": []}
+    real = moe_module.moe_route
+
+    def recorder(key):
+        def route(c, router, xt):
+            r = real(c, router, xt)
+            # each token's experts ascending and whether each kept its slot
+            routes[key].append((r.top_i.sort(-1).values, r.gates,
+                                r.keep[moe_module.combine_order(r)]))
+            return r
+        return route
+    b, s = prompts.shape
+    cf, cs = flat.init_cache(b, cache_len), lm.init_cache(b, cache_len)
+    rows = torch.arange(b, device="cuda")
+    v = lm.cfg.vocab_size
+    tok, exact, gated, worst = prompts[:, :1], 0, 0, 0.0
+    flips = unexplained = first = 0
+    left = torch.zeros(b, dtype=torch.bool)     # rows out of the pick rule
+    t_mesh, t_flat = [], []
+    moe_module.moe_route = recorder("flat")
+    sharded.moe_route = recorder("mesh")
+    try:
+        for pos in range(s + LM_MOE_MESH_NEW - 1):
+            routes["mesh"].clear()
+            routes["flat"].clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg = flat._logits(flat._decode_hidden(cf, tok, pos))[:, 0]
+            pick = argmax_tournament(lg).long()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            got, _ = lm.decode_step(cs, tok, pos)
+            torch.cuda.synchronize()
+            t_flat.append(t1 - t0)
+            t_mesh.append(time.perf_counter() - t1)
+            if len(routes["mesh"]) != len(routes["flat"]):
+                raise AssertionError(f"step {pos}: the mesh routed "
+                                     f"{len(routes['mesh'])} times, the "
+                                     f"unsharded model "
+                                     f"{len(routes['flat'])}")
+            was = left.clone()
+            for g_r, w_r in zip(routes["mesh"], routes["flat"]):
+                n, out = route_flips(torch, g_r[:2], w_r[:2])
+                flips += n
+                unexplained += out
+                flipped = (g_r[0] != w_r[0]).any(-1).cpu()
+                first += int((flipped & ~was).sum())
+                # a flip moves other rows' tokens past their experts'
+                # capacity (R7): a row whose choice or slots differ leaves
+                left |= flipped | (g_r[2] != w_r[2]).any(-1).cpu()
+            got = got.long()
+            top = lg[:, :v].max(-1).values
+            gap = top - lg[rows, got]
+            tol = LM_TIE_ULPS * bf16_ulp(torch, top)
+            inside = (~left).to(gap.device)
+            if inside.any():
+                worst = max(worst, float((gap / tol)[inside].max()))
+            if unexplained or not (gap <= tol)[inside].all():
+                raise AssertionError(
+                    f"mesh bfloat16 step {pos}: picks {got.tolist()} vs "
+                    f"{pick.tolist()}, gaps {gap.tolist()} > "
+                    f"{tol.tolist()}; {unexplained} expert flips outside "
+                    f"a near tie")
+            exact += int((got == pick).sum())
+            gated += int(inside.sum())
+            tok = prompts[:, pos + 1:pos + 2] if pos + 1 < s else \
+                pick[:, None]
+    finally:
+        moe_module.moe_route = real
+        sharded.moe_route = real
+    del flat, cf, cs
+    torch.cuda.empty_cache()
+    t_mesh.sort()
+    t_flat.sort()
+    return {"bf16_exact": exact, "bf16_picks": len(t_mesh) * b,
+            "bf16_gated_picks": gated, "bf16_worst_gap_over_tol": worst,
+            "route_flips": flips, "route_flips_outside_tie": unexplained,
+            "route_flips_in_lockstep_rows": first,
+            "rows_left_after_a_flip": int(left.sum()),
+            "decode_p50_ms": nearest_rank(t_mesh, 0.50) * 1e3,
+            "decode_p99_ms": nearest_rank(t_mesh, 0.99) * 1e3,
+            "unsharded_decode_p50_ms": nearest_rank(t_flat, 0.50) * 1e3,
+            "unsharded_decode_p99_ms": nearest_rank(t_flat, 0.99) * 1e3}
+
+
+def lm_moe_mesh_phase(torch, rt, card: str) -> dict:
+    """Phase 15b: the moe family on the LM mesh (LM_MOE_MESH's comment).
+    Its counters of K1–K6 are zeroed before and must read 0 after."""
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.distributed.sharding import Mesh
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.serve import run
+    counted = ("swar_fused_votes", "clause_votes", "train_deltas_keyed",
+               "popcount_words", "pdl_race", "binary_matmul")
+    for k in counted:
+        rt[k].launches = 0
+    t0 = time.perf_counter()
+    rows = {}
+    for arch, layers in LM_MOE_MESH_LAYERS.items():
+        cache_len = LM_MOE_MESH_CACHE.get(arch,
+                                          LM_MOE_MESH_PROMPT + LM_MOE_MESH_NEW)
+        res = run(arch, batch=LM_BATCH, prompt_len=LM_MOE_MESH_PROMPT,
+                  max_new=LM_MOE_MESH_NEW, full=True, layers=layers,
+                  device="cuda", mesh=LM_MESH, cache_len=cache_len)
+        lm, mesh, prompts, out = res["lm"], res["mesh"], res["prompts"], \
+            res["out"]
+        where = mesh_members(torch, mesh)
+        print(f"{res['line']} on a {mesh.dims} mesh of {where} (cache "
+              f"{cache_len}); {card}", flush=True)
+        if tuple(out.shape) != (LM_BATCH, LM_MOE_MESH_NEW) or \
+                int(out.min()) < 0 or int(out.max()) >= lm.cfg.vocab_size:
+            raise AssertionError(f"{arch} mesh serve: tokens "
+                                 f"{tuple(out.shape)} "
+                                 f"{int(out.min())}..{int(out.max())}")
+        cache = lm.init_cache(LM_BATCH, cache_len)
+        split = [(name, tuple(st.sharding.spec))
+                 for name, st in _named_leaves(cache)]
+        stored = mesh_stored_bytes(lm, cache, LM_BATCH)
+        del cache
+        meta = Mesh((torch.device("meta"),) * mesh.size, mesh.axis_names,
+                    mesh.dims)
+        rec = dryrun.run_cell(arch, "serve", False, roofline=False,
+                              cfg=lm.cfg, mesh=meta,
+                              shape=ShapeSpec("serve", cache_len, LM_BATCH,
+                                              "decode"))
+        want = rec["memory"]["bytes"]["argument"]
+        if any(n != want for n in stored):
+            raise AssertionError(f"{arch} mesh members hold {stored} bytes, "
+                                 f"the dry-run's argument is {want}")
+        row = {"arch": arch, "layers": lm.cfg.n_layers,
+               "published_layers": get_config(arch).n_layers,
+               "mesh": list(mesh.dims), "members": where,
+               "serve_line": res["line"], "cache_len": cache_len,
+               "cache_specs": split, "member_bytes": stored,
+               "dryrun_argument_bytes": want}
+        row.update(moe_mesh_lockstep(torch, lm, prompts, cache_len))
+        del res, lm, out
+        torch.cuda.empty_cache()
+        row.update(moe_mesh_f32(torch, mesh, arch, prompts))
+        rows[arch] = row
+        print(f"lm moe mesh {arch} at {row['layers']} of "
+              f"{row['published_layers']} layers, {card}: {mesh.dims} mesh "
+              f"of {where}; cache {cache_len} ({split}); float32 "
+              f"({row['f32_config']}) max |logit err| "
+              f"{row['f32_max_abs_err']:.3g} ({row['f32_err_over_test_tol']:.3g}"
+              f" of the CPU test's tolerance; limit {row['f32_tol']}; TF32 "
+              f"control {row['tf32_control_err']:.3g}, "
+              f"{row['tf32_control_over_test_tol']:.3g} of it); bfloat16 "
+              f"picks {row['bf16_exact']}/{row['bf16_picks']} exact, "
+              f"{row['bf16_gated_picks']} held to the near-tie rule (worst "
+              f"{row['bf16_worst_gap_over_tol']:.3g} of it), expert flips "
+              f"{row['route_flips']} ({row['route_flips_in_lockstep_rows']} "
+              f"in rows still in lockstep; outside a near tie "
+              f"{row['route_flips_outside_tie']}); each member stores "
+              f"{stored[0]:,} bytes == the dry-run's argument bytes; decode "
+              f"step p50/p99 {row['decode_p50_ms']:.2f}/"
+              f"{row['decode_p99_ms']:.2f} ms sharded, "
+              f"{row['unsharded_decode_p50_ms']:.2f}/"
+              f"{row['unsharded_decode_p99_ms']:.2f} ms unsharded",
+              flush=True)
+    launched = {k: rt[k].launches for k in counted if rt[k].launches}
+    if launched:
+        raise AssertionError(f"the LM moe mesh path launched TM kernels: "
+                             f"{launched}")
+    wall = time.perf_counter() - t0
+    print(f"phase 15b (LM moe mesh) wall {wall:.1f}s, {card}", flush=True)
+    print(json.dumps({"lm_moe_mesh": rows, "card": card, "wall_s": wall}),
+          flush=True)
+    return rows
+
+
+def _named_leaves(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _named_leaves(v, f"{prefix}{k}/")
+        else:
+            yield f"{prefix}{k}", v
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3675,6 +3964,7 @@ def main() -> int:
     lm_phase(torch, rt, card)
     train_phase(torch, rt, card)
     lm_mesh_phase(torch, rt, card)
+    lm_moe_mesh_phase(torch, rt, card)
 
     meta = {
         "swar_fused_votes": ("src/repro_torch/csrc/swar_fused.cu",

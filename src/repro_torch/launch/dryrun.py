@@ -13,9 +13,10 @@ For each cell this proves, without hardware:
   FLOPs from ``torch.utils.flop_counter.FlopCounterMode`` over a meta run
   of the step at full depth (forward, plus backward for ``train``)
   divided by the mesh size; the bytes the step must read and write; and
-  for the dense family the bytes the port's own mesh moves
-  (:mod:`repro_torch.models.sharded`: the FSDP gathers and the partial
-  sums).
+  for the dense and moe families the bytes the port's own mesh moves
+  (:mod:`repro_torch.models.sharded`: the FSDP gathers, the partial sums,
+  a MoE layer's token gather, dispatch and combine, and a length-sharded
+  cache's softmax partials).
 
 API differences from the JAX dry-run, which compiles each cell for 512
 fake devices and reads XLA's analyses: no ``compile_s``, ``temp_GiB``,
@@ -25,8 +26,8 @@ where XLA counts every operation; a MoE layer's products are counted
 from their fixed ``(E, cap, d)`` shapes, since routing's ``bincount`` /
 ``index_put_`` have no meta kernel (the cell says so); collective bytes
 are ``None`` (and the cell's ``mesh_gap`` says why) where the port's mesh
-cannot run the cell yet: the non-dense families and a decode cache whose
-spec shards its length (ROADMAP.md, queue 1, item 7f-ii).
+cannot run the cell yet: the ssm / hybrid / encdec families (ROADMAP.md,
+queue 1, item 7f-iii) and moe training (item 7g).
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all
@@ -50,7 +51,8 @@ import traceback
 
 import torch
 
-__all__ = ["ARCHS", "cells", "run_cell", "make_lm", "member_bytes", "main"]
+__all__ = ["ARCHS", "cells", "run_cell", "make_lm", "member_bytes",
+           "length_sharded", "main"]
 
 ARCHS = [
     "llama4-scout-17b-a16e", "deepseek-v2-236b", "zamba2-2.7b",
@@ -270,15 +272,79 @@ def step_bytes(lm, shape, mem: dict) -> float:
 
 
 def mesh_gap(lm, shape) -> str | None:
-    """Why the port's mesh cannot run the cell yet (ROADMAP.md, queue 1,
-    item 7f-ii), or ``None``."""
-    if lm.cfg.family != "dense":
-        return f"the {lm.cfg.family} family does not run on a mesh yet"
-    if shape.kind == "decode" and any(
-            sh.spec[2] is not None
-            for _, sh in _walk(lm.input_shardings(shape)["cache"])):
-        return "the decode cache's spec shards its length"
+    """Why the port's mesh cannot run the cell yet, naming the ROADMAP.md
+    item, or ``None``."""
+    from repro_torch.models.model import (MESH_FAMILIES, MESH_TODO,
+                                          MESH_TRAIN_TODO)
+    fam = lm.cfg.family
+    if fam not in MESH_FAMILIES:
+        return f"the {fam} family does not run on a mesh yet ({MESH_TODO})"
+    if shape.kind == "train" and fam != "dense":
+        return f"the {fam} family does not train on a mesh yet " \
+            f"({MESH_TRAIN_TODO})"
     return None
+
+
+def length_sharded(lm, shape) -> list:
+    """The decode cell's attention units whose cache the mesh executor
+    runs sequence-parallel → ``[(unit, the mesh axes that split the
+    length)]``: the working layout (``cache_sharding`` with the batch at
+    its true position) shards the cache length."""
+    from repro_torch.models.sharded import units
+    if shape.kind != "decode":
+        return []
+    cache = lm.input_specs(shape)["cache"]
+    out = []
+    for u in units(lm):
+        leaf = _walk_get(cache, u.site + (("ckv",) if lm.cfg.use_mla
+                                          else ("k",)))
+        sh = lm.cache_sharding(leaf.shape, shape.global_batch,
+                               bdim=len(u.idx))
+        axes = _axis_names(sh.spec[len(u.idx) + 1])
+        if math.prod(lm.mesh.shape[n] for n in axes) > 1:
+            out.append((u, axes))
+    return out
+
+
+def _axis_names(entry) -> tuple:
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def _moe_bytes(lm, shape, b_local: int, s: int, elt: int) -> float:
+    """A MoE layer's bytes into member 0: the other row groups' token
+    rows gathered for routing, their dispatch buffers of member 0's
+    ``E/tp`` experts (each owner sends the whole masked ``(E/tp, cap,
+    d)`` buffer), and the combine's finished sum from the last model
+    member."""
+    c, mesh = lm.cfg, lm.mesh
+    tpn = mesh.shape.get("model", 1)
+    groups = shape.global_batch // b_local
+    t = shape.global_batch * s
+    cap = int(max(1, lm.moe_cfg.capacity_factor * t * c.top_k
+                  / c.n_experts))
+    rows = b_local * s * c.d_model * elt
+    return (groups - 1) * (rows + c.n_experts // tpn * cap * c.d_model
+                           * elt) + (rows if tpn > 1 else 0)
+
+
+def _softmax_bytes(lm, u, axes: tuple, b_local: int, elt: int) -> float:
+    """A length-sharded attention unit's bytes into member 0 from the
+    other members of its length group (split over ``axes``): their
+    maxima and sums (float32), their ``w·v`` partials, and (where the
+    group is the model group, whose members hold different query heads)
+    their queries."""
+    from repro_torch.models.mla import MLACfg
+    a, mesh = u.attn, lm.mesh
+    mla = isinstance(a, MLACfg)
+    width = a.kv_lora if mla else a.head_dim
+    qw = a.kv_lora + a.rope_head_dim if mla else a.head_dim
+    g = math.prod(mesh.shape[n] for n in axes)
+    own = a.hq // mesh.shape.get("model", 1)
+    union = a.hq if "model" in axes else own
+    return (g - 1) * b_local * (2 * union * 4 + union * width * elt
+                                + (union - own) * qw * elt)
 
 
 def collective_bytes(lm, shape) -> float | None:
@@ -286,11 +352,14 @@ def collective_bytes(lm, shape) -> float | None:
     where :func:`mesh_gap` says it cannot run): every FSDP gather (the other
     members' shards of each leaf split over a non-model axis), every
     partial sum over ``model`` (each member receives the other members'
-    partials: the attention and MLP outputs of every layer and the
-    embedding rows, in the compute dtype; the loss's two float32 sums per
-    token), the token picks, and for ``train`` the gathers and sums once
-    more for the remat recompute and once more in the backward pass,
-    plus the summing of replicated gradient slices."""
+    partials: the attention and MLP (MoE: shared-expert) outputs of
+    every layer and the embedding rows, in the compute dtype; the loss's
+    two float32 sums per token), the token picks, a MoE layer's token
+    gather, dispatch and combine (:func:`_moe_bytes`), a length-sharded
+    cache's softmax partials (:func:`_softmax_bytes`), and for ``train``
+    the gathers and sums once more for the remat recompute and once
+    more in the backward pass, plus the summing of replicated gradient
+    slices."""
     if mesh_gap(lm, shape):
         return None
     c, mesh = lm.cfg, lm.mesh
@@ -300,13 +369,11 @@ def collective_bytes(lm, shape) -> float | None:
         sh = st.sharding
         local = sh.shard_shape(st.shape)
         nb = _nbytes(local, st.dtype)
-        others = [n for e in sh.spec if e is not None
-                  for n in ((e,) if isinstance(e, str) else e)
+        others = [n for e in sh.spec for n in _axis_names(e)
                   if n != "model"]
         gather += nb * (math.prod(mesh.shape[n] for n in others) - 1)
         copies = mesh.size // math.prod(
-            mesh.shape[n] for e in sh.spec if e is not None
-            for n in ((e,) if isinstance(e, str) else e))
+            mesh.shape[n] for e in sh.spec for n in _axis_names(e))
         sync += nb * (copies - 1)
     b_local = _local_batch(lm, shape)
     s = 1 if shape.kind == "decode" else shape.seq_len + c.prefix_len
@@ -314,6 +381,12 @@ def collective_bytes(lm, shape) -> float | None:
     act = (2 * c.n_layers + 1) * b_local * s * c.d_model * elt
     picks = b_local * (shape.seq_len if shape.kind == "train" else 1) * 8
     psum = (tpn - 1) * (act + picks)
+    if c.n_experts:
+        from repro_torch.models.sharded import units
+        n_moe = sum(u.ffn == "moe" for u in units(lm))
+        psum += n_moe * _moe_bytes(lm, shape, b_local, s, elt)
+    for u, axes in length_sharded(lm, shape):
+        psum += _softmax_bytes(lm, u, axes, b_local, elt)
     if shape.kind == "train":
         psum += (tpn - 1) * 2 * b_local * shape.seq_len * 4
         return 3 * (gather + psum) + sync
@@ -354,8 +427,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
     out["per_device"] = {"flops": flops, "bytes": bytes_,
                          "collective_bytes": coll}
     if mesh_gap(lm, shape):
-        out["mesh_gap"] = mesh_gap(lm, shape) + " (ROADMAP.md, queue 1, " \
-            "item 7f-ii)"
+        out["mesh_gap"] = mesh_gap(lm, shape)
     if cfg.n_experts:
         out["flops_note"] = ("moe_apply's products counted from their "
                              "(E, cap, d) shapes: routing has no meta "

@@ -29,12 +29,19 @@ without ``frames`` (ROADMAP.md, R6).
 (``launch.mesh.mesh_from_flag``: the first N GPUs where that many are
 visible, else ``--device`` listed N times, whose members then run one
 after another); ``single`` / ``multi`` build the production mesh and
-need 256 / 512 visible GPUs.  A mesh runs the dense family (other
-families raise ``NotImplementedError``: ROADMAP.md, queue 1, item
-7f-ii).  Without ``--mesh`` the model is unsharded on one device (the
-JAX launcher defaults to ``host8``).
+need 256 / 512 visible GPUs.  A mesh serves the dense and moe families
+(llama4-scout and deepseek-v2: experts split over ``model``, routing
+once over the global tokens; the ssm / hybrid / encdec families raise
+``NotImplementedError``: ROADMAP.md, queue 1, item 7f-iii).  Without
+``--mesh`` the model is unsharded on one device (the JAX launcher
+defaults to ``host8``).  ``--cache-len N`` (not in the JAX launcher)
+sizes the decode cache (default: prompt + new tokens, as ``generate``);
+at 1,024 or more a cache whose heads cannot split over ``model`` (or
+deepseek's latent cache, which has none) shards its length there.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --mesh host4
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --mesh host4 --arch deepseek-v2-236b --cache-len 1024
 """
 
 from __future__ import annotations
@@ -64,11 +71,12 @@ def _weight_bytes(cfg, dtype) -> int:
 
 def run(arch: str = "qwen1.5-4b", *, batch: int = 8, prompt_len: int = 32,
         max_new: int = 16, full: bool = False, layers: int | None = None,
-        device=None, mesh=None) -> dict:
+        device=None, mesh=None, cache_len: int | None = None) -> dict:
     """Build, warm up and time one ``generate`` → ``{"cfg", "lm",
     "prompts", "out", "seconds", "tok_per_s", "line", "mesh"}``.
     ``layers`` cuts the depth, ``mesh`` a ``--mesh`` string or a
-    ``Mesh`` (see the module docstring)."""
+    ``Mesh``, ``cache_len`` sizes the decode cache (see the module
+    docstring)."""
     from repro_torch.configs import get_config
     from repro_torch.configs.reduce import reduced
     from repro_torch.kernels.ops import resolve_device
@@ -99,10 +107,10 @@ def run(arch: str = "qwen1.5-4b", *, batch: int = 8, prompt_len: int = 32,
     rng = np.random.default_rng(0)
     prompts = torch.as_tensor(rng.integers(
         0, cfg.vocab_size, (batch, prompt_len), np.int32), device=dev)
-    generate(lm, prompts, max_new=max_new)          # warm-up
+    generate(lm, prompts, max_new=max_new, cache_len=cache_len)  # warm-up
     _sync(dev)
     t0 = time.perf_counter()
-    out = generate(lm, prompts, max_new=max_new)
+    out = generate(lm, prompts, max_new=max_new, cache_len=cache_len)
     _sync(dev)
     dt = time.perf_counter() - t0
     line = (f"{cfg.name}: {tuple(out.shape)} in {dt * 1000:.0f} ms "
@@ -129,10 +137,12 @@ def main(argv: list[str] | None = None) -> dict:
                     help="torch device (default cuda)")
     ap.add_argument("--mesh", default=None,
                     help="host<N> | single | multi (default: no mesh)")
+    ap.add_argument("--cache-len", type=int, default=None,
+                    help="decode-cache positions (default: prompt + new)")
     args = ap.parse_args(argv)
     res = run(args.arch, batch=args.batch, prompt_len=args.prompt_len,
               max_new=args.max_new, full=args.full, layers=args.layers,
-              device=args.device, mesh=args.mesh)
+              device=args.device, mesh=args.mesh, cache_len=args.cache_len)
     print(res["line"], flush=True)
     return res
 

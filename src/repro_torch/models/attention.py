@@ -25,8 +25,8 @@ import torch
 from .common import (ParamDef, apply_rope, attention, blockwise_attention,
                      expand_kv, rotary)
 
-__all__ = ["AttnCfg", "attn_defs", "attn_apply", "attn_decode", "pad_heads",
-           "BLOCKWISE_THRESHOLD"]
+__all__ = ["AttnCfg", "attn_defs", "attn_apply", "attn_decode",
+           "decode_slot", "decode_valid", "pad_heads", "BLOCKWISE_THRESHOLD"]
 
 BLOCKWISE_THRESHOLD = 8192   # use online-softmax blocks above this KV length
 
@@ -162,6 +162,33 @@ def attn_apply(c: AttnCfg, p, x: torch.Tensor, *, kind: str = "causal",
     return _out_proj(out, p["wo"]), (k, v)
 
 
+def decode_slot(c: AttnCfg, s_cache: int, pos: int) -> int:
+    """The cache slot a decode step at ``pos`` writes: ``pos % s_cache``
+    for a ring buffer, else ``pos``; clamped into the cache as
+    ``jax.lax.dynamic_update_slice`` clamps its index."""
+    slot = pos % s_cache if (c.window or c.chunk) else pos
+    return min(max(slot, 0), s_cache - 1)
+
+
+def decode_valid(c: AttnCfg, s_cache: int, pos: int,
+                 idx: torch.Tensor) -> torch.Tensor:
+    """Which cache slots ``idx`` (indices into a cache of ``s_cache``
+    slots; a member of a length-sharded cache passes its own) a decode
+    step at ``pos`` attends to: ``idx <= pos``, or for a ring buffer
+    (window / chunk) the slots whose stored absolute position a full
+    cache would have kept."""
+    if not (c.window or c.chunk):
+        return idx <= pos
+    slot = pos % s_cache
+    # absolute position stored in each ring slot
+    abs_pos = torch.where(idx <= slot, pos - (slot - idx),
+                          pos + (idx - slot) - s_cache)
+    if c.chunk:
+        start = (pos // c.chunk) * c.chunk
+        return (abs_pos >= start) & (abs_pos <= pos) & (abs_pos >= 0)
+    return (abs_pos > pos - c.window) & (abs_pos <= pos) & (abs_pos >= 0)
+
+
 def attn_decode(c: AttnCfg, p, x: torch.Tensor, cache_k: torch.Tensor,
                 cache_v: torch.Tensor, pos: int, heads: slice | None = None
                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -185,26 +212,11 @@ def attn_decode(c: AttnCfg, p, x: torch.Tensor, cache_k: torch.Tensor,
     # a fill on the device: torch.tensor([pos]) would copy from the host
     # and wait for the stream
     q, k, v = _project_qkv(c, p, x, torch.full((1,), pos, device=dev))
-    ring = bool(c.window or c.chunk)
-    slot = pos % s_cache if ring else pos
-    write = min(max(slot, 0), s_cache - 1)
+    write = decode_slot(c, s_cache, pos)
     cache_k[:, write] = k[:, 0]
     cache_v[:, write] = v[:, 0]
 
-    idx = torch.arange(s_cache, device=dev)
-    if ring:
-        # absolute position stored in each ring slot
-        abs_pos = torch.where(idx <= slot, pos - (slot - idx),
-                              pos + (idx - slot) - s_cache)
-        if c.chunk:
-            start = (pos // c.chunk) * c.chunk
-            valid = (abs_pos >= start) & (abs_pos <= pos) & (abs_pos >= 0)
-        else:
-            valid = (abs_pos > pos - c.window) & (abs_pos <= pos) & \
-                (abs_pos >= 0)
-    else:
-        valid = idx <= pos
-
+    valid = decode_valid(c, s_cache, pos, torch.arange(s_cache, device=dev))
     ke = expand_kv(cache_k, c.rep)
     ve = expand_kv(cache_v, c.rep)
     if ke.shape[2] != q.shape[2]:   # every KV head held: cut to ``heads``

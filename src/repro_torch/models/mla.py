@@ -68,12 +68,16 @@ def mla_defs(c: MLACfg) -> dict:
     }
 
 
-def _mask_heads(c: MLACfg, out: torch.Tensor) -> torch.Tensor:
+def _mask_heads(c: MLACfg, out: torch.Tensor,
+                heads: slice | None = None) -> torch.Tensor:
+    """Zero the padded heads of ``out`` (B, S, hq, D), or of the query
+    heads ``heads`` it holds."""
     if c.hq == c.n_heads:
         return out
-    m = (torch.arange(c.hq, device=out.device) < c.n_heads).reshape(
-        1, 1, c.hq, 1)
-    return out * m.to(out.dtype)
+    m = torch.arange(c.hq, device=out.device) < c.n_heads
+    if heads is not None:
+        m = m[heads]
+    return out * m.reshape(1, 1, -1, 1).to(out.dtype)
 
 
 def _up(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -117,9 +121,12 @@ def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     return out.reshape(b, s, h * d) @ wo.to(out.dtype).reshape(h * d, -1)
 
 
-def mla_apply(c: MLACfg, p, x: torch.Tensor, *, q_offset: int = 0
-              ) -> tuple[torch.Tensor, tuple]:
-    """Prefill.  x: (B, S, E) → (y, (c_kv, k_pe)), the latent cache."""
+def mla_apply(c: MLACfg, p, x: torch.Tensor, *, q_offset: int = 0,
+              heads: slice | None = None) -> tuple[torch.Tensor, tuple]:
+    """Prefill.  x: (B, S, E) → (y, (c_kv, k_pe)), the latent cache.  On
+    a mesh, ``p`` holds one member's query heads (``heads`` of the
+    padded ``hq``: ``w_uq`` / ``w_uk`` / ``w_uv`` / ``wo``) and ``y`` is
+    its partial output projection."""
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device) + q_offset
     q = _queries(c, p, x, positions)
@@ -127,12 +134,13 @@ def mla_apply(c: MLACfg, p, x: torch.Tensor, *, q_offset: int = 0
     k, v = _decompress(c, p, ckv, kpe, x.dtype)
     fn = blockwise_attention if s > BLOCKWISE_THRESHOLD else attention
     out = fn(q, k, v, kind="causal", q_offset=q_offset)
-    out = _mask_heads(c, out)
+    out = _mask_heads(c, out, heads)
     return _out_proj(out, p["wo"]), (ckv, kpe)
 
 
 def mla_decode(c: MLACfg, p, x: torch.Tensor, cache_ckv: torch.Tensor,
-               cache_kpe: torch.Tensor, pos: int, *, absorbed: bool = True):
+               cache_kpe: torch.Tensor, pos: int, *, absorbed: bool = True,
+               heads: slice | None = None):
     """One-token decode over the latent cache.  x: (B, 1, E);
     cache_ckv: (B, S, kv_lora); cache_kpe: (B, S, rope_head_dim);
     ``pos`` an int (or a 0-d tensor read once on the host).
@@ -140,7 +148,7 @@ def mla_decode(c: MLACfg, p, x: torch.Tensor, cache_ckv: torch.Tensor,
     The step's latents are written into the caches in place (the JAX
     function returns updated copies; as ``dynamic_update_slice``, a
     position past the cache writes its last slot) → (y, cache_ckv,
-    cache_kpe)."""
+    cache_kpe).  ``heads``: as in :func:`mla_apply`."""
     pos = int(pos)
     dt, dev = x.dtype, x.device
     positions = torch.full((1,), pos, device=dev)
@@ -172,5 +180,5 @@ def mla_decode(c: MLACfg, p, x: torch.Tensor, cache_ckv: torch.Tensor,
         scores = torch.where(valid, scores.float(), -1e30)
         w = torch.softmax(scores, dim=-1).to(dt)
         out = torch.einsum("bhqk,bkhd->bqhd", w, v)
-    out = _mask_heads(c, out)
+    out = _mask_heads(c, out, heads)
     return _out_proj(out, p["wo"]), cache_ckv, cache_kpe

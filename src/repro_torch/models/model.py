@@ -75,11 +75,15 @@ mesh member, the slice its spec gives that member, on its device;
 ``gather_params()`` returns the JAX layout.  The ``dense`` family then
 runs over the mesh (:mod:`.sharded`): batch over ``pod``/``data``,
 heads, MLP columns and vocabulary over ``model``, the ``embed`` dimension
-gathered over ``data`` before use (FSDP).  The other families under a
-mesh build their specs and storage, and their ``prefill`` /
-``decode_step`` / ``loss`` raise ``NotImplementedError`` (ROADMAP.md,
-queue 1, item 7f-ii), as does a decode cache whose spec shards its
-length.
+gathered over ``data`` before use (FSDP), and so does the ``moe``
+family, with its experts split over ``model`` (expert parallelism,
+routing once over the global tokens) and MLA's heads over ``model``; a
+decode cache whose spec shards its length runs sequence-parallel.  The
+moe family's ``loss`` runs on a mesh in value only (its training there
+is ROADMAP.md, queue 1, item 7g).  The ``ssm`` / ``hybrid`` / ``encdec``
+families under a mesh build their specs and storage, and their
+``prefill`` / ``decode_step`` / ``loss`` / ``init_cache`` raise
+``NotImplementedError`` (ROADMAP.md, queue 1, item 7f-iii).
 """
 
 from __future__ import annotations
@@ -107,12 +111,15 @@ from .mamba2 import MambaCfg, mamba_apply, mamba_decode, mamba_defs
 from .mla import MLACfg, mla_apply, mla_decode, mla_defs
 from .moe import MoECfg, mlp_apply, mlp_defs, moe_apply, moe_defs
 
-__all__ = ["LM", "FAMILIES", "MESH_TODO"]
+__all__ = ["LM", "FAMILIES", "MESH_FAMILIES", "MESH_TODO",
+           "MESH_TRAIN_TODO"]
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec")
 
-# what a mesh cannot run yet
-MESH_TODO = "ROADMAP.md, queue 1, item 7f-ii"
+# the families a mesh runs; what it cannot run yet, and where that waits
+MESH_FAMILIES = ("dense", "moe")
+MESH_TODO = "ROADMAP.md, queue 1, item 7f-iii"
+MESH_TRAIN_TODO = "ROADMAP.md, queue 1, item 7g"
 
 
 def _stack(defs, n: int):
@@ -149,6 +156,12 @@ def _set(tree: dict, path: tuple, value) -> None:
 def _map_leaves(tree: dict, fn) -> dict:
     return {k: _map_leaves(v, fn) if isinstance(v, dict) else fn(v)
             for k, v in tree.items()}
+
+
+def _map_pair(tree: dict, other: dict, fn) -> dict:
+    """``fn(leaf, other's leaf)`` over two trees of one structure."""
+    return {k: _map_pair(v, other[k], fn) if isinstance(v, dict)
+            else fn(v, other[k]) for k, v in tree.items()}
 
 
 def _stack_outs(outs: list):
@@ -619,16 +632,16 @@ class LM(nn.Module):
         return kw
 
     def _mesh_exec(self):
-        """The dense family's executor over ``self.mesh`` (built on first
-        use); any other family raises."""
-        if self.cfg.family != "dense":
+        """The executor over ``self.mesh`` (built on first use) for the
+        dense and moe families; any other family raises."""
+        if self.cfg.family not in MESH_FAMILIES:
             raise NotImplementedError(
                 f"{self.cfg.name}: the {self.cfg.family} family does not run "
                 f"on a mesh yet ({MESH_TODO}); its specs and shardings are "
                 f"built")
         if self._spmd is None:
-            from .sharded import DenseMesh
-            self._spmd = DenseMesh(self)
+            from .sharded import LMMesh
+            self._spmd = LMMesh(self)
         return self._spmd
 
     def reduce_grads(self) -> None:
@@ -695,23 +708,15 @@ class LM(nn.Module):
         each (L, B, max(1, len // enc_len_ratio), hkv, D).
 
         On a mesh every leaf is a :class:`ShardedTensor` laid out by
-        ``input_shardings``; a layout that shards the cache length raises
-        ``NotImplementedError``."""
+        ``input_shardings`` (a length-sharded layout included)."""
         if self.mesh is None:
             return self._zero_cache(batch, cache_len, dtype, self.device)
         self._mesh_exec()
         shape = ShapeSpec("cache", cache_len, batch, "decode")
-        out = {}
-        for name, sh in self.input_shardings(shape)["cache"].items():
-            if sh.spec[2] is not None:
-                raise NotImplementedError(
-                    f"{self.cfg.name}: a decode cache of {cache_len} "
-                    f"positions at batch {batch} shards its length "
-                    f"({sh.spec}) on this mesh ({MESH_TODO})")
-            like = self._zero_cache(batch, cache_len, dtype, "meta")[name]
-            out[name] = ShardedTensor.empty(sh, like.shape, like.dtype).map(
-                torch.zero_)
-        return out
+        like = self._zero_cache(batch, cache_len, dtype, "meta")
+        return _map_pair(like, self.input_shardings(shape)["cache"],
+                         lambda x, sh: ShardedTensor.empty(
+                             sh, x.shape, x.dtype).map(torch.zero_))
 
     def _zero_cache(self, batch: int, cache_len: int, dtype,
                     device) -> dict:
@@ -888,13 +893,19 @@ class LM(nn.Module):
                 "cache": _map_leaves(cache, lambda x: self.cache_sharding(
                     x.shape, shape.global_batch))}
 
-    def cache_sharding(self, shp, global_batch: int) -> NamedSharding:
+    def cache_sharding(self, shp, global_batch: int,
+                       bdim: int | None = None) -> NamedSharding:
         """The JAX ``kv_spec`` rule for one cache leaf of shape ``shp``
         (layout ``(..layer dims.., B, S, [H, D])``): batch over the data
         extent when it divides; heads over ``model`` when they divide
         (keeps attention local); else the length (1,024 or more) over
         ``model``; a batch that cannot be sharded puts the length over
-        the data axes too.  Never ``head_dim``: RoPE halves it."""
+        the data axes too.  Never ``head_dim``: RoPE halves it.
+
+        The batch dimension is the first one equal to ``global_batch``,
+        as JAX's ``shp.index`` takes it (a stacking axis of that size
+        comes first, and the rule then shards it), unless ``bdim`` names
+        it: the mesh executor's working layout."""
         mesh = self.mesh
         bspec = batch_axes(self.rules, global_batch, mesh)
         tpn = mesh.shape.get("model", 1)
@@ -906,10 +917,11 @@ class LM(nn.Module):
         shp = tuple(shp)
         nd = len(shp)
         spec = [None] * nd
-        try:
-            bdim = shp.index(global_batch)
-        except ValueError:
-            return named_sharding(mesh, spec)
+        if bdim is None:
+            try:
+                bdim = shp.index(global_batch)
+            except ValueError:
+                return named_sharding(mesh, spec)
         if bspec is not None:
             spec[bdim] = bspec
         sdim = bdim + 1 if nd > bdim + 1 else None

@@ -20,9 +20,16 @@ torch's defaults differ from JAX's are pinned to JAX's:
   CPU scatter applies), with no atomics: ``index_add_`` on CUDA would
   sum them in no fixed order and could move a greedy pick between runs.
 
-The sharding hooks of the JAX function (``constrain``, ``dp_groups``)
-come with mesh execution for the moe family (ROADMAP.md, queue 1, item
-7f-ii).
+``moe_apply`` takes the JAX function's sharding hooks: ``dp_groups`` is
+ignored (as in JAX), and ``constrain(t, *logical_axes)`` is called on the
+token rows, the dispatched rows, the expert buffer, the experts' hidden
+and output buffers and the combined slots and tokens, in the JAX
+function's order, its result used where it is a tensor (the port's ``LM`` constrainer returns the
+resolved ``NamedSharding`` and moves nothing).  On a mesh the moe family runs through
+:class:`~repro_torch.models.sharded.LMMesh`: routing once over the global
+tokens (:func:`moe_route`), each ``model`` member's block of experts
+(:func:`expert_ffn` over its ``(E/tp, cap, d)`` buffer), and the combine
+in :func:`combine_order`'s order.
 """
 
 from __future__ import annotations
@@ -34,7 +41,7 @@ import torch
 from .common import ParamDef
 
 __all__ = ["MoECfg", "Routing", "moe_defs", "moe_route", "moe_apply",
-           "mlp_defs", "mlp_apply"]
+           "expert_ffn", "combine_order", "mlp_defs", "mlp_apply"]
 
 
 class MoECfg(NamedTuple):
@@ -114,38 +121,65 @@ def moe_route(c: MoECfg, router: torch.Tensor, xt: torch.Tensor) -> Routing:
                    slot < cap)
 
 
-def moe_apply(c: MoECfg, p, x: torch.Tensor) -> torch.Tensor:
+def expert_ffn(p, buf: torch.Tensor, hook=None) -> torch.Tensor:
+    """The routed experts' SwiGLU over their buckets: ``buf`` (E, cap, d)
+    against ``p["w1"]`` / ``p["w3"]`` (E, d, f) and ``p["w2"]`` (E, f,
+    d), one batched product each, in ``buf``'s dtype (``hook``: applied
+    to the hidden (E, cap, f), as ``moe_apply``'s ``constrain``)."""
+    dt = buf.dtype
+    h = torch.nn.functional.silu(torch.bmm(buf, p["w1"].to(dt))) * \
+        torch.bmm(buf, p["w3"].to(dt))
+    if hook is not None:
+        h = hook(h, "experts", None, None)
+    return torch.bmm(h, p["w2"].to(dt))
+
+
+def combine_order(r: Routing) -> torch.Tensor:
+    """(T, k): each token's k entries as positions in the sorted order,
+    ascending (= ascending expert id): the combine adds them one after
+    another from zero in this order."""
+    pos = torch.empty_like(r.order)
+    pos[r.order] = torch.arange(r.order.numel(), device=r.order.device)
+    return pos.reshape(r.top_i.shape).sort(dim=-1).values
+
+
+def moe_apply(c: MoECfg, p, x: torch.Tensor, constrain=None,
+              dp_groups: int = 1) -> torch.Tensor:
     """x: (B, S, d_model) → (B, S, d_model) in ``x``'s dtype.  Tokens
     past their expert's capacity get no routed output (the shared
-    experts still apply)."""
+    experts still apply).  ``constrain`` / ``dp_groups``: the JAX
+    function's sharding hooks (the module docstring)."""
+    del dp_groups
+
+    def hook(t, *axes):
+        got = constrain(t, *axes) if constrain is not None else None
+        return got if isinstance(got, torch.Tensor) else t
     b, s, e = x.shape
     t, k, dt = b * s, c.top_k, x.dtype
-    xt = x.reshape(t, e)
+    xt = hook(x.reshape(t, e), "tokens", None)
     r = moe_route(c, p["router"], xt)
     src_tok = r.order // k
     e_idx = torch.where(r.keep, r.sorted_e, 0)
     s_idx = torch.where(r.keep, r.slot, 0)
 
     # dropped entries add a zero row at (0, 0), as the reference does
-    dispatched = torch.where(r.keep[:, None], xt[src_tok], 0).to(dt)
+    dispatched = hook(torch.where(r.keep[:, None], xt[src_tok], 0).to(dt),
+                      "tokens", None)
     buf = torch.zeros((c.n_experts, r.cap, e), dtype=dt, device=x.device)
     buf.index_put_((e_idx, s_idx), dispatched, accumulate=True)
-
-    h = torch.nn.functional.silu(torch.bmm(buf, p["w1"].to(dt))) * \
-        torch.bmm(buf, p["w3"].to(dt))
-    out_buf = torch.bmm(h, p["w2"].to(dt))                # (E, cap, e)
+    out_buf = hook(expert_ffn(p, hook(buf, "experts", None, None), hook),
+                   "experts", None, None)                 # (E, cap, e)
 
     w_slots = r.top_w.reshape(-1)[r.order]
-    y_slots = torch.where(r.keep[:, None],
-                          out_buf[e_idx, s_idx] * w_slots[:, None].to(dt), 0)
-    # each token's k entries by ascending position in the sorted order
-    # (= ascending expert id), summed one after another from zero
-    pos = torch.empty_like(r.order)
-    pos[r.order] = torch.arange(t * k, device=x.device)
-    pos = pos.reshape(t, k).sort(dim=-1).values
+    y_slots = hook(torch.where(r.keep[:, None], out_buf[e_idx, s_idx]
+                               * w_slots[:, None].to(dt), 0),
+                   "tokens", None)
+    # each token's k entries summed one after another from zero
+    pos = combine_order(r)
     yt = torch.zeros((t, e), dtype=dt, device=x.device)
     for j in range(k):
         yt = yt + y_slots[pos[:, j]]
+    yt = hook(yt, "tokens", None)
 
     if c.n_shared:
         yt = yt + mlp_apply(p["shared"], xt)

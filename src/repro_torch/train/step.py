@@ -14,7 +14,9 @@ increment; the metrics are ``loss``, ``acc``, ``grad_norm`` and ``lr``.
 
 On a sharded ``LM`` (``LM(mesh=...)``) each member's gradient is its
 shard's; the copies of a replicated slice are summed in member order
-(``lm.reduce_grads()``) before AdamW, which runs shard by shard.
+(``lm.reduce_grads()``) before AdamW, which runs shard by shard.  The
+dense family trains on a mesh; the moe family's mesh runs its ``loss``
+in value only, so a step for it raises (ROADMAP.md, queue 1, item 7g).
 """
 
 from __future__ import annotations
@@ -80,6 +82,12 @@ def make_train_step(lm, hp: TrainHParams):
     if not lm.trainable:
         raise ValueError("make_train_step needs LM(..., trainable=True): a "
                          "serving LM holds no float32 masters or gradients")
+    if lm.mesh is not None and lm.cfg.family != "dense":
+        from repro_torch.models.model import MESH_TODO, MESH_TRAIN_TODO
+        todo = MESH_TRAIN_TODO if lm.cfg.family == "moe" else MESH_TODO
+        raise NotImplementedError(
+            f"{lm.cfg.name}: the {lm.cfg.family} family does not train on a "
+            f"mesh yet ({todo})")
     params, grads = lm.params, lm.grads
     p_leaves, g_leaves = _tree.leaves(params), _tree.leaves(grads)
 

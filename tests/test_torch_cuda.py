@@ -1470,3 +1470,146 @@ def test_lm_mesh_train_step_and_launchers_on_cuda(cuda, tmp_path):
                     ckpt_dir=str(tmp_path), ckpt_every=1)
     assert int(out["state"].step) == 2
     assert all(np.isfinite(out["losses"]))
+
+
+# -- LM sharding: the moe family and length-sharded decode caches on a mesh
+# of cuda members against the unsharded port on the CPU (float32, reduced
+# widths, the tolerances above)
+
+LM_MOE = ["llama4-scout-17b-a16e", "deepseek-v2-236b"]
+
+
+def _mesh_pair(cuda, arch, kind):
+    from repro_torch.configs import get_config
+    from repro_torch.configs.reduce import reduced
+    from repro_torch.models.model import LM
+    mesh = _mesh_of(cuda, kind)
+    tp = mesh.shape["model"]
+    cfg = reduced(get_config(arch))
+    cpu = LM(cfg, tp=tp, device="cpu", dtype=torch.float32).init(
+        torch.Generator().manual_seed(0))
+    dev = LM(cfg, tp=tp, mesh=mesh, dtype=torch.float32)
+    for path, t in _flat_leaves(cpu.params):
+        dev.load_leaf(path, t)
+    return cfg, cpu, dev
+
+
+@pytest.mark.parametrize("kind", ["2x2", "1x4", "mixed"])
+@pytest.mark.parametrize("arch", LM_MOE)
+def test_lm_moe_mesh_on_cuda_equals_unsharded_cpu(cuda, arch, kind,
+                                                  monkeypatch):
+    """llama4 / deepseek reduced on a mesh of cuda members (mixed: cuda
+    and the CPU alternating, so the routing, the dispatch and the
+    combine's running sum cross devices): logits, the prefill token, 4
+    decode steps and their cache, and ``loss`` against the unsharded
+    model on the CPU; each MoE layer routes once, on the first member."""
+    from repro_torch import tree as ttree
+    from repro_torch.models import sharded
+    from repro_torch.models.moe import moe_route
+    cfg, cpu, dev = _mesh_pair(cuda, arch, kind)
+    routed = []
+    monkeypatch.setattr(sharded, "moe_route", lambda *a: routed.append(
+        a[2].device) or moe_route(*a))
+    rng = np.random.default_rng(5)
+    batch = {k: torch.as_tensor(rng.integers(0, cfg.vocab_size, (4, 12),
+                                             np.int32))
+             for k in ("tokens", "targets")}
+    with torch.no_grad():
+        logits = cpu._logits(cpu._forward(batch["tokens"])[0])
+    _lm_close(dev._mesh_exec().logits(batch), logits)
+    n_moe = sum(u.ffn == "moe" for u in dev._mesh_exec().units)
+    assert len(routed) == n_moe and set(routed) == {dev.mesh.devices[0]}
+    assert dev.mesh.devices[0].type == "cuda"
+    tok, _ = cpu.prefill(batch)
+    dtok, _ = dev.prefill(batch)
+    _lm_tokens_agree(dtok, tok, logits[:, -1])
+    cache, dcache = cpu.init_cache(4, 16), dev.init_cache(4, 16)
+    for pos in range(4):
+        t = batch["tokens"][:, pos:pos + 1]
+        nxt, cache = cpu.decode_step(cache, t, pos)
+        dnxt, dcache = dev.decode_step(dcache, t.to(cuda), pos)
+        assert (dnxt.cpu() == nxt).all()
+    for got, want in zip(ttree.leaves(dcache), ttree.leaves(cache),
+                         strict=True):
+        _lm_close(got.gather(), want)
+    with torch.no_grad():
+        loss, _ = cpu.loss(batch)
+        dloss, _ = dev.loss(batch)
+    np.testing.assert_allclose(float(dloss), float(loss), rtol=LM_TOL)
+
+
+def _unit_module(lm, u):
+    """The unsharded ``lm``'s module of mesh unit ``u``."""
+    if u.prefix == ("blocks", "local"):
+        return lm.blocks[u.idx[0]].local[u.idx[1]]
+    if u.prefix == ("blocks", "global"):
+        return lm.blocks[u.idx[0]]["global"]
+    return lm.first if u.prefix == ("first",) else lm.layers[u.idx[0]]
+
+
+@pytest.mark.parametrize("arch,kind,batch", [
+    ("tinyllama-1.1b", "1x4", 1), ("tinyllama-1.1b", "2x2", 1),
+    ("deepseek-v2-236b", "1x4", 4), ("deepseek-v2-236b", "mixed", 4),
+    ("llama4-scout-17b-a16e", "1x4", 4)])
+def test_lm_length_sharded_decode_on_cuda_equals_cpu(cuda, arch, kind, batch):
+    """A cache of 1,024 positions whose spec shards its length (over
+    ``model``: tinyllama's replicated KV heads at tp 4, deepseek's
+    latents, llama4's global layers; over ``data``: tinyllama at B=1 on
+    2x2), filled with the same random entries on both sides, at
+    positions across the members' slices: tinyllama decodes whole steps
+    (tokens and cache); the moe models step each unit's attention half
+    on the same inputs (outputs and cache), so that a routing near-tie
+    between the two devices' MoE halves cannot move what is compared."""
+    from repro_torch import tree as ttree
+    cfg, cpu, dev = _mesh_pair(cuda, arch, kind)
+    cache, dcache = cpu.init_cache(batch, 1024), dev.init_cache(batch, 1024)
+
+    def split(path, st):        # the member's length under the cache's
+        ld = -2 if path[-1] in ("ckv", "kpe") else -3
+        return st.shards[0].shape[ld] < st.shape[ld]
+    assert any(split(p, st) for p, st in _flat_leaves(dcache))
+    rng = np.random.default_rng(6)
+    for t, d in zip(ttree.leaves(cache), ttree.leaves(dcache), strict=True):
+        t.copy_(torch.as_tensor(rng.normal(0, 1, tuple(t.shape))
+                                .astype(np.float32)))
+        d.copy_(t)
+    ex = dev._mesh_exec()
+    for pos in (255, 256, 700, 1023, 1030):
+        if cfg.family == "dense":
+            tok = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                               (batch, 1), np.int32))
+            nxt, cache = cpu.decode_step(cache, tok, pos)
+            dnxt, dcache = dev.decode_step(dcache, tok.to(cuda), pos)
+            assert (dnxt.cpu() == nxt).all(), pos
+            continue
+        rows = ex._rows(batch)
+        work = ex._working(dcache, batch)
+        for u in ex.units:
+            x = torch.as_tensor(rng.normal(0, 1, (batch, 1, cfg.d_model))
+                                .astype(np.float32))
+            names = ("ckv", "kpe") if cfg.use_mla else ("k", "v")
+            ca, cb = (_flat_get(cache, u.site + (n,))[u.idx] for n in names)
+            want = cpu._attn_decode(u.attn, _unit_module(cpu, u), x, ca, cb,
+                                    pos)
+            got = ex._join(ex._attn_step(u, ex._split(x, rows), work, pos),
+                           rows)
+            _lm_close(got, want)
+        ex._write_back(dcache, work)
+    for got, want in zip(ttree.leaves(dcache), ttree.leaves(cache),
+                         strict=True):
+        _lm_close(got.gather(), want)
+
+
+def test_lm_moe_serve_launcher_on_a_cuda_mesh(cuda):
+    """``launch.serve.run(mesh="host4")`` on cuda at reduced width for
+    both moe configs, deepseek with a length-sharded 1,024-position
+    cache."""
+    from repro_torch.launch import serve
+    for arch in LM_MOE:
+        kw = {"cache_len": 1024} if arch == "deepseek-v2-236b" else {}
+        res = serve.run(arch, device="cuda", mesh="host4", batch=4,
+                        prompt_len=8, max_new=4, **kw)
+        assert res["mesh"].dims == (2, 2)
+        out = res["out"]
+        assert tuple(out.shape) == (4, 4) and out.device.type == "cuda"
+        assert 0 <= int(out.min()) and int(out.max()) < res["cfg"].vocab_size
