@@ -16,8 +16,10 @@ kill and an elastic restore onto another mesh size, serves the LM
 zoo's qwen1.5-4b, tinyllama-1.1b, mamba2-130m, zamba2-2.7b,
 llama4-scout-17b-a16e and deepseek-v2-236b (depth cut) and
 seamless-m4t-large-v2 at their published widths, trains
-tinyllama-1.1b at its published width, and serves qwen1.5-4b and trains
-tinyllama-1.1b tensor- and data-parallel on a (2, 2) LM mesh.
+tinyllama-1.1b at its published width, serves qwen1.5-4b and trains
+tinyllama-1.1b tensor- and data-parallel on a (2, 2) LM mesh, and
+serves llama4-scout and deepseek-v2 (depth cut), mamba2-130m,
+zamba2-2.7b and seamless-m4t-large-v2 on that mesh.
 
     python3 chip_smoke.py
 
@@ -233,6 +235,20 @@ package.  Phases, each on its own lines:
    ``route_flips``, each member's bytes against the dry-run's, decode
    p50/p99 sharded and unsharded; K1–K6's counters read 0; a
    ``{"lm_moe_mesh": ...}`` line;
+15c. the ssm, hybrid and encdec families on the LM mesh
+   (``LM_SSM_MESH``'s comment): mamba2-130m, zamba2-2.7b and
+   seamless-m4t-large-v2 at published width and full depth through
+   ``launch.serve.run(full=True, mesh="host4")`` on the (2, 2) mesh
+   (each mamba layer's ``in_proj`` columns over ``model``, its SSM state
+   split along ``P``; zamba2's shared block per superblock; seamless's
+   encoder and cross-attention heads over ``model``, prefill with
+   ``frames``); at a cut depth float32 sharded against unsharded within
+   phase 13's check-2 limit with a TF32 control above it and bfloat16
+   lockstep picks (seamless: and prefill picks) under the near-tie rule;
+   at full depth each member's bytes against the dry-run's, decode
+   p50/p99 sharded and unsharded from a bfloat16 lockstep whose
+   agreement prints (not gated, R5); K1–K6's counters read 0; a
+   ``{"lm_ssm_mesh": ...}`` line;
 16. a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -536,6 +552,42 @@ LM_MOE_MESH_LAYERS = {"llama4-scout-17b-a16e": 4, "deepseek-v2-236b": 3}
 LM_MOE_MESH_CACHE = {"deepseek-v2-236b": 1024}
 LM_MOE_MESH_F32_LAYERS = 2
 LM_MOE_MESH_PROMPT, LM_MOE_MESH_NEW = 16, 8
+# phase 15c, the ssm, hybrid and encdec families on the mesh: mamba2-130m,
+# zamba2-2.7b and seamless-m4t-large-v2 at published width and full depth
+# through launch.serve.run(full=True, mesh="host4") on phase 15's (2, 2)
+# mesh, traffic cut to (LM_BATCH, LM_MOE_MESH_PROMPT) prompts and
+# LM_MOE_MESH_NEW new tokens (seamless decodes without frames, R6).
+# Checks, at the cut depth LM_SSM_MESH_CUT gives (mamba2 2 layers,
+# zamba2 its first superblock of 6 mamba layers and the shared block,
+# seamless 2 encoder + 2 decoder layers): float32 logits over the
+# prompts (seamless over seeded frames) sharded against unsharded on the
+# card within phase 13's LM_F32_TOL[arch], a TF32 control above it, the
+# ratio to the CPU test's tolerance printed; greedy decode in lockstep
+# with the unsharded model (both fed its picks) and seamless's prefill
+# with frames, the mesh's picks under phase 13's near-tie rule, in
+# LM_SSM_MESH_CUT_DTYPE: the served bfloat16 for mamba2, float32 for
+# zamba2 and seamless, whose bfloat16 runs on the card put a pick past
+# the rule at the cut depth too (zamba2's superblock 1.9x at its fourth
+# step, as its bfloat16 prefill against decode does, R3; seamless's
+# prefill 2.4x), the mesh's partial sums rounded to bfloat16 where the
+# unsharded product rounds once (PERF.md §6).
+# At full depth: the serving launcher's run; every member's stored bytes
+# against the dry-run's argument bytes for the (LM_BATCH, prompt + new)
+# decode cell, to the byte; the bfloat16 lockstep decode, each step
+# timed with a sync (decode p50/p99), and seamless's prefill with
+# frames, their agreement with the unsharded model printed, not gated:
+# the first card run put the worst pick 1.1x (mamba2), 20x (zamba2) and
+# 15x (seamless; its prefill 6.9x) past the near-tie rule, bfloat16
+# rounding grown over 24-54 layers (R5), while float32 at the cut depth
+# held (PERF.md §6).
+LM_SSM_MESH = ("mamba2-130m", "zamba2-2.7b", "seamless-m4t-large-v2")
+LM_SSM_MESH_CUT_DTYPE = {"mamba2-130m": "bfloat16",
+                         "zamba2-2.7b": "float32",
+                         "seamless-m4t-large-v2": "float32"}
+LM_SSM_MESH_CUT = {"mamba2-130m": {"n_layers": 2},
+                   "zamba2-2.7b": {"n_layers": 6},
+                   "seamless-m4t-large-v2": {"n_layers": 2,
+                                             "n_enc_layers": 2}}
 
 
 def smi(query: str) -> str:
@@ -3834,6 +3886,255 @@ def lm_moe_mesh_phase(torch, rt, card: str) -> dict:
     return rows
 
 
+def ssm_mesh_cut(torch, mesh, arch: str, prompts, cache_len: int) -> dict:
+    """Phase 15c at the cut depth LM_SSM_MESH_CUT gives: the mesh's
+    float32 logits over ``prompts`` (seamless: and seeded frames)
+    against the unsharded model's on the card, and a TF32 control; then
+    in LM_SSM_MESH_CUT_DTYPE[arch] the lockstep decode and (seamless) the
+    prefill with frames, gated by the near-tie rule."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import LM
+    cfg = dataclasses.replace(get_config(arch), **LM_SSM_MESH_CUT[arch])
+    tp = mesh.shape["model"]
+    flat = LM(cfg, tp=tp, device="cuda", dtype=torch.float32)
+    flat.init(torch.Generator(device="cuda").manual_seed(1))
+    shard = LM(cfg, tp=tp, mesh=mesh, dtype=torch.float32)
+    copy_weights(flat, shard)
+    inputs = {"tokens": prompts}
+    if cfg.family == "encdec":
+        inputs["frames"] = lm_frames(torch, flat, *prompts.shape)
+    v = cfg.vocab_size
+    with torch.no_grad():
+        want = flat._logits(flat._forward(
+            prompts, frames=inputs.get("frames"))[0])[..., :v]
+    del flat
+    ex = shard._mesh_exec()
+    got = ex.logits(inputs)[..., :v]
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        ctl = ex.logits(inputs)[..., :v]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    atol = LM_MESH_ATOL * max(1.0, float(want.abs().max()))
+
+    def over(x):
+        return float(((x - want).abs() / (atol + LM_MESH_RTOL
+                                          * want.abs())).max())
+    tol = LM_F32_TOL[arch]
+    err, ctl_err = float((got - want).abs().max()), \
+        float((ctl - want).abs().max())
+    row = {"cut_config": ", ".join(f"{k} {n}" for k, n in
+                                   LM_SSM_MESH_CUT[arch].items()),
+           "f32_max_abs_err": err, "f32_max_abs_logit":
+           float(want.abs().max()), "f32_err_over_test_tol": over(got),
+           "f32_tol": tol, "tf32_control_err": ctl_err,
+           "tf32_control_over_test_tol": over(ctl)}
+    if not torch.isfinite(got).all() or not err <= tol < ctl_err:
+        raise AssertionError(f"{arch} mesh float32 logits: {row}")
+    del shard, ex, want, got, ctl
+    dtype = LM_SSM_MESH_CUT_DTYPE[arch]
+    flat = LM(cfg, tp=tp, device="cuda", dtype=getattr(torch, dtype))
+    flat.init(torch.Generator(device="cuda").manual_seed(1))
+    shard = LM(cfg, tp=tp, mesh=mesh, dtype=getattr(torch, dtype))
+    copy_weights(flat, shard)
+    if cfg.family == "encdec":
+        got = ssm_mesh_prefill(torch, shard, flat, prompts, gate=True)
+        row["cut_prefill_worst_gap_over_tol"] = \
+            got["prefill_worst_gap_over_tol"]
+    got = ssm_mesh_lockstep(torch, shard, flat, prompts, cache_len,
+                            gate=True)
+    row["cut_lockstep_dtype"] = dtype
+    row.update({f"cut_lockstep_{k[5:]}": got[k] for k in
+                ("bf16_exact", "bf16_picks", "bf16_worst_gap_over_tol")})
+    del shard, flat
+    torch.cuda.empty_cache()
+    return row
+
+
+def ssm_mesh_lockstep(torch, lm, flat, prompts, cache_len: int,
+                      gate: bool) -> dict:
+    """Phase 15c, bfloat16: the mesh ``lm`` and the unsharded ``flat``
+    (the same weights) decode in lockstep, both fed the unsharded
+    model's picks, each step timed with a sync; with ``gate`` the mesh's
+    picks must keep phase 13's near-tie rule, else their agreement is
+    counted and printed (R5)."""
+    from repro_torch.core.popcount import argmax_tournament
+    from repro_torch.engine.base import nearest_rank
+    b, s = prompts.shape
+    cf, cs = flat.init_cache(b, cache_len), lm.init_cache(b, cache_len)
+    rows = torch.arange(b, device="cuda")
+    v = lm.cfg.vocab_size
+    tok, exact, worst = prompts[:, :1], 0, 0.0
+    t_mesh, t_flat = [], []
+    for pos in range(cache_len - 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg = flat._logits(flat._decode_hidden(cf, tok, pos))[:, 0]
+        pick = argmax_tournament(lg).long()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        got, _ = lm.decode_step(cs, tok, pos)
+        torch.cuda.synchronize()
+        t_flat.append(t1 - t0)
+        t_mesh.append(time.perf_counter() - t1)
+        got = got.long()
+        top = lg[:, :v].max(-1).values
+        gap = top - lg[rows, got]
+        tol = LM_TIE_ULPS * bf16_ulp(torch, top)
+        worst = max(worst, float((gap / tol).max()))
+        if gate and not (gap <= tol).all():
+            raise AssertionError(f"mesh bfloat16 step {pos}: picks "
+                                 f"{got.tolist()} vs {pick.tolist()}, "
+                                 f"gaps {gap.tolist()} > {tol.tolist()}")
+        exact += int((got == pick).sum())
+        tok = prompts[:, pos + 1:pos + 2] if pos + 1 < s else pick[:, None]
+    del cf, cs
+    t_mesh.sort()
+    t_flat.sort()
+    return {"bf16_exact": exact, "bf16_picks": len(t_mesh) * b,
+            "bf16_worst_gap_over_tol": worst,
+            "decode_p50_ms": nearest_rank(t_mesh, 0.50) * 1e3,
+            "decode_p99_ms": nearest_rank(t_mesh, 0.99) * 1e3,
+            "unsharded_decode_p50_ms": nearest_rank(t_flat, 0.50) * 1e3,
+            "unsharded_decode_p99_ms": nearest_rank(t_flat, 0.99) * 1e3}
+
+
+def ssm_mesh_prefill(torch, lm, flat, prompts, gate: bool) -> dict:
+    """Phase 15c, seamless's prefill with seeded frames on the mesh
+    (timed with a sync) and unsharded: the mesh's tokens in range, its
+    cross cache's shape, and (``gate``) its tokens under the near-tie
+    rule against the unsharded bfloat16 logits, else their worst gap
+    printed (R5)."""
+    frames = lm_frames(torch, lm, *prompts.shape)
+    inputs = {"tokens": prompts, "frames": frames}
+    v = lm.cfg.vocab_size
+    with torch.no_grad():
+        lg = flat._logits(flat._forward(prompts, frames=frames)[0][:, -1:]
+                          )[:, 0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got, cache = lm.prefill(inputs)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    got = got.long()
+    rows = torch.arange(prompts.shape[0], device="cuda")
+    top = lg[:, :v].max(-1).values
+    gap = top - lg[rows, got]
+    tol = LM_TIE_ULPS * bf16_ulp(torch, top)
+    (kv, xkv) = cache
+    if (gate and not (gap <= tol).all()) or int(got.min()) < 0 or \
+            int(got.max()) >= v or tuple(xkv[0].shape[2:4]) != \
+            (frames.shape[1], lm.attn_cfg.hkv):
+        raise AssertionError(f"seamless mesh prefill: picks {got.tolist()},"
+                             f" gaps {gap.tolist()} (rule {tol.tolist()}); "
+                             f"cross cache {xkv[0].shape}")
+    return {"prefill_ms": ms, "prefill_frames": list(frames.shape),
+            "prefill_worst_gap_over_tol": float((gap / tol).max())}
+
+
+def lm_ssm_mesh_phase(torch, rt, card: str) -> dict:
+    """Phase 15c: the ssm, hybrid and encdec families on the LM mesh
+    (LM_SSM_MESH's comment).  Its counters of K1–K6 are zeroed before
+    and must read 0 after."""
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.distributed.sharding import Mesh
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.serve import run
+    from repro_torch.models.model import LM
+    counted = ("swar_fused_votes", "clause_votes", "train_deltas_keyed",
+               "popcount_words", "pdl_race", "binary_matmul")
+    for k in counted:
+        rt[k].launches = 0
+    t0 = time.perf_counter()
+    rows = {}
+    cache_len = LM_MOE_MESH_PROMPT + LM_MOE_MESH_NEW
+    for arch in LM_SSM_MESH:
+        res = run(arch, batch=LM_BATCH, prompt_len=LM_MOE_MESH_PROMPT,
+                  max_new=LM_MOE_MESH_NEW, full=True, device="cuda",
+                  mesh=LM_MESH)
+        lm, mesh, prompts, out = res["lm"], res["mesh"], res["prompts"], \
+            res["out"]
+        where = mesh_members(torch, mesh)
+        print(f"{res['line']} on a {mesh.dims} mesh of {where}; {card}",
+              flush=True)
+        if tuple(out.shape) != (LM_BATCH, LM_MOE_MESH_NEW) or \
+                int(out.min()) < 0 or int(out.max()) >= lm.cfg.vocab_size:
+            raise AssertionError(f"{arch} mesh serve: tokens "
+                                 f"{tuple(out.shape)} "
+                                 f"{int(out.min())}..{int(out.max())}")
+        cache = lm.init_cache(LM_BATCH, cache_len)
+        split = [(name, tuple(st.sharding.spec))
+                 for name, st in _named_leaves(cache)]
+        stored = mesh_stored_bytes(lm, cache, LM_BATCH)
+        del cache
+        meta = Mesh((torch.device("meta"),) * mesh.size, mesh.axis_names,
+                    mesh.dims)
+        cell = ShapeSpec("serve", cache_len, LM_BATCH, "decode")
+        rec = dryrun.run_cell(arch, "serve", False, roofline=False,
+                              cfg=lm.cfg, mesh=meta, shape=cell)
+        want = rec["memory"]["bytes"]["argument"]
+        if any(n != want for n in stored):
+            raise AssertionError(f"{arch} mesh members hold {stored} bytes, "
+                                 f"the dry-run's argument is {want}")
+        row = {"arch": arch, "layers": lm.cfg.n_layers,
+               "mesh": list(mesh.dims), "members": where,
+               "serve_line": res["line"], "cache_len": cache_len,
+               "cache_specs": split, "member_bytes": stored,
+               "dryrun_argument_bytes": want,
+               "dryrun_collective_bytes": dryrun.collective_bytes(
+                   dryrun.make_lm(lm.cfg, cell, meta), cell)}
+        flat = LM(lm.cfg, tp=lm.tp, device="cuda", dtype=torch.bfloat16)
+        flat.init(torch.Generator(device="cuda").manual_seed(0))
+        if lm.cfg.family == "encdec":
+            row.update(ssm_mesh_prefill(torch, lm, flat, prompts,
+                                        gate=False))
+        row.update(ssm_mesh_lockstep(torch, lm, flat, prompts, cache_len,
+                                     gate=False))
+        del res, lm, flat, out
+        torch.cuda.empty_cache()
+        row.update(ssm_mesh_cut(torch, mesh, arch, prompts, cache_len))
+        rows[arch] = row
+        print(f"lm ssm mesh {arch} at {row['layers']} layers, {card}: "
+              f"{mesh.dims} mesh of {where}; cache {cache_len} ({split}); "
+              f"at {row['cut_config']}: float32 max |logit err| "
+              f"{row['f32_max_abs_err']:.3g} (limit {row['f32_tol']}; "
+              f"{row['f32_err_over_test_tol']:.3g} of the CPU test's "
+              f"tolerance; TF32 control {row['tf32_control_err']:.3g}, "
+              f"{row['tf32_control_over_test_tol']:.3g} of it), "
+              f"{row['cut_lockstep_dtype']} lockstep picks "
+              f"{row['cut_lockstep_exact']}/{row['cut_lockstep_picks']} "
+              f"exact, all within the near-tie rule (worst "
+              f"{row['cut_lockstep_worst_gap_over_tol']:.3g} of it)"
+              + (f", prefill with frames within it (worst "
+                 f"{row['cut_prefill_worst_gap_over_tol']:.3g})"
+                 if "cut_prefill_worst_gap_over_tol" in row else "")
+              + f"; at full depth, not gated (R5): bfloat16 lockstep picks "
+              f"{row['bf16_exact']}/{row['bf16_picks']} exact, worst gap "
+              f"{row['bf16_worst_gap_over_tol']:.3g} of the rule"
+              + (f", prefill with frames {row['prefill_frames']} "
+                 f"{row['prefill_ms']:.2f} ms, worst gap "
+                 f"{row['prefill_worst_gap_over_tol']:.3g} of the rule"
+                 if "prefill_ms" in row else "")
+              + f"; each member stores {stored[0]:,} bytes == the dry-run's "
+              f"argument bytes (collective {row['dryrun_collective_bytes']:,.0f}"
+              f" bytes a step by the dry-run's count); decode step p50/p99 "
+              f"{row['decode_p50_ms']:.2f}/{row['decode_p99_ms']:.2f} ms "
+              f"sharded, {row['unsharded_decode_p50_ms']:.2f}/"
+              f"{row['unsharded_decode_p99_ms']:.2f} ms unsharded",
+              flush=True)
+    launched = {k: rt[k].launches for k in counted if rt[k].launches}
+    if launched:
+        raise AssertionError(f"the LM ssm mesh path launched TM kernels: "
+                             f"{launched}")
+    wall = time.perf_counter() - t0
+    print(f"phase 15c (LM ssm / hybrid / encdec mesh) wall {wall:.1f}s, "
+          f"{card}", flush=True)
+    print(json.dumps({"lm_ssm_mesh": rows, "card": card, "wall_s": wall}),
+          flush=True)
+    return rows
+
+
 def _named_leaves(tree, prefix=""):
     for k, v in tree.items():
         if isinstance(v, dict):
@@ -3965,6 +4266,7 @@ def main() -> int:
     train_phase(torch, rt, card)
     lm_mesh_phase(torch, rt, card)
     lm_moe_mesh_phase(torch, rt, card)
+    lm_ssm_mesh_phase(torch, rt, card)
 
     meta = {
         "swar_fused_votes": ("src/repro_torch/csrc/swar_fused.cu",

@@ -13,10 +13,12 @@ For each cell this proves, without hardware:
   FLOPs from ``torch.utils.flop_counter.FlopCounterMode`` over a meta run
   of the step at full depth (forward, plus backward for ``train``)
   divided by the mesh size; the bytes the step must read and write; and
-  for the dense and moe families the bytes the port's own mesh moves
-  (:mod:`repro_torch.models.sharded`: the FSDP gathers, the partial sums,
-  a MoE layer's token gather, dispatch and combine, and a length-sharded
-  cache's softmax partials).
+  the bytes the port's own mesh moves (:mod:`repro_torch.models.sharded`:
+  the FSDP gathers, the partial sums, a MoE layer's token gather,
+  dispatch and combine, a mamba layer's ``in_proj`` block exchange,
+  per-channel leaves, norm statistics and ``out_proj`` rows, a
+  length-sharded cache's softmax partials, and the regather of a cache
+  stored under a stacking-axis spec).
 
 API differences from the JAX dry-run, which compiles each cell for 512
 fake devices and reads XLA's analyses: no ``compile_s``, ``temp_GiB``,
@@ -26,8 +28,8 @@ where XLA counts every operation; a MoE layer's products are counted
 from their fixed ``(E, cap, d)`` shapes, since routing's ``bincount`` /
 ``index_put_`` have no meta kernel (the cell says so); collective bytes
 are ``None`` (and the cell's ``mesh_gap`` says why) where the port's mesh
-cannot run the cell yet: the ssm / hybrid / encdec families (ROADMAP.md,
-queue 1, item 7f-iii) and moe training (item 7g).
+cannot run the cell yet: training any family but dense (ROADMAP.md,
+queue 1, item 7g).
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all
@@ -274,35 +276,102 @@ def step_bytes(lm, shape, mem: dict) -> float:
 def mesh_gap(lm, shape) -> str | None:
     """Why the port's mesh cannot run the cell yet, naming the ROADMAP.md
     item, or ``None``."""
-    from repro_torch.models.model import (MESH_FAMILIES, MESH_TODO,
-                                          MESH_TRAIN_TODO)
+    from repro_torch.models.model import MESH_TRAIN_TODO
     fam = lm.cfg.family
-    if fam not in MESH_FAMILIES:
-        return f"the {fam} family does not run on a mesh yet ({MESH_TODO})"
     if shape.kind == "train" and fam != "dense":
         return f"the {fam} family does not train on a mesh yet " \
             f"({MESH_TRAIN_TODO})"
     return None
 
 
-def length_sharded(lm, shape) -> list:
+def length_sharded(lm, shape, leaf: str = "k") -> list:
     """The decode cell's attention units whose cache the mesh executor
     runs sequence-parallel → ``[(unit, the mesh axes that split the
     length)]``: the working layout (``cache_sharding`` with the batch at
-    its true position) shards the cache length."""
+    its true position) shards the cache length.  ``leaf="xk"``: the
+    decoder layers' cross-attention caches instead."""
     from repro_torch.models.sharded import units
     if shape.kind != "decode":
         return []
     cache = lm.input_specs(shape)["cache"]
     out = []
     for u in units(lm):
-        leaf = _walk_get(cache, u.site + (("ckv",) if lm.cfg.use_mla
-                                          else ("k",)))
-        sh = lm.cache_sharding(leaf.shape, shape.global_batch,
-                               bdim=len(u.idx))
-        axes = _axis_names(sh.spec[len(u.idx) + 1])
+        if u.kind not in (("dec",) if leaf == "xk" else ("attn", "dec")):
+            continue
+        name = "ckv" if lm.cfg.use_mla else leaf
+        x = _walk_get(cache, u.site + (name,))
+        sh = lm.cache_sharding(x.shape, shape.global_batch,
+                               bdim=len(u.cidx))
+        axes = _axis_names(sh.spec[len(u.cidx) + 1])
         if math.prod(lm.mesh.shape[n] for n in axes) > 1:
             out.append((u, axes))
+    return out
+
+
+def _regather_bytes(lm, shape) -> float:
+    """A decode step's bytes into member 0 for the cache leaves stored
+    under a spec other than the executor's working one (the JAX rule's
+    ``shp.index`` can shard a stacking axis): the leaf gathered onto
+    member 0, then (unless read-only) the working copy gathered back."""
+    from repro_torch.models.sharded import READ_ONLY, _cache_names, units
+    if shape.kind != "decode":
+        return 0.0
+    cache = lm.input_specs(shape)["cache"]
+    b, seen, total = shape.global_batch, set(), 0.0
+    for u in units(lm):
+        for name in _cache_names(u):
+            path = u.site + (name,)
+            if path in seen:
+                continue
+            seen.add(path)
+            x = _walk_get(cache, path)
+            stored = lm.cache_sharding(x.shape, b)
+            work = lm.cache_sharding(x.shape, b, bdim=len(u.cidx))
+            if tuple(stored.spec) == tuple(work.spec):
+                continue
+            full = _nbytes(x.shape, x.dtype)
+            total += full - _nbytes(stored.shard_shape(x.shape), x.dtype)
+            if name not in READ_ONLY:
+                total += full - _nbytes(work.shard_shape(x.shape), x.dtype)
+    return total
+
+
+def _extent(lm, entry) -> int:
+    return math.prod(lm.mesh.shape[n] for n in _axis_names(entry))
+
+
+def _mamba_bytes(lm, u, shape, b_local: int, s: int, elt: int) -> float:
+    """A mamba layer's bytes into member 0 (``models.sharded``'s
+    ``_mamba``): the other column blocks of ``in_proj``'s product, the
+    per-channel leaves gathered whole, the norm's float32 sums of
+    squares from its ``P`` group, the channels of its ``out_proj`` rows
+    held by the other ``P`` slices, the row blocks' partial outputs,
+    and in decode the other blocks of the conv outputs."""
+    m = lm.mamba_cfg
+    path = u.prefix + ("mamba",)
+    leaf = _walk_get(lm.params, path + ("in_proj",))
+    g_in = _extent(lm, leaf.sharding.spec[len(u.idx) + 1])
+    rows = b_local * s
+    out = (g_in - 1) * rows * (m.d_in_proj // g_in) * elt
+    for name in ("conv_w", "conv_b", "a_log", "dt_bias", "d_skip", "norm_w"):
+        st = _walk_get(lm.params, path + (name,))
+        local = st.sharding.shard_shape(st.shape)[len(u.idx):]
+        g = math.prod(_extent(lm, e) for e in st.sharding.spec)
+        out += (g - 1) * _nbytes(local, st.dtype)
+    # the states' working layout: the SSM state's P (B, H, P, N) and the
+    # conv state's channels (B, C, K−1), each the next-to-last dimension
+    like = lm._zero_cache(shape.global_batch, 1, None, META)
+    g_p, g_c = (_extent(lm, lm.cache_sharding(
+        x.shape, shape.global_batch, bdim=x.dim() - nd).spec[x.dim() - 2])
+        for x, nd in ((like["ssm"], 4), (like["conv"], 3)))
+    g_o = _extent(lm, _walk_get(lm.params, path + ("out_proj",))
+                  .sharding.spec[len(u.idx)])
+    if g_p > 1:
+        out += (g_p - 1) * rows * 4
+        out += (g_p - 1) * rows * (m.d_inner // g_o // g_p) * elt
+    out += (g_o - 1) * rows * m.d_model * elt
+    if shape.kind == "decode":
+        out += (g_c - 1) * rows * (m.conv_dim // g_c) * elt
     return out
 
 
@@ -347,46 +416,69 @@ def _softmax_bytes(lm, u, axes: tuple, b_local: int, elt: int) -> float:
                                 + (union - own) * qw * elt)
 
 
+def _unit_bytes(lm, u, shape, b_local: int, s: int, elt: int) -> float:
+    """One unit's bytes into member 0: the other ``model`` members'
+    partial outputs of its attention, cross-attention and FFN halves (a
+    MoE layer's shared experts, plus :func:`_moe_bytes`), or a mamba
+    layer's (:func:`_mamba_bytes`).  An encoder layer runs over the
+    frames' ``s // enc_len_ratio`` positions."""
+    c = lm.cfg
+    tpn = lm.mesh.shape.get("model", 1)
+    if u.kind == "mamba":
+        return _mamba_bytes(lm, u, shape, b_local, s, elt)
+    s_u = s // c.enc_len_ratio if u.kind == "enc" else s
+    halves = 3 if u.kind == "dec" else 2
+    out = halves * (tpn - 1) * b_local * s_u * c.d_model * elt
+    if u.ffn == "moe":
+        out += _moe_bytes(lm, shape, b_local, s, elt)
+    return out
+
+
 def collective_bytes(lm, shape) -> float | None:
     """Bytes member 0 receives in one step over the port's mesh (``None``
-    where :func:`mesh_gap` says it cannot run): every FSDP gather (the other
-    members' shards of each leaf split over a non-model axis), every
-    partial sum over ``model`` (each member receives the other members'
-    partials: the attention and MLP (MoE: shared-expert) outputs of
-    every layer and the embedding rows, in the compute dtype; the loss's
-    two float32 sums per token), the token picks, a MoE layer's token
-    gather, dispatch and combine (:func:`_moe_bytes`), a length-sharded
-    cache's softmax partials (:func:`_softmax_bytes`), and for ``train``
-    the gathers and sums once more for the remat recompute and once
-    more in the backward pass, plus the summing of replicated gradient
-    slices."""
+    where :func:`mesh_gap` says it cannot run): every FSDP gather (the
+    other members' shards of each leaf split over a non-model axis, for
+    each unit that uses it: zamba2's shared block once a superblock, the
+    encoder not in decode), the embedding rows' and token picks' partials,
+    each unit's partial sums and exchanges (:func:`_unit_bytes`), a
+    length-sharded cache's softmax partials (:func:`_softmax_bytes`,
+    self- and cross-attention), a stacking-axis cache's regather
+    (:func:`_regather_bytes`), and for ``train`` the gathers and sums
+    once more for the remat recompute and once more in the backward
+    pass, plus the summing of replicated gradient slices."""
     if mesh_gap(lm, shape):
         return None
+    from repro_torch.models.sharded import units
     c, mesh = lm.cfg, lm.mesh
     tpn = mesh.shape.get("model", 1)
+    decode = shape.kind == "decode"
+    uses = {"shared": c.n_layers // c.shared_attn_every
+            if c.family == "hybrid" else 1,
+            "encoder": 0 if decode else 1}
     gather = sync = 0.0
-    for _, st in _walk(lm.params):
+    for path, st in _walk(lm.params):
         sh = st.sharding
         local = sh.shard_shape(st.shape)
         nb = _nbytes(local, st.dtype)
         others = [n for e in sh.spec for n in _axis_names(e)
                   if n != "model"]
-        gather += nb * (math.prod(mesh.shape[n] for n in others) - 1)
+        gather += nb * (math.prod(mesh.shape[n] for n in others) - 1) \
+            * uses.get(path[0], 1)
         copies = mesh.size // math.prod(
             mesh.shape[n] for e in sh.spec for n in _axis_names(e))
         sync += nb * (copies - 1)
     b_local = _local_batch(lm, shape)
-    s = 1 if shape.kind == "decode" else shape.seq_len + c.prefix_len
+    s = 1 if decode else shape.seq_len + c.prefix_len
     elt = torch.empty((), dtype=lm.dtype).element_size()
-    act = (2 * c.n_layers + 1) * b_local * s * c.d_model * elt
     picks = b_local * (shape.seq_len if shape.kind == "train" else 1) * 8
-    psum = (tpn - 1) * (act + picks)
-    if c.n_experts:
-        from repro_torch.models.sharded import units
-        n_moe = sum(u.ffn == "moe" for u in units(lm))
-        psum += n_moe * _moe_bytes(lm, shape, b_local, s, elt)
-    for u, axes in length_sharded(lm, shape):
-        psum += _softmax_bytes(lm, u, axes, b_local, elt)
+    psum = (tpn - 1) * (b_local * s * c.d_model * elt + picks)
+    for u in units(lm):
+        if not (decode and u.kind == "enc"):
+            psum += _unit_bytes(lm, u, shape, b_local, s, elt)
+    for leaf in ("k", "xk"):
+        for u, axes in length_sharded(lm, shape, leaf):
+            psum += _softmax_bytes(lm, u, axes, b_local, elt)
+    psum += _regather_bytes(lm, shape)
     if shape.kind == "train":
         psum += (tpn - 1) * 2 * b_local * shape.seq_len * 4
         return 3 * (gather + psum) + sync

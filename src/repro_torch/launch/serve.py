@@ -29,19 +29,26 @@ without ``frames`` (ROADMAP.md, R6).
 (``launch.mesh.mesh_from_flag``: the first N GPUs where that many are
 visible, else ``--device`` listed N times, whose members then run one
 after another); ``single`` / ``multi`` build the production mesh and
-need 256 / 512 visible GPUs.  A mesh serves the dense and moe families
+need 256 / 512 visible GPUs.  A mesh serves every family: dense; moe
 (llama4-scout and deepseek-v2: experts split over ``model``, routing
-once over the global tokens; the ssm / hybrid / encdec families raise
-``NotImplementedError``: ROADMAP.md, queue 1, item 7f-iii).  Without
-``--mesh`` the model is unsharded on one device (the JAX launcher
-defaults to ``host8``).  ``--cache-len N`` (not in the JAX launcher)
-sizes the decode cache (default: prompt + new tokens, as ``generate``);
-at 1,024 or more a cache whose heads cannot split over ``model`` (or
-deepseek's latent cache, which has none) shards its length there.
+once over the global tokens); ssm and hybrid (mamba2-130m, zamba2-2.7b:
+each mamba layer's ``in_proj`` columns over ``model``, the SSM state
+split along its head dimension ``P``, zamba2's shared block per
+superblock); encdec (seamless-m4t-large-v2: the encoder's and the
+cross-attention's heads over ``model``; it decodes without ``frames``,
+as the JAX ``generate`` does, R6).  Without ``--mesh`` the model is
+unsharded on one device (the JAX launcher defaults to ``host8``).
+``--cache-len N`` (not in the JAX launcher) sizes the decode cache
+(default: prompt + new tokens, as ``generate``); at 1,024 or more a
+cache whose heads cannot split over ``model`` (or deepseek's latent
+cache, which has none) shards its length there, and at a batch that
+cannot split over the data members its length goes over them.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --mesh host4
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --mesh host4 --arch deepseek-v2-236b --cache-len 1024
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --mesh host4 --arch zamba2-2.7b --batch 1 --cache-len 1024
 """
 
 from __future__ import annotations

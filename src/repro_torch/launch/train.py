@@ -26,8 +26,8 @@ resumed run sees the batches an unbroken run sees.
 
 ``--mesh host<N>`` / ``single`` / ``multi`` trains on a mesh as
 ``launch.serve`` builds it (``tp`` its model extent): the dense family
-only (a moe config raises ``NotImplementedError`` naming ROADMAP.md,
-queue 1, item 7g; ssm / hybrid / encdec item 7f-iii).  The checkpoints
+only (any other family raises ``NotImplementedError`` naming
+ROADMAP.md, queue 1, item 7g).  The checkpoints
 hold the gathered JAX layout, file for file as without a mesh, and a
 restart re-slices them for the run's mesh.  Without ``--mesh`` the model
 is unsharded (the JAX launcher defaults to ``host8``).

@@ -75,15 +75,20 @@ mesh member, the slice its spec gives that member, on its device;
 ``gather_params()`` returns the JAX layout.  The ``dense`` family then
 runs over the mesh (:mod:`.sharded`): batch over ``pod``/``data``,
 heads, MLP columns and vocabulary over ``model``, the ``embed`` dimension
-gathered over ``data`` before use (FSDP), and so does the ``moe``
-family, with its experts split over ``model`` (expert parallelism,
-routing once over the global tokens) and MLA's heads over ``model``; a
-decode cache whose spec shards its length runs sequence-parallel.  The
-moe family's ``loss`` runs on a mesh in value only (its training there
-is ROADMAP.md, queue 1, item 7g).  The ``ssm`` / ``hybrid`` / ``encdec``
-families under a mesh build their specs and storage, and their
-``prefill`` / ``decode_step`` / ``loss`` / ``init_cache`` raise
-``NotImplementedError`` (ROADMAP.md, queue 1, item 7f-iii).
+gathered over ``data`` before use (FSDP), and so does every other
+family: ``moe`` with its experts split over ``model`` (expert
+parallelism, routing once over the global tokens) and MLA's heads over
+``model``; ``ssm`` / ``hybrid`` with each mamba layer's ``in_proj``
+columns over ``model`` (the activation blocks gathered), its SSM state
+split along ``P`` and its conv state along its channels as their cache
+specs store them, zamba2's shared block a dense unit at each
+superblock's cache site; ``encdec`` with the encoder's bidirectional
+layers and the cross-attention's heads over ``model``, ``xk`` / ``xv``
+read under their spec and never written (R6).  A decode cache whose
+spec shards its length runs sequence-parallel; ``init_cache`` returns
+every leaf as a ShardedTensor under ``input_shardings``.  Only the
+dense family trains on a mesh: the others' ``loss`` runs there in
+value only (their training is ROADMAP.md, queue 1, item 7g).
 """
 
 from __future__ import annotations
@@ -111,14 +116,13 @@ from .mamba2 import MambaCfg, mamba_apply, mamba_decode, mamba_defs
 from .mla import MLACfg, mla_apply, mla_decode, mla_defs
 from .moe import MoECfg, mlp_apply, mlp_defs, moe_apply, moe_defs
 
-__all__ = ["LM", "FAMILIES", "MESH_FAMILIES", "MESH_TODO",
-           "MESH_TRAIN_TODO"]
+__all__ = ["LM", "FAMILIES", "MESH_FAMILIES", "MESH_TRAIN_TODO"]
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec")
 
-# the families a mesh runs; what it cannot run yet, and where that waits
-MESH_FAMILIES = ("dense", "moe")
-MESH_TODO = "ROADMAP.md, queue 1, item 7f-iii"
+# the families a mesh runs, and where training them there waits (only
+# the dense family trains on a mesh)
+MESH_FAMILIES = FAMILIES
 MESH_TRAIN_TODO = "ROADMAP.md, queue 1, item 7g"
 
 
@@ -632,13 +636,7 @@ class LM(nn.Module):
         return kw
 
     def _mesh_exec(self):
-        """The executor over ``self.mesh`` (built on first use) for the
-        dense and moe families; any other family raises."""
-        if self.cfg.family not in MESH_FAMILIES:
-            raise NotImplementedError(
-                f"{self.cfg.name}: the {self.cfg.family} family does not run "
-                f"on a mesh yet ({MESH_TODO}); its specs and shardings are "
-                f"built")
+        """The executor over ``self.mesh`` (built on first use)."""
         if self._spmd is None:
             from .sharded import LMMesh
             self._spmd = LMMesh(self)

@@ -1,5 +1,5 @@
-"""The dense and moe families over a device mesh: what GSPMD does with
-the LM's specs, written out for a single process (the port's counterpart
+"""Every LM family over a device mesh: what GSPMD does with the LM's
+specs, written out for a single process (the port's counterpart
 of ``jax.jit`` with ``param_shardings`` / ``input_shardings`` on a
 ``("data", "model")`` or ``("pod", "data", "model")`` mesh).
 
@@ -8,9 +8,12 @@ are :class:`~repro_torch.distributed.sharding.ShardedTensor`\\ s) and
 computes on its own device; one thread launches each member's work in
 turn, so a mesh that repeats one device runs its members one after
 another (more launches and copies, no speedup).  The model is a list of
-:class:`Unit`\\ s (an attention half and an FFN half each: a dense layer;
-a llama4 chunked-local or global NoPE layer, in superblock order; a
-deepseek MLA layer, the dense first one then the MoE ones).  Per unit:
+:class:`Unit`\\ s: attention + FFN layers (a dense layer; a llama4
+chunked-local or global NoPE layer, in superblock order; a deepseek MLA
+layer, the dense first one then the MoE ones; zamba2's shared block at
+each superblock; seamless's bidirectional encoder layers, over the
+frames, and its decoder layers with a cross-attention between the
+halves) and mamba layers.  Per unit:
 
 - the batch rows are split over the ``pod`` / ``data`` members where
   the batch divides their extent (:func:`batch_axes`), else every
@@ -39,6 +42,20 @@ deepseek MLA layer, the dense first one then the MoE ones).  Per unit:
   expert id, onto a running sum passed from member to member in model
   order (the unsharded combine's order, addition for addition), and the
   last member's sum is copied to the others;
+- a mamba layer (:meth:`LMMesh._mamba`): each ``model`` member computes
+  its column block of ``in_proj``'s product and the blocks are gathered
+  (they straddle z | xBC | dt), the per-channel leaves are gathered
+  whole; each member runs the conv, the SSD scan or recurrence and the
+  gate on its slice of the head dimension ``P`` (the SSM state's and the
+  conv state's slices are the cache spec's, so the states never move
+  between steps), the norm's sum of squares is summed over the ``P``
+  slices in member order, and each member's ``out_proj`` row block takes
+  its channels from the other slices before its partial product, summed
+  over ``model``;
+- a decoder layer's cross-attention: each member its query heads and
+  their keys and values from the encoder's output; a decode step reads
+  the cache's ``xk`` / ``xv`` under their spec and never writes them
+  (R6);
 - a decode cache whose spec shards its length (``kv_seq``, or the data
   axes for a batch that cannot be split) runs sequence-parallel: each
   member scores its slice of the cache for the query heads of its length
@@ -62,8 +79,8 @@ Gradients (dense family): each member's view of a stacked leaf is a
 parameter whose ``.grad`` views that member's shard of ``lm.grads``;
 after the backward pass :meth:`LMMesh.reduce_grads` sums the copies of a
 replicated slice in member order (norm weights, replicated KV
-projections).  The moe family's ``loss`` is held in value; its gradients
-are ROADMAP.md, queue 1, item 7g.
+projections).  The other families' ``loss`` is held in value; their
+gradients on a mesh are ROADMAP.md, queue 1, item 7g.
 """
 
 from __future__ import annotations
@@ -82,9 +99,12 @@ from repro_torch.distributed.sharding import (NamedSharding, PartitionSpec,
 from repro_torch.tree import leaves as _leaves
 
 from .attention import _mask_heads as _attn_mask_heads
-from .attention import (_out_proj, _project_qkv, attn_apply, attn_decode,
-                        decode_slot, decode_valid)
-from .common import expand_kv, rms_norm
+from .attention import (_kv_for, _out_proj, _proj, _project_qkv,
+                        attn_apply, attn_decode, decode_slot, decode_valid)
+from .common import attention, expand_kv, rms_norm
+from .mamba2 import (_causal_conv, _split_proj, conv_step, gate, gated_norm,
+                     in_project, norm_sumsq, out_project, p_channels,
+                     ssd_scan, ssd_step)
 from .mla import _mask_heads as _mla_mask_heads
 from .mla import MLACfg, _latents, _queries, mla_apply, mla_decode
 from .moe import combine_order, expert_ffn, mlp_apply, moe_route
@@ -93,16 +113,27 @@ __all__ = ["LMMesh", "Unit", "units"]
 
 
 class Unit(NamedTuple):
-    """One attention + FFN layer of the model, in forward order."""
+    """One layer of the model, in forward order: an attention + FFN
+    layer (``kind`` ``"attn"``; ``"enc"``: bidirectional, over the
+    encoder's stream; ``"dec"``: a cross-attention over the encoder's
+    output between the two halves) or a mamba layer (``"mamba"``)."""
     prefix: tuple   # its leaves' path: ("layers",), ("blocks", "local"), ...
     idx: tuple      # its index into their stacked axes
-    attn: Any       # its AttnCfg or MLACfg
-    ffn: str        # "mlp" or "moe"
+    attn: Any       # its AttnCfg or MLACfg; a mamba layer's MambaCfg
+    ffn: str        # "mlp", "moe"; "" for a mamba layer
     site: tuple     # its decode-cache subtree: (), ("local",), ("rest",), ...
+    kind: str = "attn"
+    cache_at: tuple | None = None   # its index into the cache's stacked
+    # axes, where it is not ``idx`` (zamba2's shared block: superblock s)
+
+    @property
+    def cidx(self) -> tuple:
+        return self.idx if self.cache_at is None else self.cache_at
 
 
 def units(lm) -> list[Unit]:
-    """The units of a dense or moe ``LM``; other families raise."""
+    """The units of an ``LM`` of any family, in forward order (encdec:
+    the encoder's, then the decoder's)."""
     c = lm.cfg
     if c.family == "dense":
         return [Unit(("layers",), (i,), lm.attn_cfg, "mlp", ())
@@ -119,17 +150,56 @@ def units(lm) -> list[Unit]:
         return [Unit(("first",), (), lm.mla_cfg, "mlp", ("first",))] + \
             [Unit(("layers",), (i,), lm.mla_cfg, "moe", ("rest",))
              for i in range(c.n_layers - c.first_dense)]
+    if c.family == "ssm":
+        return [Unit(("layers",), (i,), lm.mamba_cfg, "", (), "mamba")
+                for i in range(c.n_layers)]
+    if c.family == "hybrid":                      # zamba2 superblocks
+        out = []
+        for s in range(c.n_layers // c.shared_attn_every):
+            out += [Unit(("blocks",), (s, j), lm.mamba_cfg, "", (), "mamba")
+                    for j in range(c.shared_attn_every)]
+            out.append(Unit(("shared",), (), lm.attn_cfg, "mlp", ("attn",),
+                            "attn", (s,)))
+        return out
+    if c.family == "encdec":
+        return [Unit(("encoder",), (i,), lm.attn_cfg, "mlp", (), "enc")
+                for i in range(c.n_enc_layers)] + \
+            [Unit(("layers",), (i,), lm.attn_cfg, "mlp", (), "dec")
+             for i in range(c.n_layers)]
     raise ValueError(f"{c.name}: no mesh units for the {c.family} family")
 
 
 def _cache_names(u: Unit) -> tuple:
-    return ("ckv", "kpe") if isinstance(u.attn, MLACfg) else ("k", "v")
+    """The decode-cache leaves unit ``u`` reads, under ``u.site``."""
+    if u.kind == "enc":
+        return ()
+    if u.kind == "mamba":
+        return ("conv", "ssm")
+    if isinstance(u.attn, MLACfg):
+        return ("ckv", "kpe")
+    return ("k", "v", "xk", "xv") if u.kind == "dec" else ("k", "v")
+
+
+# cache leaves a decode step reads and never writes (R6)
+READ_ONLY = ("xk", "xv")
 
 
 def _get(tree, path: tuple):
     for k in path:
         tree = tree[k]
     return tree
+
+
+def _cross_attend(c, p, h: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  heads) -> torch.Tensor:
+    """One member's cross-attention for its query heads ``heads`` over
+    keys ``k`` and values ``v`` (its KV heads, or all of them) → its
+    partial output projection; no RoPE, biases or head mask, as the
+    unsharded layer."""
+    q = _proj(h, p["wq"])
+    out = attention(q, _kv_for(c, q, k, heads), _kv_for(c, q, v, heads),
+                    kind="bidir")
+    return _out_proj(out, p["wo"])
 
 
 def _fixed_sum(parts: list, device) -> torch.Tensor:
@@ -209,9 +279,9 @@ def _per_device_max(parts: list, devs: list) -> list:
 
 
 class LMMesh:
-    """Runs ``lm`` (a dense- or moe-family ``LM`` with a mesh) over its
-    mesh: the ``loss`` / ``prefill`` / ``decode_step`` of the ``LM`` API,
-    plus :meth:`logits` (every position's logits, gathered) and the MoE
+    """Runs ``lm`` (an ``LM`` of any family with a mesh) over its mesh:
+    the ``loss`` / ``prefill`` / ``decode_step`` of the ``LM`` API, plus
+    :meth:`logits` (every position's logits, gathered) and the MoE
     pieces (:meth:`route`, :meth:`moe`) for tests."""
 
     def __init__(self, lm):
@@ -267,27 +337,22 @@ class LMMesh:
         """``None`` for a leaf split over ``model`` alone, else ``(dim,
         groups)``: the dimension split over other axes and the gather
         groups (members equal outside those axes, in block order)."""
-        if path in self._plans:
-            return self._plans[path]
-        sh = self._leaf(path).sharding
-        gdims = [i for i, e in enumerate(sh.spec)
-                 if any(n != "model" for n in _names(e))]
-        plan = None
-        if gdims:
-            axes = _names(sh.spec[gdims[0]])
-            if len(gdims) > 1 or "model" in axes:
-                raise NotImplementedError(
-                    f"{'/'.join(path)} {sh.spec}: the mesh executor gathers "
-                    f"one dimension split over axes other than model")
-            groups: dict = {}
-            for k in range(self.n):
-                co = self.mesh.coords(k)
-                key = tuple(v for a, v in co.items() if a not in axes)
-                groups.setdefault(key, []).append((sh.block(k), k))
-            plan = (gdims[0], [[k for _, k in sorted(g)]
-                               for g in groups.values()])
-        self._plans[path] = plan
-        return plan
+        if path not in self._plans:
+            st = self._leaf(path)
+            sh = st.sharding
+            gdims = [i for i, e in enumerate(sh.spec)
+                     if any(n != "model" for n in _names(e))]
+            plan = None
+            if gdims:
+                if len(gdims) > 1 or "model" in _names(sh.spec[gdims[0]]):
+                    raise NotImplementedError(
+                        f"{'/'.join(path)} {sh.spec}: the mesh executor "
+                        f"gathers one dimension split over axes other than "
+                        f"model")
+                plan = (gdims[0],
+                        self._dim_groups(sh, st.shape, gdims[0])[1])
+            self._plans[path] = plan
+        return self._plans[path]
 
     def local(self, path: tuple, idx: tuple = ()) -> list:
         """Per member: leaf ``path`` at ``idx`` with every axis but
@@ -296,14 +361,7 @@ class LMMesh:
         plan = self._plan(path)
         if plan is None:
             return views
-        dim, groups = plan
-        out = [None] * self.n
-        for g in groups:
-            res = _Gather.apply(dim - len(idx), tuple(self.devs[k] for k in g),
-                                *[views[k] for k in g])
-            for k, r in zip(g, res):
-                out[k] = r
-        return out
+        return self.allgather(views, plan[1], plan[0] - len(idx))
 
     def _tree(self, u: Unit, *sub) -> list:
         """Per member: the unit's subtree ``sub`` (``"attn"``, ``"mlp"``,
@@ -328,22 +386,56 @@ class LMMesh:
                 for k in range(self.n)]
         return self._slices[key]
 
-    def heads(self, u: Unit) -> list:
-        """Per member: the query heads it computes in unit ``u`` (a slice
-        of the padded ``hq``; ``None``: all of them)."""
+    def heads(self, u: Unit, sub: str = "attn") -> list:
+        """Per member: the query heads it computes in unit ``u``'s
+        attention ``sub`` (``"xattn"``: the cross-attention; a slice of
+        the padded ``hq``; ``None``: all of them)."""
         q = "w_uq" if isinstance(u.attn, MLACfg) else "wq"
-        return self._member_slice(u.prefix + ("attn", q), len(u.idx) + 1)
+        return self._member_slice(u.prefix + (sub, q), len(u.idx) + 1)
 
-    def psum(self, parts: list) -> list:
-        """Per member: the sum of its model group's ``parts``."""
+    def full(self, path: tuple, idx: tuple = ()) -> list:
+        """Per member: leaf ``path`` at ``idx`` whole (every split axis
+        gathered, ``model`` too): the mamba block's per-channel leaves."""
+        views = [self._view(path, k, idx) for k in range(self.n)]
+        st = self._leaf(path)
+        dims = [i for i, e in enumerate(st.sharding.spec) if _names(e)]
+        if not dims:
+            return views
+        if len(dims) > 1:
+            raise NotImplementedError(
+                f"{'/'.join(path)} {st.sharding.spec}: the mesh executor "
+                f"gathers one split dimension")
+        _, groups = self._dim_groups(st.sharding, st.shape, dims[0])
+        return self.allgather(views, groups, dims[0] - len(idx))
+
+    def allgather(self, parts: list, groups: list, dim: int) -> list:
+        """Per member: its group's ``parts`` concatenated along ``dim`` in
+        group order (``.to()`` copies)."""
         out = [None] * self.n
-        for g in self.model_groups:
+        for g in groups:
+            if len(g) == 1:
+                out[g[0]] = parts[g[0]]
+                continue
+            res = _Gather.apply(dim, tuple(self.devs[k] for k in g),
+                                *[parts[k] for k in g])
+            for k, r in zip(g, res):
+                out[k] = r
+        return out
+
+    def gsum(self, parts: list, groups: list) -> list:
+        """Per member: the sum of its group's ``parts``, in group order."""
+        out = [None] * self.n
+        for g in groups:
             if len(g) == 1:
                 out[g[0]] = parts[g[0]]
                 continue
             for k, r in zip(g, _AllReduce.apply(*[parts[k] for k in g])):
                 out[k] = r
         return out
+
+    def psum(self, parts: list) -> list:
+        """Per member: the sum of its model group's ``parts``."""
+        return self.gsum(parts, self.model_groups)
 
     @torch.no_grad()
     def pmax(self, parts: list) -> list:
@@ -411,7 +503,7 @@ class LMMesh:
     def _ffn(self, u: Unit, xs: list, rows: list) -> list:
         """``x + ffn(ln2(x))``: the SwiGLU MLP's partial sums, or the
         routed and shared experts."""
-        hs = self._normed(u, "ln2", xs)
+        hs = self._normed(u, "ln3" if u.kind == "dec" else "ln2", xs)
         if u.ffn == "mlp":
             w = self._tree(u, "mlp")
             ys = self.psum([mlp_apply(w[k], hs[k]) for k in range(self.n)])
@@ -419,47 +511,236 @@ class LMMesh:
             ys = self.moe(u, hs, rows)
         return [x + y for x, y in zip(xs, ys)]
 
-    def _unit(self, u: Unit, xs: list, rows: list):
-        """Unit ``u`` over the whole sequence → (xs', per-member cache
-        pair: (k, v) or MLA's (c_kv, k_pe))."""
+    def _unit(self, u: Unit, xs: list, rows: list, ctx: dict):
+        """Unit ``u`` over the whole sequence → (xs', per member its cache
+        outputs: (k, v), MLA's (c_kv, k_pe), a mamba layer's (conv state,
+        SSM state) slices, a decoder layer's ((k, v), cross (k, v))).
+        ``ctx``: the global batch ``b`` and the encoder's output
+        ``enc``."""
+        if u.kind == "mamba":
+            return self._mamba(u, xs, ctx["b"])
         hs = self._normed(u, "ln1", xs)
         p = self._tree(u, "attn")
         heads = self.heads(u)
-        fn = mla_apply if isinstance(u.attn, MLACfg) else attn_apply
         parts, kvs = [], []
         for k in range(self.n):
-            y, kv = fn(u.attn, p[k], hs[k], heads=heads[k])
+            if isinstance(u.attn, MLACfg):
+                y, kv = mla_apply(u.attn, p[k], hs[k], heads=heads[k])
+            else:
+                y, kv = attn_apply(u.attn, p[k], hs[k], heads=heads[k],
+                                   kind="bidir" if u.kind == "enc"
+                                   else "causal")
             parts.append(y)
             kvs.append(kv)
         xs = [x + s for x, s in zip(xs, self.psum(parts))]
+        if u.kind == "dec":
+            xs, xkvs = self._cross(u, xs, ctx["enc"])
+            kvs = list(zip(kvs, xkvs))
         return self._ffn(u, xs, rows), kvs
 
+    def _cross(self, u: Unit, xs: list, enc: list):
+        """A decoder layer's cross-attention half over the encoder's
+        output (per member its rows, whole): each member its query heads
+        and their keys and values → (xs', per member its cross (k, v))."""
+        hs = self._normed(u, "ln2", xs)
+        p = self._tree(u, "xattn")
+        heads = self.heads(u, "xattn")
+        kvs = [(_proj(enc[k], p[k]["wk"]), _proj(enc[k], p[k]["wv"]))
+               for k in range(self.n)]
+        parts = [_cross_attend(u.attn, p[k], hs[k], *kvs[k], heads[k])
+                 for k in range(self.n)]
+        return [x + s for x, s in zip(xs, self.psum(parts))], kvs
+
+    def _cross_step(self, u: Unit, xs: list, work: dict) -> list:
+        """A decoder layer's cross-attention half for one token, over the
+        cache's ``xk`` / ``xv`` under their spec (read, never written:
+        R6)."""
+        hs = self._normed(u, "ln2", xs)
+        p = self._tree(u, "xattn")
+        heads = self.heads(u, "xattn")
+        xk, xv = work[u.site + ("xk",)], work[u.site + ("xv",)]
+        span, groups = self._dim_groups(xk.sharding, xk.shape,
+                                        len(u.cidx) + 1)
+        if not all(len(g) == 1 for g in groups):
+            parts = self._seq_parallel(u, p, hs, xk, xv, 0, heads, span,
+                                       groups, cross=True)
+        else:
+            parts = [_cross_attend(u.attn, p[k], hs[k], xk.shards[k][u.cidx],
+                                   xv.shards[k][u.cidx], heads[k])
+                     for k in range(self.n)]
+        return [x + s for x, s in zip(xs, self.psum(parts))]
+
+    # ------------------------------------------------------- mamba layers
+    def _mamba_layout(self, b: int):
+        """The working layout of the mamba states at a batch of ``b``
+        (``cache_sharding`` with the batch at its true position) → (per
+        member its slice of the SSM state's ``P``, ``None`` where whole;
+        the ``P`` groups; per member its slice of the conv state's
+        channels, ``None`` where whole; the channel groups)."""
+        key = ("mamba", b)
+        if key not in self._slices:
+            like = self.lm._zero_cache(b, 1, None, "meta")
+            got = []
+            for name, off in (("ssm", 2), ("conv", 1)):
+                shape = like[name].shape
+                bdim = len(shape) - (4 if name == "ssm" else 3)
+                sh = self.lm.cache_sharding(shape, b, bdim=bdim)
+                if any(_names(e) for i, e in enumerate(sh.spec)
+                       if i not in (bdim, bdim + off)):
+                    raise NotImplementedError(
+                        f"the {name} state's working spec {sh.spec}: the "
+                        f"mesh executor splits its batch and dimension "
+                        f"{bdim + off} only")
+                span, groups = self._dim_groups(sh, shape, bdim + off)
+                whole = span[0].stop - span[0].start == shape[bdim + off]
+                got += [[None if whole else sp for sp in span], groups]
+            self._slices[key] = tuple(got)
+        return self._slices[key]
+
+    def _mamba(self, u: Unit, xs: list, b: int, work: dict | None = None):
+        """A mamba layer ``x + mamba(ln(x))`` over the whole sequence, or
+        with ``work`` one decode step (its states read and written in
+        ``work``'s shards) → (xs', per member its [conv state, SSM state]
+        slices in the working layout; ``None`` for a decode step).
+
+        Each member computes its column block of ``in_proj``'s product;
+        the model group's blocks are gathered, so each member holds the
+        whole z | xBC | dt of its rows.  The per-channel leaves are
+        gathered whole.  Each member runs the conv on the channels its
+        ``P`` slice reads (decode: on its block of the conv state, the
+        outputs gathered over the block's group), the SSD scan or the
+        recurrence on its ``P`` slice of every head, and the gate; the
+        norm's sum of squares is summed over the ``P`` group in member
+        order; each member then takes the channels of its ``out_proj``
+        rows from its ``P`` group (its heads, every ``P`` slice), and the
+        row blocks' partial products are summed over ``model``."""
+        c = u.attn
+        path = u.prefix + ("mamba",)
+        ps, pgroups, cs, cgroups = self._mamba_layout(b)
+        hs = self._normed(u, "ln", xs)
+        w_in = self.local(path + ("in_proj",), u.idx)
+        st = self._leaf(path + ("in_proj",))
+        _, cols = self._dim_groups(st.sharding, st.shape, len(u.idx) + 1)
+        zx = self.allgather([in_project({"in_proj": w_in[k]}, h)
+                             for k, h in enumerate(hs)], cols, -1)
+        small = {n: self.full(path + (n,), u.idx) for n in
+                 ("conv_w", "conv_b", "a_log", "dt_bias", "d_skip",
+                  "norm_w")}
+        per = [{n: v[k] for n, v in small.items()} for k in range(self.n)]
+        conv_out, states = [], [None] * self.n
+        for k in range(self.n):
+            _, xbc, _ = _split_proj(c, zx[k])
+            w = per[k]
+            if work is not None:      # the window step on its block
+                blk = cs[k] or slice(None)
+                cst = work[u.site + ("conv",)].shards[k][u.cidx]
+                out, nxt = conv_step(c, {"conv_w": w["conv_w"][blk],
+                                         "conv_b": w["conv_b"][blk]},
+                                     cst, xbc[:, 0, blk])
+                cst.copy_(nxt)
+                conv_out.append(out[:, None])
+            else:
+                conv_out.append(_causal_conv(
+                    c, {"conv_w": p_channels(c, w["conv_w"].T, ps[k]).T,
+                        "conv_b": p_channels(c, w["conv_b"], ps[k])},
+                    p_channels(c, xbc, ps[k])))
+                tail = zx[k][:, -(c.conv_kernel - 1):,
+                             c.d_inner:c.d_inner + c.conv_dim]
+                states[k] = [tail.transpose(1, 2)[:, cs[k] or slice(None)]]
+        if work is not None:
+            conv_out = [p_channels(c, o, ps[k]) for k, o in
+                        enumerate(self.allgather(conv_out, cgroups, -1))]
+        gs, sq = [], []
+        for k in range(self.n):
+            z, _, dt_raw = _split_proj(c, zx[k])
+            n = c.d_state
+            x, b_in, c_in = torch.split(
+                conv_out[k], [conv_out[k].shape[-1] - 2 * n, n, n], -1)
+            bsz, s = x.shape[:2]
+            x = x.reshape(bsz, s, c.n_heads, -1)
+            if work is not None:
+                sst = work[u.site + ("ssm",)].shards[k][u.cidx]
+                y, nxt = ssd_step(c, per[k], x[:, 0], dt_raw[:, 0],
+                                  b_in[:, 0], c_in[:, 0], sst)
+                sst.copy_(nxt)
+                y = y[:, None]
+            else:
+                y, h_final = ssd_scan(c, per[k], x, dt_raw, b_in, c_in)
+                states[k].append(h_final)
+            y = y.reshape(bsz, s, -1).to(zx[k].dtype)
+            g = gate(y, p_channels(c, z, ps[k], inner=True))
+            gs.append(g)
+            sq.append(None if ps[k] is None else norm_sumsq(g))
+        if ps[0] is not None:
+            sq = self.gsum(sq, pgroups)
+        ys = [gated_norm(c, g, p_channels(c, per[k]["norm_w"], ps[k],
+                                          inner=True), sq[k])
+              for k, g in enumerate(gs)]
+        opath = path + ("out_proj",)
+        orows = self._member_slice(opath, len(u.idx))
+        w_out = self.local(opath, u.idx)
+        group_of = {k: g for g in pgroups for k in g}
+        parts = []
+        for k in range(self.n):
+            r = orows[k] or slice(0, c.d_inner)
+            if ps[k] is None:
+                yk = ys[k][..., r]
+            else:         # its rows' heads, every P slice, in P order
+                hd = c.head_dim
+                h0, h1 = r.start // hd, -(-r.stop // hd)
+                yk = torch.cat([ys[j].unflatten(-1, (c.n_heads, -1))
+                                [..., h0:h1, :].to(self.devs[k])
+                                for j in group_of[k]], -1).flatten(-2)
+                yk = yk[..., r.start - h0 * hd:r.stop - h0 * hd]
+            parts.append(out_project({"out_proj": w_out[k]}, yk))
+        if orows[0] is not None:
+            parts = self.psum(parts)
+        return [x + y for x, y in zip(xs, parts)], \
+            (None if work is not None else states)
+
     def _hidden(self, batch: dict, emit_cache: bool = False):
-        """→ (per-member final-normed hidden states, rows, per unit the
-        per-member cache pairs, or None)."""
+        """→ (per-member final-normed hidden states, rows, per unit ``(u,
+        its per-member cache outputs)``, or None)."""
         lm, c = self.lm, self.lm.cfg
         tokens = torch.as_tensor(batch["tokens"])
-        rows = self._rows(tokens.shape[0])
+        b = tokens.shape[0]
+        rows = self._rows(b)
+        ctx = {"b": b}
+        if c.family == "encdec":
+            enc = self._split(torch.as_tensor(batch["frames"]), rows,
+                              lm.dtype)
+            for u in self.units:
+                if u.kind == "enc":
+                    enc, _ = self._unit(u, enc, rows, ctx)
+            norm = self.local(("enc_norm",))
+            ctx["enc"] = [rms_norm(e, norm[k], c.norm_eps)
+                          for k, e in enumerate(enc)]
         xs = self._embed(self._split(tokens, rows))
         if c.prefix_len:
             pre = self._split(torch.as_tensor(batch["prefix"]), rows,
                               lm.dtype)
             xs = [torch.cat([p, x], dim=1) for p, x in zip(pre, xs)]
-        remat = lm.remat and lm.trainable and torch.is_grad_enabled()
+        # the other families' loss is held in value only (ROADMAP.md,
+        # queue 1, item 7g)
+        remat = lm.remat and lm.trainable and torch.is_grad_enabled() and \
+            c.family in ("dense", "moe")
         outs = []
         for u in self.units:
+            if u.kind == "enc":
+                continue
             if remat:
                 # reentrant: the backward re-runs the unit and backprops
                 # through the new graph; the non-reentrant form matches
                 # saved tensors by order, which a mesh of several devices
                 # (one autograd thread each) was seen to break
                 xs = list(checkpoint(
-                    lambda *x, u=u: tuple(self._unit(u, list(x), rows)[0]),
+                    lambda *x, u=u: tuple(self._unit(u, list(x), rows,
+                                                     ctx)[0]),
                     *xs, use_reentrant=True))
             else:
-                xs, kvs = self._unit(u, xs, rows)
+                xs, kvs = self._unit(u, xs, rows, ctx)
                 if emit_cache:
-                    outs.append(kvs)
+                    outs.append((u, kvs))
         norm = self.local(("final_norm",))
         xs = [rms_norm(x, norm[k], c.norm_eps) for k, x in enumerate(xs)]
         return xs, rows, (outs if emit_cache else None)
@@ -593,21 +874,29 @@ class LMMesh:
 
     # ----------------------------------------------------- decode caches
     def _prefill_cache(self, outs: list, b: int):
-        """Per unit per-member cache pairs → the JAX prefill cache tree
-        (dense ``(k, v)``; llama4 ``((k, v) local, (k, v) global)``;
-        deepseek ``((c_kv, k_pe) first, (c_kv, k_pe) rest)``), each leaf a
-        ShardedTensor: batch over the data axes where it divides, KV
-        heads over ``model`` where the spec splits them."""
+        """Per unit its per-member cache outputs → the JAX prefill cache
+        tree (dense ``(k, v)``; llama4 ``((k, v) local, (k, v) global)``;
+        deepseek ``((c_kv, k_pe) first, (c_kv, k_pe) rest)``; ssm ``(conv,
+        ssm)``; hybrid ``((conv, ssm), (k, v))``; encdec ``((k, v), (xk,
+        xv))``), each leaf a ShardedTensor: batch over the data axes
+        where it divides, KV heads over ``model`` where the spec splits
+        them; the mamba states in their working layout."""
         lm = self.lm
         bspec = batch_axes(lm.rules, b, self.mesh)
         sites: dict = {}
-        for u, kv in zip(self.units, outs):
-            sites.setdefault(u.site, []).append((u, kv))
+        for u, per in outs:
+            if u.kind == "dec":       # the self- and the cross-attention
+                sites.setdefault((u.site, "self"), []).append(
+                    (u, [p[0] for p in per]))
+                sites.setdefault((u.site, "cross"), []).append(
+                    (u, [p[1] for p in per]))
+            else:
+                sites.setdefault((u.site, u.kind), []).append((u, per))
         tree = []
         for items in sites.values():
             u0 = items[0][0]
-            lead = tuple(max(u.idx[d] for u, _ in items) + 1
-                         for d in range(len(u0.idx)))
+            lead = tuple(max(u.cidx[d] for u, _ in items) + 1
+                         for d in range(len(u0.cidx)))
             pair = []
             for j in range(2):
                 shards = []
@@ -616,16 +905,26 @@ class LMMesh:
                     shards.append(torch.stack(ts).reshape(*lead, *ts[0].shape)
                                   if lead else ts[0])
                 shape = list(shards[0].shape)
-                spec = [None] * len(shape)
-                spec[len(lead)] = bspec
                 shape[len(lead)] = b
-                if not isinstance(u0.attn, MLACfg):
-                    shape[len(lead) + 2] = u0.attn.hkv
-                    if lm.rules["kv_heads"] == "model":
-                        spec[len(lead) + 2] = "model"
-                pair.append(ShardedTensor(
-                    NamedSharding(self.mesh, PartitionSpec(*spec)), shape,
-                    shards))
+                if u0.kind == "mamba":
+                    # (.., B, conv_dim, K−1) and (.., B, H, P, N)
+                    shape[len(lead) + 1 + j] = (u0.attn.conv_dim,
+                                                u0.attn.head_dim)[j]
+                    sh = lm.cache_sharding(shape, b, bdim=len(lead))
+                else:
+                    spec = [None] * len(shape)
+                    spec[len(lead)] = bspec
+                    if not isinstance(u0.attn, MLACfg):
+                        shape[len(lead) + 2] = u0.attn.hkv
+                        if lm.rules["kv_heads"] == "model":
+                            spec[len(lead) + 2] = "model"
+                    sh = NamedSharding(self.mesh, PartitionSpec(*spec))
+                want = sh.shard_shape(shape)
+                if any(tuple(t.shape) != want for t in shards):
+                    raise AssertionError(f"prefill cache shards "
+                                         f"{[tuple(t.shape) for t in shards]}"
+                                         f" against {want} under {sh.spec}")
+                pair.append(ShardedTensor(sh, shape, shards))
             tree.append(tuple(pair))
         return tree[0] if len(tree) == 1 else tuple(tree)
 
@@ -641,7 +940,7 @@ class LMMesh:
                 if path in work:
                     continue
                 st = _get(cache, path)
-                want = self.lm.cache_sharding(st.shape, b, bdim=len(u.idx))
+                want = self.lm.cache_sharding(st.shape, b, bdim=len(u.cidx))
                 if tuple(want.spec) == tuple(st.sharding.spec):
                     work[path] = st
                 else:
@@ -652,16 +951,16 @@ class LMMesh:
     def _write_back(self, cache: dict, work: dict) -> None:
         for path, w in work.items():
             st = _get(cache, path)
-            if w is not st:
+            if w is not st and path[-1] not in READ_ONLY:
                 st.copy_(w.gather(self.lm.device))
 
-    def _length_groups(self, st: ShardedTensor, sdim: int):
-        """→ (per member its slice of the cache length, the length groups:
-        members equal outside the axes that split the length, in length
-        order; singletons where nothing splits it)."""
-        sh = st.sharding
-        axes = _names(sh.spec[sdim])
-        span = [sh.member_index(k, st.shape)[sdim] for k in range(self.n)]
+    def _dim_groups(self, sh: NamedSharding, shape, dim: int):
+        """→ (per member its slice of dimension ``dim`` of an array of
+        ``shape`` under ``sh``, the groups: members equal outside the
+        axes that split it, in slice order; singletons where nothing
+        splits it)."""
+        axes = _names(sh.spec[dim]) if dim < len(sh.spec) else ()
+        span = [sh.member_index(k, shape)[dim] for k in range(self.n)]
         if not axes:
             return span, [[k] for k in range(self.n)]
         groups: dict = {}
@@ -678,13 +977,14 @@ class LMMesh:
         hs = self._normed(u, "ln1", xs)
         p = self._tree(u, "attn")
         heads = self.heads(u)
-        na, nb = _cache_names(u)
+        na, nb = _cache_names(u)[:2]
         ca, cb = work[u.site + (na,)], work[u.site + (nb,)]
-        span, groups = self._length_groups(ca, len(u.idx) + 1)
+        span, groups = self._dim_groups(ca.sharding, ca.shape,
+                                        len(u.cidx) + 1)
         if all(len(g) == 1 for g in groups):
             fn = mla_decode if isinstance(u.attn, MLACfg) else attn_decode
-            parts = [fn(u.attn, p[k], hs[k], ca.shards[k][u.idx],
-                        cb.shards[k][u.idx], pos, heads=heads[k])[0]
+            parts = [fn(u.attn, p[k], hs[k], ca.shards[k][u.cidx],
+                        cb.shards[k][u.cidx], pos, heads=heads[k])[0]
                      for k in range(self.n)]
         else:
             parts = self._seq_parallel(u, p, hs, ca, cb, pos, heads, span,
@@ -692,12 +992,16 @@ class LMMesh:
         return [x + s for x, s in zip(xs, self.psum(parts))]
 
     def _seq_parallel(self, u: Unit, p: list, hs: list, ca, cb, pos: int,
-                      heads: list, span: list, groups: list) -> list:
+                      heads: list, span: list, groups: list,
+                      cross: bool = False) -> list:
         """The decode attention over a length-sharded cache → per-member
-        partial output projections (module docstring)."""
+        partial output projections (module docstring).  ``cross``: a
+        decoder layer's cross-attention over ``xk`` / ``xv`` (queries
+        without RoPE, every slot valid, nothing written, no head
+        mask)."""
         c = u.attn
         mla = isinstance(c, MLACfg)
-        s_cache = ca.shape[len(u.idx) + 1]
+        s_cache = ca.shape[len(u.cidx) + 1]
         hsl = [h or slice(0, c.hq) for h in heads]
         qs = []
         for k in range(self.n):
@@ -711,14 +1015,17 @@ class LMMesh:
                 q_abs = torch.einsum("bqhd,lhd->bqhl", q_nope,
                                      p[k]["w_uk"].to(dt))
                 qs.append(torch.cat([q_abs, q_pe], -1))
+            elif cross:
+                qs.append(_proj(hs[k], p[k]["wq"]))
+                continue
             else:
                 q, new_a, new_b = _project_qkv(c, p[k], hs[k], at)
                 write = decode_slot(c, s_cache, pos)
                 qs.append(q)
             lo, hi = span[k].start, span[k].stop
             if lo <= write < hi:           # only the slot's holder writes
-                ca.shards[k][u.idx][:, write - lo] = new_a[:, 0]
-                cb.shards[k][u.idx][:, write - lo] = new_b[:, 0]
+                ca.shards[k][u.cidx][:, write - lo] = new_a[:, 0]
+                cb.shards[k][u.cidx][:, write - lo] = new_b[:, 0]
         parts = [None] * self.n
         for g in groups:
             # the query heads the group scores: its members' heads, joined
@@ -732,7 +1039,7 @@ class LMMesh:
                 dev, dt = self.devs[k], hs[k].dtype
                 q = qs[k] if len(by) == 1 else \
                     torch.cat([qs[src[hr]].to(dev) for hr in by], dim=2)
-                a, b = ca.shards[k][u.idx], cb.shards[k][u.idx]
+                a, b = ca.shards[k][u.cidx], cb.shards[k][u.cidx]
                 idx = torch.arange(span[k].start, span[k].stop, device=dev)
                 if mla:
                     q_abs, q_pe = q.split([c.kv_lora, c.rope_head_dim], -1)
@@ -748,8 +1055,9 @@ class LMMesh:
                         ke, ve = ke[:, :, h0:h1], ve[:, :, h0:h1]
                     sc = torch.einsum("bqhd,bkhd->bhqk", q.float(),
                                       ke.float()) / (c.head_dim ** 0.5)
-                    sc = torch.where(decode_valid(c, s_cache, pos, idx),
-                                     sc, -1e30)
+                    if not cross:
+                        sc = torch.where(decode_valid(c, s_cache, pos, idx),
+                                         sc, -1e30)
                     vals[k] = ve
                 scores[k] = sc
             devs = [self.devs[k] for k in g]
@@ -768,7 +1076,7 @@ class LMMesh:
                     o = torch.einsum("bqhl,lhd->bqhd", o,
                                      p[k]["w_uv"].to(o.dtype))
                     o = _mla_mask_heads(c, o, heads[k])
-                else:
+                elif not cross:
                     o = _attn_mask_heads(c, o, heads[k])
                 parts[k] = _out_proj(o, p[k]["wo"])
         return parts
@@ -835,11 +1143,19 @@ class LMMesh:
         c = self.lm.cfg
         pos = int(pos)
         token = torch.as_tensor(token)
-        rows = self._rows(token.shape[0])
-        work = self._working(cache, token.shape[0])
+        b = token.shape[0]
+        rows = self._rows(b)
+        work = self._working(cache, b)
         xs = self._embed(self._split(token, rows))
         for u in self.units:
+            if u.kind == "enc":
+                continue
+            if u.kind == "mamba":
+                xs, _ = self._mamba(u, xs, b, work)
+                continue
             xs = self._attn_step(u, xs, work, pos)
+            if u.kind == "dec":
+                xs = self._cross_step(u, xs, work)
             xs = self._ffn(u, xs, rows)
         self._write_back(cache, work)
         norm = self.local(("final_norm",))

@@ -83,11 +83,10 @@ def make_train_step(lm, hp: TrainHParams):
         raise ValueError("make_train_step needs LM(..., trainable=True): a "
                          "serving LM holds no float32 masters or gradients")
     if lm.mesh is not None and lm.cfg.family != "dense":
-        from repro_torch.models.model import MESH_TODO, MESH_TRAIN_TODO
-        todo = MESH_TRAIN_TODO if lm.cfg.family == "moe" else MESH_TODO
+        from repro_torch.models.model import MESH_TRAIN_TODO
         raise NotImplementedError(
             f"{lm.cfg.name}: the {lm.cfg.family} family does not train on a "
-            f"mesh yet ({todo})")
+            f"mesh yet ({MESH_TRAIN_TODO})")
     params, grads = lm.params, lm.grads
     p_leaves, g_leaves = _tree.leaves(params), _tree.leaves(grads)
 

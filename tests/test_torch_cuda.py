@@ -1613,3 +1613,113 @@ def test_lm_moe_serve_launcher_on_a_cuda_mesh(cuda):
         out = res["out"]
         assert tuple(out.shape) == (4, 4) and out.device.type == "cuda"
         assert 0 <= int(out.min()) and int(out.max()) < res["cfg"].vocab_size
+
+
+# -- LM sharding: the ssm, hybrid and encdec families on a mesh of cuda
+# members against the unsharded port on the CPU (float32, reduced widths,
+# the tolerances above; greedy tokens under the CPU logits' tie rule)
+
+LM_SSM_MESH = ["mamba2-130m", "zamba2-2.7b", "seamless-m4t-large-v2"]
+
+
+def _with_frames(cfg, batch, rng):
+    """``batch`` plus seeded ``frames`` for an encdec config."""
+    if cfg.family == "encdec":
+        s = batch["tokens"].shape[1]
+        batch["frames"] = torch.as_tensor(rng.normal(
+            0, 1, (batch["tokens"].shape[0], s // cfg.enc_len_ratio,
+                   cfg.d_model)).astype(np.float32))
+    return batch
+
+
+def _decode_both(cpu, dev, cache, dcache, toks, positions, cuda):
+    """Decode steps on both at ``positions``: tokens under the tie rule
+    against the CPU step's logits, then every cache leaf close."""
+    from repro_torch import tree as ttree
+    for pos, t in zip(positions, toks):
+        logits = cpu._logits(cpu._decode_hidden(
+            ttree.map(torch.clone, cache), t, pos))[:, 0]
+        nxt, cache = cpu.decode_step(cache, t, pos)
+        dnxt, dcache = dev.decode_step(dcache, t.to(cuda), pos)
+        _lm_tokens_agree(dnxt, nxt, logits)
+    for got, want in zip(ttree.leaves(dcache), ttree.leaves(cache),
+                         strict=True):
+        _lm_close(got.gather(), want)
+
+
+@pytest.mark.parametrize("kind", ["2x2", "1x4", "mixed"])
+@pytest.mark.parametrize("arch", LM_SSM_MESH)
+def test_lm_ssm_encdec_mesh_on_cuda_equals_unsharded_cpu(cuda, arch, kind):
+    """mamba2 / zamba2 / seamless reduced on a mesh of cuda members
+    (mixed: cuda and the CPU alternating, so the ``in_proj`` block
+    exchange, the norm's partial sums and the cross-attention's partials
+    cross devices): logits (seamless over ``frames``), the prefill token
+    and every cache leaf, 4 decode steps and their cache (conv / SSM
+    states, k / v, the unwritten xk / xv), and ``loss``, against the
+    unsharded model on the CPU."""
+    from repro_torch import tree as ttree
+    cfg, cpu, dev = _mesh_pair(cuda, arch, kind)
+    rng = np.random.default_rng(8)
+    batch = _with_frames(cfg, {k: torch.as_tensor(rng.integers(
+        0, cfg.vocab_size, (4, 12), np.int32)) for k in ("tokens",
+                                                         "targets")}, rng)
+    inputs = {k: v for k, v in batch.items() if k != "targets"}
+    kw = {"frames": batch["frames"]} if "frames" in batch else {}
+    with torch.no_grad():
+        logits = cpu._logits(cpu._forward(batch["tokens"], **kw)[0])
+    _lm_close(dev._mesh_exec().logits(inputs), logits)
+    tok, pcache = cpu.prefill(inputs)
+    dtok, dpcache = dev.prefill(inputs)
+    _lm_tokens_agree(dtok, tok, logits[:, -1])
+    for got, want in zip(ttree.leaves(dpcache), ttree.leaves(pcache),
+                         strict=True):
+        _lm_close(got.gather(), want)
+    toks = [batch["tokens"][:, p:p + 1] for p in range(4)]
+    _decode_both(cpu, dev, cpu.init_cache(4, 16), dev.init_cache(4, 16),
+                 toks, range(4), cuda)
+    with torch.no_grad():
+        loss, _ = cpu.loss(batch)
+        dloss, _ = dev.loss(batch)
+    np.testing.assert_allclose(float(dloss), float(loss), rtol=LM_TOL)
+
+
+@pytest.mark.parametrize("arch,kind", [
+    ("zamba2-2.7b", "2x2"), ("zamba2-2.7b", "mixed"),
+    ("seamless-m4t-large-v2", "2x2"), ("mamba2-130m", "1x4")])
+def test_lm_ssm_encdec_b1_long_decode_on_cuda_equals_cpu(cuda, arch, kind):
+    """A batch of 1 into a cache of 1,024 positions filled with the same
+    random entries on both sides (xk / xv included): zamba2's shared
+    block and seamless's self-attention split their length over
+    ``data`` (sequence-parallel), mamba2's state splits ``P`` over
+    ``model``; decode steps at positions across the members' slices give
+    the CPU's tokens and cache."""
+    from repro_torch import tree as ttree
+    cfg, cpu, dev = _mesh_pair(cuda, arch, kind)
+    cache, dcache = cpu.init_cache(1, 1024), dev.init_cache(1, 1024)
+    rng = np.random.default_rng(12)
+    for t, d in zip(ttree.leaves(cache), ttree.leaves(dcache), strict=True):
+        t.copy_(torch.as_tensor(rng.normal(0, 1, tuple(t.shape))
+                                .astype(np.float32)))
+        d.copy_(t)
+    positions = (255, 511, 512, 1023, 1030)
+    toks = [torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, 1),
+                                         np.int32)) for _ in positions]
+    _decode_both(cpu, dev, cache, dcache, toks, positions, cuda)
+
+
+def test_lm_ssm_encdec_serve_launcher_on_a_cuda_mesh(cuda):
+    """``launch.serve.run(mesh="host4")`` on cuda at reduced width for the
+    three families (seamless decodes without ``frames``, R6), zamba2
+    also at a batch of 1 into a 1,024-position cache."""
+    from repro_torch.launch import serve
+    for arch, kw in (("mamba2-130m", {}), ("zamba2-2.7b", {}),
+                     ("zamba2-2.7b", {"batch": 1, "cache_len": 1024}),
+                     ("seamless-m4t-large-v2", {})):
+        kw = {"batch": 4, **kw}
+        res = serve.run(arch, device="cuda", mesh="host4", prompt_len=8,
+                        max_new=4, **kw)
+        assert res["mesh"].dims == (2, 2)
+        out = res["out"]
+        assert tuple(out.shape) == (kw["batch"], 4)
+        assert out.device.type == "cuda"
+        assert 0 <= int(out.min()) and int(out.max()) < res["cfg"].vocab_size

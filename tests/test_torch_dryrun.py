@@ -79,16 +79,14 @@ def test_mini_dryrun_on_a_2x2_meta_mesh(arch):
         assert ("grads_GiB" in mem) == (name == "train_4k")
         pd = rec["per_device"]
         assert pd["flops"] > 0 and pd["bytes"] > 0
-        # the dense family runs every cell, the moe family serves (its
-        # training waits for item 7g), the ssm family waits for 7f-iii
-        runs = cfg.family == "dense" or (cfg.family == "moe" and
-                                         name != "train_4k")
+        # the dense family runs every cell; the others serve (their
+        # training waits for item 7g)
+        runs = cfg.family == "dense" or name != "train_4k"
         if runs:
             assert pd["collective_bytes"] > 0 and "mesh_gap" not in rec
         else:
             assert pd["collective_bytes"] is None
-            assert ("7g" if cfg.family == "moe" else "7f-iii") in \
-                rec["mesh_gap"]
+            assert "7g" in rec["mesh_gap"]
         assert ("flops_note" in rec) == bool(cfg.n_experts)
         r = rec["roofline"]
         assert r["bottleneck"] in ("compute", "memory", "collective")

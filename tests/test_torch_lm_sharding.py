@@ -495,35 +495,32 @@ def test_launchers_run_on_a_host4_cpu_mesh(tmp_path, capsys):
 
 
 def test_gaps_raise_naming_7f_ii():
-    """Item 7f-ii is done: the moe family serves on a mesh and a decode
-    cache whose spec shards its length builds and runs.  What is left
-    raises naming its item: the ssm / hybrid / encdec families on a mesh
-    (7f-iii), a train step on a moe mesh (7g)."""
+    """Items 7f-ii and 7f-iii are done: every family serves on a mesh
+    (moe, and the ssm / hybrid / encdec families: prefill, init_cache,
+    decode_step, loss in value), and a decode cache whose spec shards its
+    length builds and runs.  What is left raises naming its item: a train
+    step on a mesh of any family but dense (7g)."""
     mesh = mesh_from_devices(CPU4, model=2)
-    moe = LM(reduced(get_config("llama4-scout-17b-a16e")), tp=2, mesh=mesh,
-             dtype=torch.float32, trainable=True)
-    moe.init(torch.Generator().manual_seed(0))
-    assert isinstance(moe.params["embed"], ShardedTensor)
     batch = {"tokens": torch.zeros((4, 8), dtype=torch.int32),
              "targets": torch.zeros((4, 8), dtype=torch.int32)}
-    loss, _ = moe.loss(batch)
-    assert np.isfinite(float(loss))
-    tok, _ = moe.prefill(batch)
-    cache = moe.init_cache(4, 16)
-    nxt, _ = moe.decode_step(cache, batch["tokens"][:, :1], 0)
-    assert tuple(tok.shape) == tuple(nxt.shape) == (4,)
-    with pytest.raises(NotImplementedError, match="7g"):
-        make_train_step(moe, TrainHParams())
-    for arch in ("mamba2-130m", "zamba2-2.7b", "seamless-m4t-large-v2"):
+    for arch in ("llama4-scout-17b-a16e", "mamba2-130m", "zamba2-2.7b",
+                 "seamless-m4t-large-v2"):
         other = LM(reduced(get_config(arch)), tp=2, mesh=mesh,
-                   dtype=torch.float32)
+                   dtype=torch.float32, trainable=True)
+        other.init(torch.Generator().manual_seed(0))
         assert isinstance(other.params["embed"], ShardedTensor)
-        for call in (lambda: other.loss(batch), lambda: other.prefill(batch),
-                     lambda: other.init_cache(4, 16),
-                     lambda: other.decode_step({}, batch["tokens"][:, :1],
-                                               0)):
-            with pytest.raises(NotImplementedError, match="7f-iii"):
-                call()
+        inputs = dict(batch)
+        if other.cfg.family == "encdec":
+            inputs["frames"] = torch.ones((4, 2, other.cfg.d_model))
+        loss, _ = other.loss(inputs)
+        assert np.isfinite(float(loss))
+        tok, _ = other.prefill(inputs)
+        cache = other.init_cache(4, 16)
+        assert all(isinstance(t, ShardedTensor) for t in ttree.leaves(cache))
+        nxt, _ = other.decode_step(cache, batch["tokens"][:, :1], 0)
+        assert tuple(tok.shape) == tuple(nxt.shape) == (4,)
+        with pytest.raises(NotImplementedError, match="7g"):
+            make_train_step(other, TrainHParams())
     # 2 KV heads on a 4-way model axis stay replicated, so a cache of
     # 1,024 positions shards its length over ``model``: it now builds
     dense = LM(reduced(get_config("tinyllama-1.1b")), tp=4,
