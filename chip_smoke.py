@@ -16,10 +16,13 @@ kill and an elastic restore onto another mesh size, serves the LM
 zoo's qwen1.5-4b, tinyllama-1.1b, mamba2-130m, zamba2-2.7b,
 llama4-scout-17b-a16e and deepseek-v2-236b (depth cut) and
 seamless-m4t-large-v2 at their published widths, trains
-tinyllama-1.1b at its published width, serves qwen1.5-4b and trains
-tinyllama-1.1b tensor- and data-parallel on a (2, 2) LM mesh, and
+tinyllama-1.1b, deepseek-v2 (depth and experts cut) and
+seamless-m4t-large-v2 at their published widths, serves qwen1.5-4b and
+trains tinyllama-1.1b tensor- and data-parallel on a (2, 2) LM mesh,
 serves llama4-scout and deepseek-v2 (depth cut), mamba2-130m,
-zamba2-2.7b and seamless-m4t-large-v2 on that mesh.
+zamba2-2.7b and seamless-m4t-large-v2 on that mesh, and trains
+deepseek-v2, mamba2-130m, zamba2-2.7b and seamless-m4t-large-v2 (depth
+cut) there.
 
     python3 chip_smoke.py
 
@@ -212,6 +215,16 @@ package.  Phases, each on its own lines:
    card vs CPU at 2 layers, gate 2 the loss falling on a fixed batch
    at 2 layers of the same weights, gate 3 ``launch.train.run`` killed once and resumed equal to an
    unbroken run; K1–K6's counters read 0;
+14b. the moe and encdec families training (``LM_TRAIN_MOE``'s comment):
+   deepseek-v2 at 2 layers with 64 of its 160 routed experts (no depth
+   of either MoE model fits one card's training state whole) and
+   seamless-m4t-large-v2 whole with seeded frames, published widths:
+   step p50/p99, tokens/s, model FLOPs over the bf16 dense peak, one
+   step's device kernels and busy time, peak memory; gate 1 one float32
+   step card vs CPU at the reduced llama4, deepseek and seamless configs
+   under phase 14's gate-1 bounds with the expert choices compared, gate
+   2 the loss falling on a fixed batch at 2 layers; K1–K6's counters
+   read 0; a ``{"lm_moe_encdec_training": ...}`` line;
 15. the LM mesh (``LM_MESH``'s comment): qwen1.5-4b at its published
    width through ``launch.serve.run(full=True, mesh="host4")`` on a
    (2, 2) ``("data", "model")`` mesh (4 distinct GPUs where visible,
@@ -249,6 +262,16 @@ package.  Phases, each on its own lines:
    p50/p99 sharded and unsharded from a bfloat16 lockstep whose
    agreement prints (not gated, R5); K1–K6's counters read 0; a
    ``{"lm_ssm_mesh": ...}`` line;
+15d. the non-dense families training on the LM mesh (``LM_MESH_TRAIN``'s
+   comment): deepseek-v2 at 2 layers with 32 routed experts, mamba2-130m
+   whole, zamba2-2.7b's first superblock and seamless at 2 + 2 layers,
+   published widths, on the (2, 2) mesh: one float32 step sharded
+   against unsharded under phase 14's gate-1 bounds with the expert
+   choices compared and a TF32 control past the limit, 3 bfloat16 steps
+   (p50) sharded and unsharded, each member's bytes against the
+   dry-run's train cell; ``launch.train.run(mesh="host4")`` at reduced
+   width for llama4, mamba2 and zamba2; K1–K6's counters read 0; a
+   ``{"lm_mesh_train": ...}`` line;
 16. a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -588,6 +611,99 @@ LM_SSM_MESH_CUT = {"mamba2-130m": {"n_layers": 2},
                    "zamba2-2.7b": {"n_layers": 6},
                    "seamless-m4t-large-v2": {"n_layers": 2,
                                              "n_enc_layers": 2}}
+# phase 14b, the moe and encdec families training on the card at
+# published widths (bf16 compute; float32 masters, gradients and AdamW
+# moments: 16 bytes a parameter).  No depth of llama4-scout fits one
+# card's training state (one superblock is about 10.9 B parameters, 174
+# GB), nor does deepseek-v2 at 2 layers (the dense first layer and one
+# MoE layer: about 5.4 B, 86 GB), so deepseek trains at LM_TRAIN_MOE_CUT:
+# 2 layers with 64 of its 160 routed experts, top-6 kept (its parameter
+# count is computed from the ParamDef shapes and printed before the
+# run); seamless-m4t-large-v2 trains whole, fed seeded frames of (batch,
+# seq // 4, d_model) that the phase builds (the training launcher feeds
+# none, R10).  Each: LM_TRAIN_WARM + LM_TRAIN_MOE_TIMED steps of the
+# launcher's token stream at (LM_TRAIN_BATCH, LM_TRAIN_SEQ): step
+# p50/p99 (host clock with a sync), tokens/s, model FLOPs (the dry-run's
+# 6·N_active·T) over the bf16 dense peak, one step's device kernels and
+# busy time (torch.profiler), peak memory.  Gates:
+# - 1, one float32 train step card against CPU at the reduced configs
+#   (configs/reduce.py) of llama4, deepseek and seamless, under phase
+#   14's gate-1 bounds (loss rtol 1e-5; grad_norm and every gradient
+#   leaf within LM_TRAIN_GRAD_TOL; parameters within 1e-2 lr on average,
+#   no entry whose gradient lies past the limit stepped the other way;
+#   llama4's routers, whose gradient is rounding (ROADMAP.md, R9), within
+#   LM_R9_ABS absolute on both), every routing's expert choices compared
+#   by route_flips (a flip outside a near tie fails), and a TF32 control
+#   that must land past the limit.  Written to print the control only
+#   (at d_model 64 it need not reach phase 14's limit, phase 15b); the
+#   first card run read float32 2.66e-4 / 5.83e-5 / 1.45e-4 and TF32
+#   0.207 / 0.201 / 0.309 (llama4 / deepseek / seamless, PERF.md §6),
+#   so the control gates;
+# - 2, the loss falls by LM_TRAIN_FIT_DROP on one fixed batch in
+#   LM_TRAIN_FIT_STEPS steps from fresh moments (phase 14's gate 2) at 2
+#   layers of the timed weights (deepseek: the timed model; seamless: its
+#   first 2 encoder and 2 decoder layers).
+LM_TRAIN_MOE = ("deepseek-v2-236b", "seamless-m4t-large-v2")
+LM_TRAIN_MOE_CUT = {"deepseek-v2-236b": {"n_layers": 2, "n_experts": 64},
+                    "seamless-m4t-large-v2": {}}
+LM_TRAIN_MOE_FIT = {"deepseek-v2-236b": {},
+                    "seamless-m4t-large-v2": {"n_layers": 2,
+                                              "n_enc_layers": 2}}
+LM_TRAIN_MOE_F32 = ("llama4-scout-17b-a16e", "deepseek-v2-236b",
+                    "seamless-m4t-large-v2")
+LM_TRAIN_MOE_TIMED = 5
+LM_R9_ABS = 1e-6
+# phase 15d, the non-dense families training on phase 15's (2, 2) mesh,
+# published widths, at LM_MESH_TRAIN_CUT (deepseek-v2 2 layers with 32 of
+# its 160 routed experts, top-6; mamba2-130m whole; zamba2-2.7b its first
+# superblock: 6 mamba layers and the shared block; seamless 2 encoder +
+# 2 decoder layers).  Each mesh model and its unsharded twin run one
+# after the other, the first freed (its results parked on the host), so
+# no two trainable copies share the card.  Checks:
+# - one float32 step at (LM_TRAIN_F32_BATCH, LM_TRAIN_F32_SEQ) on the
+#   mesh against the unsharded step on the card, under phase 14's gate-1
+#   bounds, expert choices compared, and a TF32 control (the mesh step
+#   with TF32 products) whose gradients must land past the gradient
+#   limit: LM_TRAIN_GRAD_TOL, or LM_MESH_TRAIN_TOL's, set after the first
+#   card run (PERF.md §6): deepseek read float32 1.72e-5 and TF32 0.0177,
+#   under phase 14's 2e-2, so its limit is 1e-3 (58x / 18x around it);
+#   seamless's 2 + 2 layers read 0.0323 (the wq gradient: R5's
+#   near-one-hot attention at published width) and 3.97, so its limit
+#   is phase 13's 0.1 for it (3.1x / 40x);
+# - for LM_MESH_TRAIN_WITNESS (seamless), a witness without the mesh:
+#   the same unsharded float32 step, on the same weights and batch, on
+#   the card against the CPU, under the same bounds (its TF32 control
+#   printed); past phase 14's LM_TRAIN_GRAD_TOL the mesh's worst gradient
+#   error must stay within LM_MESH_WITNESS_RATIO times the witness's, so
+#   a gap that belongs to the mesh (a backward fault seen only at
+#   published width) fails even under the wide limit, while two float32
+#   orders of the same sums, which R5 amplifies alike, pass; beside it,
+#   printed, how far LM_MESH_WITNESS_DRAWS perturbations of every
+#   parameter by 1 + 1e-7·N(0, 1) move the unsharded card step's
+#   gradients (the conditioning at this cut);
+# - LM_MESH_TRAIN_STEPS bfloat16 steps at (LM_TRAIN_BATCH, LM_TRAIN_SEQ)
+#   on the mesh and unsharded (p50 each), and every member's stored bytes
+#   (parameter, gradient and moment shards, the count, its rows of the
+#   inputs) against the dry-run's argument + gradient bytes for the train
+#   cell on a (2, 2) meta mesh, to the byte;
+# - launch.train.run(mesh="host4") at reduced width for LM_MESH_TRAIN_LAUNCH
+#   (seamless is left out: the launcher feeds no frames, R10).
+LM_MESH_TRAIN = ("deepseek-v2-236b", "mamba2-130m", "zamba2-2.7b",
+                 "seamless-m4t-large-v2")
+LM_MESH_TRAIN_CUT = {"deepseek-v2-236b": {"n_layers": 2, "n_experts": 32},
+                     "mamba2-130m": {},
+                     "zamba2-2.7b": {"n_layers": 6},
+                     "seamless-m4t-large-v2": {"n_layers": 2,
+                                               "n_enc_layers": 2}}
+LM_MESH_TRAIN_TOL = {"deepseek-v2-236b": 1e-3, "seamless-m4t-large-v2": 0.1}
+LM_MESH_TRAIN_WITNESS = ("seamless-m4t-large-v2",)
+LM_MESH_WITNESS_RATIO = 10.0
+LM_MESH_WITNESS_DRAWS = 4
+# the kernels' launch counters the LM phases zero and read (K1-K6)
+COUNTED = ("swar_fused_votes", "clause_votes", "train_deltas_keyed",
+           "popcount_words", "pdl_race", "binary_matmul")
+LM_MESH_TRAIN_LAUNCH = ("llama4-scout-17b-a16e", "mamba2-130m",
+                        "zamba2-2.7b")
 
 
 def smi(query: str) -> str:
@@ -3012,15 +3128,13 @@ def lm_phase(torch, rt, card: str) -> dict:
     """Phase 13: the LM zoo's families served at full width on cuda.
     It reaches none of the port's CUDA kernels: their counters are zeroed
     before and must read 0 after."""
-    counted = ("swar_fused_votes", "clause_votes", "train_deltas_keyed",
-               "popcount_words", "pdl_race", "binary_matmul")
-    for k in counted:
+    for k in COUNTED:
         rt[k].launches = 0
     t0 = time.perf_counter()
     oversize = lm_oversize(torch, LM_OVERSIZE)
     print(f"lm {LM_OVERSIZE} --full: {oversize}", flush=True)
     rows = [lm_serve_arch(torch, arch, card) for arch in LM_ARCHS]
-    launched = {k: rt[k].launches for k in counted if rt[k].launches}
+    launched = {k: rt[k].launches for k in COUNTED if rt[k].launches}
     if launched:
         raise AssertionError(f"the LM path launched TM kernels: {launched}")
     wall = time.perf_counter() - t0
@@ -3323,15 +3437,13 @@ def train_check_recovery(torch) -> dict:
 def train_phase(torch, rt, card: str) -> dict:
     """Phase 14: LM training on cuda.  It reaches none of the port's CUDA
     kernels: their counters are zeroed before and must read 0 after."""
-    counted = ("swar_fused_votes", "clause_votes", "train_deltas_keyed",
-               "popcount_words", "pdl_race", "binary_matmul")
-    for k in counted:
+    for k in COUNTED:
         rt[k].launches = 0
     t0 = time.perf_counter()
     row = train_timed(torch, card)
     row["gate1"] = train_check_f32(torch)
     row["gate3"] = train_check_recovery(torch)
-    launched = {k: rt[k].launches for k in counted if rt[k].launches}
+    launched = {k: rt[k].launches for k in COUNTED if rt[k].launches}
     if launched:
         raise AssertionError(f"the LM training path launched TM kernels: "
                              f"{launched}")
@@ -3534,9 +3646,7 @@ def lm_mesh_phase(torch, rt, card: str) -> dict:
     from repro_torch.models.model import LM
     from repro_torch.train.step import (TrainHParams, init_train_state,
                                         make_train_step)
-    counted = ("swar_fused_votes", "clause_votes", "train_deltas_keyed",
-               "popcount_words", "pdl_race", "binary_matmul")
-    for k in counted:
+    for k in COUNTED:
         rt[k].launches = 0
     t0 = time.perf_counter()
     res = run(LM_MESH_ARCH, batch=LM_BATCH, prompt_len=LM_PROMPT,
@@ -3633,7 +3743,7 @@ def lm_mesh_phase(torch, rt, card: str) -> dict:
           f"gradients and moments per member; launch.train --mesh "
           f"{LM_MESH} at reduced width: losses {small['losses']}",
           flush=True)
-    launched = {k: rt[k].launches for k in counted if rt[k].launches}
+    launched = {k: rt[k].launches for k in COUNTED if rt[k].launches}
     if launched:
         raise AssertionError(f"the LM mesh path launched TM kernels: "
                              f"{launched}")
@@ -3807,9 +3917,7 @@ def lm_moe_mesh_phase(torch, rt, card: str) -> dict:
     from repro_torch.distributed.sharding import Mesh
     from repro_torch.launch import dryrun
     from repro_torch.launch.serve import run
-    counted = ("swar_fused_votes", "clause_votes", "train_deltas_keyed",
-               "popcount_words", "pdl_race", "binary_matmul")
-    for k in counted:
+    for k in COUNTED:
         rt[k].launches = 0
     t0 = time.perf_counter()
     rows = {}
@@ -3875,7 +3983,7 @@ def lm_moe_mesh_phase(torch, rt, card: str) -> dict:
               f"{row['unsharded_decode_p50_ms']:.2f}/"
               f"{row['unsharded_decode_p99_ms']:.2f} ms unsharded",
               flush=True)
-    launched = {k: rt[k].launches for k in counted if rt[k].launches}
+    launched = {k: rt[k].launches for k in COUNTED if rt[k].launches}
     if launched:
         raise AssertionError(f"the LM moe mesh path launched TM kernels: "
                              f"{launched}")
@@ -4042,9 +4150,7 @@ def lm_ssm_mesh_phase(torch, rt, card: str) -> dict:
     from repro_torch.launch import dryrun
     from repro_torch.launch.serve import run
     from repro_torch.models.model import LM
-    counted = ("swar_fused_votes", "clause_votes", "train_deltas_keyed",
-               "popcount_words", "pdl_race", "binary_matmul")
-    for k in counted:
+    for k in COUNTED:
         rt[k].launches = 0
     t0 = time.perf_counter()
     rows = {}
@@ -4123,7 +4229,7 @@ def lm_ssm_mesh_phase(torch, rt, card: str) -> dict:
               f"sharded, {row['unsharded_decode_p50_ms']:.2f}/"
               f"{row['unsharded_decode_p99_ms']:.2f} ms unsharded",
               flush=True)
-    launched = {k: rt[k].launches for k in counted if rt[k].launches}
+    launched = {k: rt[k].launches for k in COUNTED if rt[k].launches}
     if launched:
         raise AssertionError(f"the LM ssm mesh path launched TM kernels: "
                              f"{launched}")
@@ -4131,6 +4237,578 @@ def lm_ssm_mesh_phase(torch, rt, card: str) -> dict:
     print(f"phase 15c (LM ssm / hybrid / encdec mesh) wall {wall:.1f}s, "
           f"{card}", flush=True)
     print(json.dumps({"lm_ssm_mesh": rows, "card": card, "wall_s": wall}),
+          flush=True)
+    return rows
+
+
+def cut_config(arch: str, cut: dict, reduced_width: bool = False):
+    """``arch``'s config (``configs/reduce.py``'s with ``reduced_width``)
+    with the fields of ``cut`` replaced."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.configs.reduce import reduced
+    cfg = get_config(arch)
+    return dataclasses.replace(reduced(cfg) if reduced_width else cfg, **cut)
+
+
+def n_params(torch, cfg) -> int:
+    """The parameters of ``cfg``, from its ParamDef shapes (nothing
+    allocated)."""
+    from repro_torch.models.common import flatten_defs
+    from repro_torch.models.model import LM
+    lm = LM(cfg, device=torch.device("meta"), dtype=torch.bfloat16)
+    return sum(int(np.prod(d.shape)) for _, d in
+               flatten_defs(lm.param_defs()))
+
+
+def train_batches(cfg, n: int, batch: int, seq: int) -> list:
+    """``n`` batches of the training launcher's token stream and loader at
+    (batch, seq), with seeded frames (batch, seq // enc_len_ratio,
+    d_model) for the encdec family (the launcher feeds none, R10)."""
+    from repro_torch.data import ShardedLoader, lm_token_stream
+    from repro_torch.launch.train import STREAM_TOKENS
+    loader = ShardedLoader(lm_token_stream(STREAM_TOKENS, cfg.vocab_size,
+                                           seed=0),
+                           global_batch=batch, seq_len=seq)
+    rng = np.random.default_rng(SEED)
+    out = []
+    try:
+        for _ in range(n):
+            b = dict(zip(("tokens", "targets"), next(loader)))
+            if cfg.family == "encdec":
+                b["frames"] = rng.normal(0, 1, (
+                    batch, seq // cfg.enc_len_ratio, cfg.d_model)).astype(
+                        np.float32)
+            out.append(b)
+    finally:
+        loader.close()
+    return out
+
+
+def f32_batch(cfg, batch: int = LM_TRAIN_F32_BATCH,
+              seq: int = LM_TRAIN_F32_SEQ) -> dict:
+    """Phase 14's gate-1 batch: seeded tokens and targets (and frames)."""
+    rng = np.random.default_rng(SEED)
+    out = {k: rng.integers(0, cfg.vocab_size, (batch, seq), np.int32)
+           for k in ("tokens", "targets")}
+    if cfg.family == "encdec":
+        out["frames"] = rng.normal(0, 1, (
+            batch, seq // cfg.enc_len_ratio, cfg.d_model)).astype(np.float32)
+    return out
+
+
+class routes_logged:
+    """While active, every ``moe_route`` call (unsharded or on a mesh)
+    logs its expert choice (sorted top-k per token) and gates on the host,
+    in call order (a remat recompute logs again, in the same order on
+    every device)."""
+
+    def __init__(self):
+        self.log = []
+
+    def __enter__(self):
+        from repro_torch.models import moe, sharded
+        self.real = real = moe.moe_route
+
+        def logging(c, router, xt):
+            r = real(c, router, xt)
+            self.log.append((r.top_i.detach().sort(-1).values.cpu(),
+                             r.gates.detach().cpu()))
+            return r
+        moe.moe_route = sharded.moe_route = logging
+        return self.log
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe, sharded
+        moe.moe_route = sharded.moe_route = self.real
+
+
+def _host(t):
+    """A copy of an unsharded parameter or gradient leaf on the host."""
+    return t.detach().to("cpu", copy=True)
+
+
+def _whole(t):
+    """A leaf whole on the card: a sharded one gathered."""
+    from repro_torch.distributed.sharding import ShardedTensor
+    return t.gather("cuda") if isinstance(t, ShardedTensor) else t.detach()
+
+
+def train_step_compare(torch, ref_make, dev_make, batch, *,
+                       gate_control: bool,
+                       tol: float = LM_TRAIN_GRAD_TOL) -> dict:
+    """One float32 train step of the same weights on ``ref_make()`` (the
+    reference: the CPU, or the unsharded model on the card) and on
+    ``dev_make()`` (the card, or the mesh), one after the other: the
+    reference's initial weights, gradients and updated parameters are
+    parked on the host and it is freed before the other is built and
+    loaded with those weights.  Phase 14's gate-1 bounds at the gradient
+    limit ``tol``; every routing's expert choices by ``route_flips``;
+    then the control, ``dev_make()`` with TF32 products, whose gradients
+    must land past ``tol`` where ``gate_control``."""
+    from repro_torch import tree as ttree
+    from repro_torch.models.common import flatten_defs
+    from repro_torch.train.step import (TrainHParams, init_train_state,
+                                        make_train_step)
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 is on: float32 products would round")
+    hp = TrainHParams(peak_lr=LM_TRAIN_F32_LR, warmup=0, total_steps=10)
+    lr = LM_TRAIN_F32_LR
+    ref = ref_make()
+    r9 = ref.cfg.n_experts and ref.cfg.top_k == 1
+    paths = [p for p, _ in flatten_defs(ref.param_defs())]
+    p0 = [_host(t) for t in ttree.leaves(ref.params)]
+    with routes_logged() as want_routes:
+        # only the metrics are kept: the returned state holds the
+        # reference's parameters and moments
+        m = make_train_step(ref, hp)(init_train_state(ref.params), batch)[1]
+    ref_m = {k: float(v) for k, v in m.items()}
+    g_ref = [_host(t) for t in ttree.leaves(ref.grads)]
+    p_ref = [_host(t) for t in ttree.leaves(ref.params)]
+    del ref, m
+    torch.cuda.empty_cache()
+
+    def run_dev():
+        lm = dev_make()
+        for path, t in zip(paths, p0):
+            lm.load_leaf(path, t)
+        with routes_logged() as routes:
+            m = make_train_step(lm, hp)(init_train_state(lm.params),
+                                        batch)[1]
+        return lm, {k: float(v) for k, v in m.items()}, routes
+
+    def grad_errs(lm) -> dict:
+        out = {}
+        for path, g, w in zip(paths, ttree.leaves(lm.grads), g_ref):
+            if r9 and path[-1] == "router":        # rounding only (R9)
+                continue
+            g, w = _whole(g), w.to("cuda")
+            out["/".join(path)] = float((g.float() - w).abs().max()
+                                        / w.abs().max().clamp(min=1e-30))
+        return out
+
+    lm, dev_m, got_routes = run_dev()
+    errs = grad_errs(lm)
+    total, n, flips, r9_max = 0.0, 0, 0, 0.0
+    for path, t, g, w, q, s0 in zip(paths, ttree.leaves(lm.params),
+                                    ttree.leaves(lm.grads), g_ref, p_ref,
+                                    p0):
+        p = _whole(t).float()
+        q, s0, w = q.to("cuda"), s0.to("cuda"), w.to("cuda")
+        total += float((p - q).abs().sum())
+        n += p.numel()
+        if r9 and path[-1] == "router":
+            g = _whole(g)
+            r9_max = max(r9_max, float(g.abs().max()), float(w.abs().max()))
+            continue
+        sure = w.abs() > tol * w.abs().max()
+        flips += int(((p - s0).sign() != (q - s0).sign())[sure].sum())
+    if len(got_routes) != len(want_routes):
+        raise AssertionError(f"{len(got_routes)} routings against "
+                             f"{len(want_routes)}")
+    rflips = [route_flips(torch, g, w) for g, w in zip(got_routes,
+                                                        want_routes)]
+    del lm
+    torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        ctl_lm, ctl_m, _ = run_dev()
+        ctl = max(grad_errs(ctl_lm).values())
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    del ctl_lm
+    torch.cuda.empty_cache()
+    grad_err = max(errs.values())
+    norm_err = abs(dev_m["grad_norm"] - ref_m["grad_norm"]) / \
+        ref_m["grad_norm"]
+    worst = max(errs, key=errs.get)
+    row = {"loss": (dev_m["loss"], ref_m["loss"]),
+           "grad_norm": (dev_m["grad_norm"], ref_m["grad_norm"]),
+           "grad_norm_rel_err": norm_err, "grad_max_rel_err": grad_err,
+           "grad_worst_leaf": worst, "param_mean_abs_diff": total / n,
+           "param_sign_flips": flips, "routings": len(rflips),
+           "route_flips": sum(f for f, _ in rflips),
+           "route_flips_outside_ties": sum(o for _, o in rflips),
+           "grad_rel_err_by_leaf": errs,
+           "grad_tol": tol, "tf32_control_grad_err": ctl,
+           "tf32_control_gated": gate_control,
+           **({"r9_router_max_abs_grad": r9_max} if r9 else {})}
+    finite = all(np.isfinite(v) for v in (*errs.values(), *ref_m.values(),
+                                          *dev_m.values(), total, ctl))
+    bad = not finite or \
+        abs(dev_m["loss"] - ref_m["loss"]) > 1e-5 * abs(ref_m["loss"]) \
+        or norm_err > tol or grad_err > tol or total / n > 1e-2 * lr or \
+        flips or row["route_flips_outside_ties"] or r9_max > LM_R9_ABS or \
+        (gate_control and ctl <= tol)
+    if bad:
+        raise AssertionError(f"float32 train step against the reference: "
+                             f"{row}")
+    return row
+
+
+def perturbation_spread(torch, make, batch: dict, draws: int) -> dict:
+    """Per leaf of ``make()``'s float32 gradient of ``loss`` on ``batch``
+    on the card, the largest change (of the leaf's largest entry) over
+    ``draws`` seeded perturbations of every parameter by
+    1 + 1e-7·N(0, 1): how far rounding-sized changes move them."""
+    from repro_torch import tree as ttree
+    from repro_torch.models.common import flatten_defs
+    lm = make()
+    names = ["/".join(p) for p, _ in flatten_defs(lm.param_defs())]
+    params = ttree.leaves(lm.params)
+    base = [t.detach().clone() for t in params]
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()}
+
+    def grads() -> list:
+        for g in ttree.leaves(lm.grads):
+            g.zero_()
+        lm.loss(batch)[0].backward()
+        return [g.detach().clone() for g in ttree.leaves(lm.grads)]
+    want, out = grads(), dict.fromkeys(names, 0.0)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    for _ in range(draws):
+        with torch.no_grad():
+            for t, b in zip(params, base):
+                t.copy_(b * (1 + 1e-7 * torch.randn(
+                    b.shape, generator=gen, device="cuda")))
+        for name, g, w in zip(names, grads(), want):
+            out[name] = max(out[name], float((g - w).abs().max()
+                                             / w.abs().max().clamp(
+                                                 min=1e-30)))
+    del lm, params, base, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_step_line(row: dict) -> str:
+    """One gate-1 reading as a phrase of a phase's line."""
+    return (f"loss {row['loss'][0]:.7f} / {row['loss'][1]:.7f}, grad_norm "
+            f"rel {row['grad_norm_rel_err']:.3g}, max gradient error "
+            f"{row['grad_max_rel_err']:.3g} of the leaf's largest "
+            f"({row['grad_worst_leaf']}; <= {row['grad_tol']}), parameters "
+            f"mean |diff| {row['param_mean_abs_diff']:.3g} (<= "
+            f"{1e-2 * LM_TRAIN_F32_LR:.3g}), {row['param_sign_flips']} sign "
+            f"flips past the limit, {row['route_flips']} expert flips in "
+            f"{row['routings']} routings ({row['route_flips_outside_ties']} "
+            f"outside a near tie)"
+            + (f", R9 routers |g| <= {row['r9_router_max_abs_grad']:.3g}"
+               if "r9_router_max_abs_grad" in row else "")
+            + f"; TF32 control {row['tf32_control_grad_err']:.3g}"
+            + (f" (> {row['grad_tol']})" if row["tf32_control_gated"]
+               else " (printed, not gated)"))
+
+
+def train_timed_arch(torch, arch: str, card: str) -> dict:
+    """Phase 14b for one model at its LM_TRAIN_MOE_CUT: the timed steps,
+    one step's device activity, then gate 2 at LM_TRAIN_MOE_FIT."""
+    from repro_torch import tree as ttree
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.engine.base import nearest_rank
+    from repro_torch.models.model import LM
+    from repro_torch.roofline.analysis import model_flops
+    from repro_torch.train.step import (TrainHParams, init_train_state,
+                                        make_train_step)
+    cfg = cut_config(arch, LM_TRAIN_MOE_CUT[arch])
+    n = n_params(torch, cfg)
+    cut = LM_TRAIN_MOE_CUT[arch] or "whole"
+    print(f"train {arch} ({cut}): {n:,} parameters from the ParamDef shapes,"
+          f" {16 * n:,} bytes of float32 masters, gradients and AdamW "
+          f"moments", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    lm = LM(cfg, device="cuda", dtype=torch.bfloat16, trainable=True)
+    lm.init(torch.Generator(device="cuda").manual_seed(0))
+    n_steps = LM_TRAIN_WARM + LM_TRAIN_MOE_TIMED
+    step = make_train_step(lm, TrainHParams(total_steps=n_steps + 2))
+    state = init_train_state(lm.params)
+    batches = train_batches(cfg, n_steps, LM_TRAIN_BATCH, LM_TRAIN_SEQ)
+    times, losses = [], []
+    for i, batch in enumerate(batches):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        if i >= LM_TRAIN_WARM:
+            times.append(time.perf_counter() - t1)
+        losses.append(float(metrics["loss"]))
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{arch} train losses {losses}")
+    names, busy_us, by_name = device_activity(
+        torch, lambda: step(state, batches[-1]))
+    kernels = sum(1 for nm in names if "memcpy" not in nm.lower()
+                  and "memset" not in nm.lower())
+    times.sort()
+    p50, p99 = (nearest_rank(times, q) for q in (0.50, 0.99))
+    tokens = LM_TRAIN_BATCH * LM_TRAIN_SEQ
+    flops = model_flops(cfg, ShapeSpec("train", LM_TRAIN_SEQ,
+                                       LM_TRAIN_BATCH, "train"))
+    peak = torch.cuda.max_memory_allocated()
+    top = [(nm[:60], round(us, 3)) for nm, us in by_name.most_common(5)]
+    row = {"arch": arch, "cut": LM_TRAIN_MOE_CUT[arch], "params": n,
+           "batch": LM_TRAIN_BATCH, "seq": LM_TRAIN_SEQ,
+           "step_p50_ms": p50 * 1e3, "step_p99_ms": p99 * 1e3,
+           "timed_steps": len(times), "tokens_per_s": tokens / p50,
+           "model_flops_per_step": flops,
+           "model_flops_share_of_bf16_peak": flops / p50 / BF16_FLOPS,
+           "masters_grads_moments_bytes": sum(
+               t.numel() * t.element_size() for t in ttree.leaves(
+                   (lm.params, lm.grads, state.opt.mu, state.opt.nu))),
+           "max_memory_allocated": peak, "device_kernels_per_step": kernels,
+           "device_busy_ms": busy_us / 1e3,
+           "device_idle_share": 1 - busy_us / 1e3 / (p50 * 1e3),
+           "top_kernels_us": top, "losses": losses}
+    print(f"train {arch}, {card}: {n:,} params ({cut}); masters + "
+          f"gradients + AdamW moments {row['masters_grads_moments_bytes']:,}"
+          f" bytes, peak memory {peak:,} bytes; ({LM_TRAIN_BATCH}, "
+          f"{LM_TRAIN_SEQ}) step p50/p99 {p50 * 1e3:.3f} / {p99 * 1e3:.3f} ms"
+          f" over {len(times)} steps, {tokens / p50:,.0f} tokens/s; model "
+          f"FLOPs {flops:.4g} a step (6·N_active·T) = "
+          f"{row['model_flops_share_of_bf16_peak']:.4f} of the bf16 dense "
+          f"peak at p50; {kernels} device kernels a step, busy "
+          f"{busy_us / 1e3:.3f} ms (idle share {row['device_idle_share']:.3f})"
+          f"; top kernels (µs) {top}; losses "
+          f"{[round(x, 4) for x in losses]}", flush=True)
+    # gate 2: 2 layers of the same weights fit one fixed batch
+    del state, metrics, step
+    fit_cut = LM_TRAIN_MOE_FIT[arch]
+    if fit_cut:
+        sub = LM(cut_config(arch, {**LM_TRAIN_MOE_CUT[arch], **fit_cut}),
+                 device="cuda", dtype=torch.bfloat16, trainable=True)
+        want = sub.state_dict()
+        sub.load_state_dict({k: v for k, v in lm.state_dict().items()
+                             if k in want})
+        del lm
+    else:
+        sub = lm
+        for g in ttree.leaves(sub.grads):
+            g.zero_()
+    fit = fit_fixed_batch(torch, sub, batches[0])
+    print(f"train {arch} gate 2: {LM_TRAIN_FIT_STEPS} steps on one batch at "
+          f"peak lr {LM_TRAIN_FIT_LR} (clip 1.0), {fit_cut or cut}: losses "
+          f"{[round(x, 4) for x in fit['losses']]}, grad norms "
+          f"{[round(x, 4) for x in fit['grad_norms']]}", flush=True)
+    got = fit["losses"]
+    if not (all(np.isfinite(got)) and got[-1] < got[0] - LM_TRAIN_FIT_DROP):
+        raise AssertionError(f"{arch} gate 2: the loss did not fall by "
+                             f"{LM_TRAIN_FIT_DROP}: {got}")
+    row["fit"] = fit
+    del sub
+    torch.cuda.empty_cache()
+    return row
+
+
+def train_moe_phase(torch, rt, card: str) -> dict:
+    """Phase 14b: the moe and encdec families training (LM_TRAIN_MOE's
+    comment).  K1–K6's counters are zeroed before and must read 0
+    after."""
+    from repro_torch.models.model import LM
+    for k in COUNTED:
+        rt[k].launches = 0
+    t0 = time.perf_counter()
+    rows = {arch: train_timed_arch(torch, arch, card)
+            for arch in LM_TRAIN_MOE}
+    gate1 = {}
+    for arch in LM_TRAIN_MOE_F32:
+        cfg = cut_config(arch, {}, reduced_width=True)
+
+        def ref_make():
+            return LM(cfg, device="cpu", dtype=torch.float32,
+                      trainable=True).init(torch.Generator().manual_seed(1))
+
+        def dev_make():
+            return LM(cfg, device="cuda", dtype=torch.float32, trainable=True)
+        gate1[arch] = train_step_compare(torch, ref_make, dev_make,
+                                         f32_batch(cfg), gate_control=True)
+        print(f"train gate 1, {cfg.name} float32 card vs CPU: "
+              f"{train_step_line(gate1[arch])}", flush=True)
+    launched = {k: rt[k].launches for k in COUNTED if rt[k].launches}
+    if launched:
+        raise AssertionError(f"the moe / encdec training path launched TM "
+                             f"kernels: {launched}")
+    wall = time.perf_counter() - t0
+    print(f"phase 14b (moe and encdec training) wall {wall:.1f}s, {card}",
+          flush=True)
+    print(json.dumps({"lm_moe_encdec_training": rows, "gate1": gate1,
+                      "card": card, "wall_s": wall}), flush=True)
+    return rows
+
+
+def mesh_train_arch(torch, mesh, arch: str) -> dict:
+    """Phase 15d for one model at LM_MESH_TRAIN_CUT: the float32 step on
+    the mesh against the unsharded one (and, for LM_MESH_TRAIN_WITNESS,
+    the unsharded one on the card against the CPU), the bfloat16 steps
+    sharded and unsharded, and each member's bytes against the
+    dry-run's."""
+    from repro_torch import tree as ttree
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.distributed.sharding import Mesh
+    from repro_torch.engine.base import nearest_rank
+    from repro_torch.launch import dryrun
+    from repro_torch.models.model import LM
+    from repro_torch.train.step import (TrainHParams, init_train_state,
+                                        make_train_step)
+    cfg = cut_config(arch, LM_MESH_TRAIN_CUT[arch])
+    tp = mesh.shape["model"]
+    n = n_params(torch, cfg)
+    print(f"lm mesh train {arch} ({LM_MESH_TRAIN_CUT[arch] or 'whole'}): "
+          f"{n:,} parameters, {16 * n:,} bytes of training state a copy; "
+          f"unsharded then mesh, one after the other (the first freed)",
+          flush=True)
+
+    def ref_make():
+        return LM(cfg, tp=tp, device="cuda", dtype=torch.float32,
+                  trainable=True).init(
+                      torch.Generator(device="cuda").manual_seed(1))
+
+    def dev_make():
+        return LM(cfg, tp=tp, mesh=mesh, dtype=torch.float32,
+                  trainable=True)
+
+    def cpu_make():
+        """The unsharded model on the CPU, holding ref_make()'s weights."""
+        from repro_torch.models.common import flatten_defs
+        card = ref_make()
+        lm = LM(cfg, tp=tp, device="cpu", dtype=torch.float32,
+                trainable=True)
+        for (path, _), t in zip(flatten_defs(lm.param_defs()),
+                                ttree.leaves(card.params)):
+            lm.load_leaf(path, _host(t))
+        del card
+        torch.cuda.empty_cache()
+        return lm
+    tol = LM_MESH_TRAIN_TOL.get(arch, LM_TRAIN_GRAD_TOL)
+    row = {"arch": arch, "cut": LM_MESH_TRAIN_CUT[arch], "params": n,
+           "f32_step": train_step_compare(
+               torch, ref_make, dev_make, f32_batch(cfg), gate_control=True,
+               tol=tol)}
+    if arch in LM_MESH_TRAIN_WITNESS:
+        wit = row["f32_witness"] = train_step_compare(
+            torch, cpu_make, ref_make, f32_batch(cfg), gate_control=False,
+            tol=tol)
+        got = row["f32_step"]["grad_max_rel_err"]
+        if got > max(LM_MESH_WITNESS_RATIO * wit["grad_max_rel_err"],
+                     LM_TRAIN_GRAD_TOL):
+            raise AssertionError(
+                f"{arch}: the mesh's gradients lie {got:.3g} from the "
+                f"unsharded step's, past {LM_TRAIN_GRAD_TOL} and "
+                f"{LM_MESH_WITNESS_RATIO}x the card-vs-CPU witness's "
+                f"{wit['grad_max_rel_err']:.3g}")
+        row["f32_perturbed"] = perturbation_spread(
+            torch, ref_make, f32_batch(cfg), LM_MESH_WITNESS_DRAWS)
+    batches = train_batches(cfg, LM_MESH_TRAIN_STEPS, LM_TRAIN_BATCH,
+                            LM_TRAIN_SEQ)
+    for which in ("mesh", "unsharded"):
+        lm = LM(cfg, tp=tp, device="cuda", dtype=torch.bfloat16, trainable=True,
+                mesh=mesh if which == "mesh" else None)
+        lm.init(torch.Generator(device="cuda").manual_seed(0))
+        step = make_train_step(lm, TrainHParams(total_steps=10))
+        state = init_train_state(lm.params)
+        times, losses = [], []
+        for batch in batches:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t1)
+            losses.append(float(m["loss"]))
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"{arch} {which} train losses {losses}")
+        times.sort()
+        row[f"{which}_step_p50_ms"] = nearest_rank(times, 0.5) * 1e3
+        row[f"{which}_losses"] = losses
+        if which == "mesh":
+            shape = ShapeSpec("train", LM_TRAIN_SEQ, LM_TRAIN_BATCH, "train")
+            rows = lm._mesh_exec()._rows(LM_TRAIN_BATCH)
+            stored = []
+            for k in range(mesh.size):
+                b_k = len(range(LM_TRAIN_BATCH)[rows[k]])
+                nb = sum(t.nbytes(k) for t in ttree.leaves(
+                    (lm.params, lm.grads, state.opt.mu, state.opt.nu)))
+                nb += 4 + b_k * LM_TRAIN_SEQ * 4 * 2
+                if cfg.family == "encdec":
+                    nb += b_k * (LM_TRAIN_SEQ // cfg.enc_len_ratio) * \
+                        cfg.d_model * torch.empty((), dtype=lm.dtype) \
+                        .element_size()
+                stored.append(nb)
+            meta = Mesh((torch.device("meta"),) * mesh.size,
+                        mesh.axis_names, mesh.dims)
+            rec = dryrun.run_cell(arch, "train", False, cfg=cfg, shape=shape,
+                                  mesh=meta, roofline=False)
+            mem = rec["memory"]["bytes"]
+            want = mem["argument"] + mem["grads"]
+            row.update(member_bytes=stored, dryrun_bytes=want,
+                       dryrun_collective_bytes=rec["per_device"]
+                       ["collective_bytes"])
+            if any(nb != want for nb in stored):
+                raise AssertionError(f"{arch} mesh members hold {stored} "
+                                     f"bytes, the dry-run's argument + "
+                                     f"gradients {want}")
+        del lm, step, state
+        torch.cuda.empty_cache()
+    return row
+
+
+def lm_mesh_train_phase(torch, rt, card: str) -> dict:
+    """Phase 15d: the non-dense families training on the LM mesh
+    (LM_MESH_TRAIN's comment).  K1–K6's counters are zeroed before and
+    must read 0 after."""
+    from repro_torch.launch import train as train_launch
+    from repro_torch.launch.mesh import mesh_from_flag
+    for k in COUNTED:
+        rt[k].launches = 0
+    t0 = time.perf_counter()
+    mesh = mesh_from_flag(LM_MESH, "cuda")
+    where = mesh_members(torch, mesh)
+    rows = {}
+    for arch in LM_MESH_TRAIN:
+        t1 = time.perf_counter()
+        row = rows[arch] = mesh_train_arch(torch, mesh, arch)
+        witness = ""
+        if "f32_witness" in row:
+            wit, worst = row["f32_witness"], row["f32_step"]["grad_worst_leaf"]
+            spread = row["f32_perturbed"]
+            top = max(spread, key=spread.get)
+            witness = (f"witness, unsharded card vs CPU: "
+                       f"{train_step_line(wit)} (at the mesh's worst leaf "
+                       f"{worst}: {wit['grad_rel_err_by_leaf'][worst]:.3g}; "
+                       f"mesh <= {LM_TRAIN_GRAD_TOL} or "
+                       f"{LM_MESH_WITNESS_RATIO}x witness); "
+                       f"{LM_MESH_WITNESS_DRAWS} 1e-7 parameter "
+                       f"perturbations move the unsharded gradients up to "
+                       f"{spread[top]:.3g} ({top}), {spread[worst]:.3g} at "
+                       f"{worst} (printed, not gated); ")
+        print(f"lm mesh train {arch} ({row['cut'] or 'whole'}, {row['params']:,}"
+              f" params), {card}: {mesh.dims} mesh of {where}; float32 step "
+              f"mesh vs unsharded: {train_step_line(row['f32_step'])}; "
+              f"{witness}"
+              f"{LM_MESH_TRAIN_STEPS} bfloat16 steps at ({LM_TRAIN_BATCH}, "
+              f"{LM_TRAIN_SEQ}) p50 {row['mesh_step_p50_ms']:.1f} ms on the "
+              f"mesh, {row['unsharded_step_p50_ms']:.1f} ms unsharded "
+              f"(losses {[round(x, 4) for x in row['mesh_losses']]} / "
+              f"{[round(x, 4) for x in row['unsharded_losses']]}); each "
+              f"member stores {row['member_bytes'][0]:,} bytes == the "
+              f"dry-run's argument + gradient bytes (collective "
+              f"{row['dryrun_collective_bytes']:,.0f} bytes a step by its "
+              f"count); {time.perf_counter() - t1:.1f}s", flush=True)
+    launcher = {}
+    for arch in LM_MESH_TRAIN_LAUNCH:
+        with tempfile.TemporaryDirectory() as tmp:
+            got = train_launch.run(arch, steps=2, device="cuda", mesh=LM_MESH,
+                                   ckpt_dir=tmp, ckpt_every=1)
+        if int(got["state"].step) != 2 or not all(np.isfinite(got["losses"])):
+            raise AssertionError(f"{arch} launch.train --mesh {LM_MESH}: "
+                                 f"{got['losses']}")
+        launcher[arch] = got["losses"]
+    print(f"lm mesh train launch.train --mesh {LM_MESH} at reduced width, "
+          f"{card}: losses {launcher}", flush=True)
+    launched = {k: rt[k].launches for k in COUNTED if rt[k].launches}
+    if launched:
+        raise AssertionError(f"the LM mesh training path launched TM "
+                             f"kernels: {launched}")
+    wall = time.perf_counter() - t0
+    print(f"phase 15d (non-dense training on the LM mesh) wall {wall:.1f}s,"
+          f" {card}", flush=True)
+    print(json.dumps({"lm_mesh_train": rows, "launcher_losses": launcher,
+                      "members": where, "card": card, "wall_s": wall}),
           flush=True)
     return rows
 
@@ -4264,9 +4942,11 @@ def main() -> int:
     mesh = mesh_phase(torch, rt, ta, learn, card)
     lm_phase(torch, rt, card)
     train_phase(torch, rt, card)
+    train_moe_phase(torch, rt, card)
     lm_mesh_phase(torch, rt, card)
     lm_moe_mesh_phase(torch, rt, card)
     lm_ssm_mesh_phase(torch, rt, card)
+    lm_mesh_train_phase(torch, rt, card)
 
     meta = {
         "swar_fused_votes": ("src/repro_torch/csrc/swar_fused.cu",

@@ -26,10 +26,10 @@ fake devices and reads XLA's analyses: no ``compile_s``, ``temp_GiB``,
 HLO to parse); FLOPs count matrix products only (``FlopCounterMode``),
 where XLA counts every operation; a MoE layer's products are counted
 from their fixed ``(E, cap, d)`` shapes, since routing's ``bincount`` /
-``index_put_`` have no meta kernel (the cell says so); collective bytes
-are ``None`` (and the cell's ``mesh_gap`` says why) where the port's mesh
-cannot run the cell yet: training any family but dense (ROADMAP.md,
-queue 1, item 7g).
+``index_put_`` have no meta kernel (the cell says so).  Every cell,
+multi-pod ones too (whose FLOPs and roofline are left out, as in JAX)
+and those run with ``--no-roofline``, carries the collective bytes of
+the port's mesh: every family serves and trains there.
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all
@@ -273,17 +273,6 @@ def step_bytes(lm, shape, mem: dict) -> float:
     return total + 2 * mem["outputs"]
 
 
-def mesh_gap(lm, shape) -> str | None:
-    """Why the port's mesh cannot run the cell yet, naming the ROADMAP.md
-    item, or ``None``."""
-    from repro_torch.models.model import MESH_TRAIN_TODO
-    fam = lm.cfg.family
-    if shape.kind == "train" and fam != "dense":
-        return f"the {fam} family does not train on a mesh yet " \
-            f"({MESH_TRAIN_TODO})"
-    return None
-
-
 def length_sharded(lm, shape, leaf: str = "k") -> list:
     """The decode cell's attention units whose cache the mesh executor
     runs sequence-parallel → ``[(unit, the mesh axes that split the
@@ -434,9 +423,9 @@ def _unit_bytes(lm, u, shape, b_local: int, s: int, elt: int) -> float:
     return out
 
 
-def collective_bytes(lm, shape) -> float | None:
-    """Bytes member 0 receives in one step over the port's mesh (``None``
-    where :func:`mesh_gap` says it cannot run): every FSDP gather (the
+def collective_bytes(lm, shape) -> float:
+    """Bytes member 0 receives in one step over the port's mesh: every
+    FSDP gather (the
     other members' shards of each leaf split over a non-model axis, for
     each unit that uses it: zamba2's shared block once a superblock, the
     encoder not in decode), the embedding rows' and token picks' partials,
@@ -445,9 +434,11 @@ def collective_bytes(lm, shape) -> float | None:
     self- and cross-attention), a stacking-axis cache's regather
     (:func:`_regather_bytes`), and for ``train`` the gathers and sums
     once more for the remat recompute and once more in the backward
-    pass, plus the summing of replicated gradient slices."""
-    if mesh_gap(lm, shape):
-        return None
+    pass (every unit runs under a remat checkpoint, and each exchange's
+    backward moves what its forward moved: a gather's is the
+    reduce-scatter of the gradient, a partial sum's a sum, a MoE
+    layer's dispatch and combine run back), plus the summing of
+    replicated gradient slices."""
     from repro_torch.models.sharded import units
     c, mesh = lm.cfg, lm.mesh
     tpn = mesh.shape.get("model", 1)
@@ -489,7 +480,8 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
              roofline: bool = True, *, cfg=None, shape=None,
              mesh=None) -> dict:
     """One cell's record (``cfg`` / ``shape`` / ``mesh`` override the
-    registry's, for tests and reduced cells)."""
+    registry's, for tests and reduced cells); without ``roofline`` its
+    ``per_device`` holds the collective bytes alone."""
     from repro_torch.configs import SHAPES, get_config
     from repro_torch.roofline.analysis import H100, model_flops, \
         roofline_terms
@@ -511,21 +503,20 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
         **({"grads_GiB": mem["grads"] / GIB} if "grads" in mem else {}),
         "total_GiB": total / GIB, "fits_80GiB": total / GIB <= CARD_GIB,
         "bytes": {**parts, "argument": arg, "total": total}}
+    coll = collective_bytes(lm, shape)
     if not roofline:
+        out["per_device"] = {"collective_bytes": coll}
         return out
     flops = step_flops(cfg, shape, lm.tp) / n_dev
     bytes_ = step_bytes(lm, shape, mem)
-    coll = collective_bytes(lm, shape)
     out["per_device"] = {"flops": flops, "bytes": bytes_,
                          "collective_bytes": coll}
-    if mesh_gap(lm, shape):
-        out["mesh_gap"] = mesh_gap(lm, shape)
     if cfg.n_experts:
         out["flops_note"] = ("moe_apply's products counted from their "
                              "(E, cap, d) shapes: routing has no meta "
                              "kernel (bincount, index_put_)")
     mf = model_flops(cfg, shape)
-    terms = roofline_terms(flops, bytes_, coll or 0.0, H100)
+    terms = roofline_terms(flops, bytes_, coll, H100)
     out["roofline"] = {**terms, "hw": dataclasses.asdict(H100),
                        "model_flops_global": mf,
                        "model_flops_per_dev": mf / n_dev,

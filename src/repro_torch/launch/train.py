@@ -25,9 +25,10 @@ from; the JAX launcher's loader runs on from where it stood), so a
 resumed run sees the batches an unbroken run sees.
 
 ``--mesh host<N>`` / ``single`` / ``multi`` trains on a mesh as
-``launch.serve`` builds it (``tp`` its model extent): the dense family
-only (any other family raises ``NotImplementedError`` naming
-ROADMAP.md, queue 1, item 7g).  The checkpoints
+``launch.serve`` builds it (``tp`` its model extent), for every
+family.  As the JAX launcher, it feeds no ``frames`` and no ``prefix``
+(ROADMAP.md, R10), so seamless and internvl2 fail on a ``KeyError``
+with a mesh or without.  The checkpoints
 hold the gathered JAX layout, file for file as without a mesh, and a
 restart re-slices them for the run's mesh.  Without ``--mesh`` the model
 is unsharded (the JAX launcher defaults to ``host8``).

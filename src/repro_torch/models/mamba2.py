@@ -144,9 +144,13 @@ def _ssd_chunk_scan(c: MambaCfg, x: torch.Tensor, dt: torch.Tensor,
         dta = dtk.float() * a                               # (B,Q,H) <= 0
         cum = torch.cumsum(dta, dim=1)                      # (B,Q,H)
         bx = dtk[..., None].float() * xk.float()            # (B,Q,H,P)
-        # intra-chunk: decay matrix (B,Q,K,H), causal
+        # intra-chunk: decay matrix (B,Q,K,H), causal.  Masked before the
+        # exp: the values of the reference's where(tri, exp(li), 0), whose
+        # backward is NaN where exp(li) overflows above the diagonal
+        # (ROADMAP.md, R11)
         li = cum[:, :, None] - cum[:, None]                 # (B,Q,K,H)
-        dec = torch.where(tri[None, :, :, None], torch.exp(li), 0.0)
+        dec = torch.exp(torch.where(tri[None, :, :, None], li,
+                                    float("-inf")))
         cb = torch.einsum("bqn,bkn->bqk", ck.float(), bk.float())
         y_intra = torch.einsum("bqk,bqkh,bkhp->bqhp", cb, dec, bx)
         # inter-chunk: contribution of the carried state

@@ -59,7 +59,8 @@ arguments set the storage:
   in place, never with ``zero_grad(set_to_none=True)``).
 
 ``remat=True`` (the JAX default) wraps each scanned body of the JAX
-package (a layer; a ``hybrid`` or llama4 superblock as a whole) in
+package (a layer, the encoder's too, not deepseek's unscanned first
+layer; a ``hybrid`` or llama4 superblock as a whole) in
 ``torch.utils.checkpoint`` when a trainable LM runs with autograd
 recording, where the JAX package's ``_maybe_remat`` wraps it.
 
@@ -86,9 +87,9 @@ superblock's cache site; ``encdec`` with the encoder's bidirectional
 layers and the cross-attention's heads over ``model``, ``xk`` / ``xv``
 read under their spec and never written (R6).  A decode cache whose
 spec shards its length runs sequence-parallel; ``init_cache`` returns
-every leaf as a ShardedTensor under ``input_shardings``.  Only the
-dense family trains on a mesh: the others' ``loss`` runs there in
-value only (their training is ROADMAP.md, queue 1, item 7g).
+every leaf as a ShardedTensor under ``input_shardings``.  Every family
+trains on a mesh: ``loss`` backpropagates through the mesh's exchanges
+into each member's gradient shards (:mod:`.sharded`).
 """
 
 from __future__ import annotations
@@ -116,14 +117,9 @@ from .mamba2 import MambaCfg, mamba_apply, mamba_decode, mamba_defs
 from .mla import MLACfg, mla_apply, mla_decode, mla_defs
 from .moe import MoECfg, mlp_apply, mlp_defs, moe_apply, moe_defs
 
-__all__ = ["LM", "FAMILIES", "MESH_FAMILIES", "MESH_TRAIN_TODO"]
+__all__ = ["LM", "FAMILIES"]
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec")
-
-# the families a mesh runs, and where training them there waits (only
-# the dense family trains on a mesh)
-MESH_FAMILIES = FAMILIES
-MESH_TRAIN_TODO = "ROADMAP.md, queue 1, item 7g"
 
 
 def _stack(defs, n: int):

@@ -75,12 +75,27 @@ halves) and mamba layers.  Per unit:
   sums of ``exp(logits − max)`` and target logits in fixed order, as
   the vocab-sharded cross entropy of the JAX ``LM.loss`` does.
 
-Gradients (dense family): each member's view of a stacked leaf is a
-parameter whose ``.grad`` views that member's shard of ``lm.grads``;
-after the backward pass :meth:`LMMesh.reduce_grads` sums the copies of a
-replicated slice in member order (norm weights, replicated KV
-projections).  The other families' ``loss`` is held in value; their
-gradients on a mesh are ROADMAP.md, queue 1, item 7g.
+Gradients (every family): each member's view of a stacked leaf is a
+parameter whose ``.grad`` views that member's shard of ``lm.grads``.
+Every exchange above is differentiable and its backward sums in fixed
+member order, so two backward passes on the same inputs give the same
+bits: a gather's backward sums the members' gradients of each slice
+(the FSDP reduce-scatter; a mamba layer's ``in_proj`` blocks and its
+per-channel leaves gathered whole), a partial sum's backward is the
+same sum (the norm's sum of squares over the ``P`` slices, ``out_proj``'s
+row blocks, the attention and MLP halves), and a ``.to()`` copy's sends
+the gradient back to its source (a MoE layer's rows into the lead
+member's routing and into the expert blocks, the running combine from
+member to member back to the expert outputs and the gates).  A
+replicated activation's gradient on each member is a partial: the
+member's own uses of it.  Only the lead member's router view takes the
+routing's gradient (the others' copies get none), dropped capacity
+slots take none, and zamba2's shared block sums its sites' gradients
+into one set of views.  After the backward pass
+:meth:`LMMesh.reduce_grads` sums the copies of a replicated slice in
+member order (norm weights, routers, replicated KV projections).  With
+``remat`` each unit that the JAX package's ``_maybe_remat`` wraps runs
+under a reentrant checkpoint (:meth:`LMMesh._run`), the encoder's too.
 """
 
 from __future__ import annotations
@@ -125,6 +140,8 @@ class Unit(NamedTuple):
     kind: str = "attn"
     cache_at: tuple | None = None   # its index into the cache's stacked
     # axes, where it is not ``idx`` (zamba2's shared block: superblock s)
+    remat: bool = True  # checkpointed when the model remats, as the JAX
+    # package's scanned layers (deepseek's unscanned first layer: not)
 
     @property
     def cidx(self) -> tuple:
@@ -147,7 +164,8 @@ def units(lm) -> list[Unit]:
                             "moe", ("global",)))
         return out
     if c.family == "moe":                         # deepseek
-        return [Unit(("first",), (), lm.mla_cfg, "mlp", ("first",))] + \
+        return [Unit(("first",), (), lm.mla_cfg, "mlp", ("first",),
+                     remat=False)] + \
             [Unit(("layers",), (i,), lm.mla_cfg, "moe", ("rest",))
              for i in range(c.n_layers - c.first_dense)]
     if c.family == "ssm":
@@ -706,12 +724,13 @@ class LMMesh:
         b = tokens.shape[0]
         rows = self._rows(b)
         ctx = {"b": b}
+        remat = lm.remat and lm.trainable and torch.is_grad_enabled()
         if c.family == "encdec":
             enc = self._split(torch.as_tensor(batch["frames"]), rows,
                               lm.dtype)
             for u in self.units:
                 if u.kind == "enc":
-                    enc, _ = self._unit(u, enc, rows, ctx)
+                    enc, _ = self._run(u, enc, rows, ctx, remat)
             norm = self.local(("enc_norm",))
             ctx["enc"] = [rms_norm(e, norm[k], c.norm_eps)
                           for k, e in enumerate(enc)]
@@ -720,30 +739,44 @@ class LMMesh:
             pre = self._split(torch.as_tensor(batch["prefix"]), rows,
                               lm.dtype)
             xs = [torch.cat([p, x], dim=1) for p, x in zip(pre, xs)]
-        # the other families' loss is held in value only (ROADMAP.md,
-        # queue 1, item 7g)
-        remat = lm.remat and lm.trainable and torch.is_grad_enabled() and \
-            c.family in ("dense", "moe")
         outs = []
         for u in self.units:
             if u.kind == "enc":
                 continue
-            if remat:
-                # reentrant: the backward re-runs the unit and backprops
-                # through the new graph; the non-reentrant form matches
-                # saved tensors by order, which a mesh of several devices
-                # (one autograd thread each) was seen to break
-                xs = list(checkpoint(
-                    lambda *x, u=u: tuple(self._unit(u, list(x), rows,
-                                                     ctx)[0]),
-                    *xs, use_reentrant=True))
-            else:
-                xs, kvs = self._unit(u, xs, rows, ctx)
-                if emit_cache:
-                    outs.append((u, kvs))
+            xs, kvs = self._run(u, xs, rows, ctx, remat)
+            if emit_cache:
+                outs.append((u, kvs))
         norm = self.local(("final_norm",))
         xs = [rms_norm(x, norm[k], c.norm_eps) for k, x in enumerate(xs)]
         return xs, rows, (outs if emit_cache else None)
+
+    def _run(self, u: Unit, xs: list, rows: list, ctx: dict, remat: bool):
+        """:meth:`_unit`, or with ``remat`` the unit under a checkpoint
+        (a unit with ``u.remat``: those the JAX package's ``_maybe_remat``
+        wraps) → (xs', its cache outputs, or
+        ``None`` under the checkpoint).
+
+        The checkpoint is reentrant: the backward re-runs the unit and
+        backprops through the new graph (the non-reentrant form matches
+        saved tensors by order, which a mesh of several devices, one
+        autograd thread each, was seen to break).  So every tensor the
+        unit reads that carries a graph is an input, never a closure (a
+        decoder layer's encoder output: a closure's graph would be
+        walked again by each layer's inner backward), and a leaf that
+        requires a gradient rides along, so the encoder's first layer,
+        over frames that need none, still records its parameters'
+        gradients."""
+        if not (remat and u.remat):
+            return self._unit(u, xs, rows, ctx)
+        n = len(xs)
+        enc = list(ctx["enc"]) if u.kind == "dec" else []
+
+        def body(*args):
+            got = dict(ctx, enc=list(args[n:n + len(enc)])) if enc else ctx
+            return tuple(self._unit(u, list(args[:n]), rows, got)[0])
+        anchor = torch.empty(0, requires_grad=True)
+        return list(checkpoint(body, *xs, *enc, anchor,
+                               use_reentrant=True)), None
 
     # ------------------------------------------------------ routed experts
     def route(self, u: Unit, hs: list, rows: list):

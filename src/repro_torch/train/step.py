@@ -14,9 +14,8 @@ increment; the metrics are ``loss``, ``acc``, ``grad_norm`` and ``lr``.
 
 On a sharded ``LM`` (``LM(mesh=...)``) each member's gradient is its
 shard's; the copies of a replicated slice are summed in member order
-(``lm.reduce_grads()``) before AdamW, which runs shard by shard.  The
-dense family trains on a mesh; the moe family's mesh runs its ``loss``
-in value only, so a step for it raises (ROADMAP.md, queue 1, item 7g).
+(``lm.reduce_grads()``) before AdamW, which runs shard by shard.  Every
+family trains on a mesh as it does without one.
 """
 
 from __future__ import annotations
@@ -73,7 +72,8 @@ def make_train_step(lm, hp: TrainHParams):
     """``lm`` an ``LM(trainable=True)`` → ``train_step(state, batch)`` →
     ``(state', metrics)``.
 
-    ``batch`` maps ``tokens`` and ``targets`` (and ``prefix``) to (B, …)
+    ``batch`` maps ``tokens`` and ``targets`` (and ``prefix``, or
+    ``frames`` for the encdec family) to (B, …)
     arrays or tensors, B a multiple of ``hp.n_micro``.  ``state.params``
     is ``lm.params``; a state restored from a checkpoint (other tensors
     or arrays of the same tree) is copied into ``lm.params`` first.  The
@@ -82,11 +82,6 @@ def make_train_step(lm, hp: TrainHParams):
     if not lm.trainable:
         raise ValueError("make_train_step needs LM(..., trainable=True): a "
                          "serving LM holds no float32 masters or gradients")
-    if lm.mesh is not None and lm.cfg.family != "dense":
-        from repro_torch.models.model import MESH_TRAIN_TODO
-        raise NotImplementedError(
-            f"{lm.cfg.name}: the {lm.cfg.family} family does not train on a "
-            f"mesh yet ({MESH_TRAIN_TODO})")
     params, grads = lm.params, lm.grads
     p_leaves, g_leaves = _tree.leaves(params), _tree.leaves(grads)
 

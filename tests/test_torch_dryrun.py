@@ -79,14 +79,8 @@ def test_mini_dryrun_on_a_2x2_meta_mesh(arch):
         assert ("grads_GiB" in mem) == (name == "train_4k")
         pd = rec["per_device"]
         assert pd["flops"] > 0 and pd["bytes"] > 0
-        # the dense family runs every cell; the others serve (their
-        # training waits for item 7g)
-        runs = cfg.family == "dense" or name != "train_4k"
-        if runs:
-            assert pd["collective_bytes"] > 0 and "mesh_gap" not in rec
-        else:
-            assert pd["collective_bytes"] is None
-            assert "7g" in rec["mesh_gap"]
+        # every family serves and trains on the mesh (item 7g is done)
+        assert pd["collective_bytes"] > 0 and "mesh_gap" not in rec
         assert ("flops_note" in rec) == bool(cfg.n_experts)
         r = rec["roofline"]
         assert r["bottleneck"] in ("compute", "memory", "collective")
@@ -125,7 +119,9 @@ def test_full_size_cell_shard_shapes_equal_jax():
         spec = jlm.input_specs(JSHAPES["train_4k"])[name]
         assert rec["shard_shapes"]["inputs/" + name] == \
             list(sh.shard_shape(spec.shape))
-    assert "per_device" not in rec and rec["n_devices"] == 256
+    assert set(rec["per_device"]) == {"collective_bytes"}
+    assert rec["per_device"]["collective_bytes"] > 0
+    assert rec["n_devices"] == 256
 
 
 def test_cli_writes_a_record_per_cell(tmp_path):
@@ -139,6 +135,9 @@ def test_cli_writes_a_record_per_cell(tmp_path):
     assert "roofline" in res["tinyllama-1.1b|decode_32k|single"]
     assert "roofline" not in res["tinyllama-1.1b|decode_32k|multi"]
     assert res["tinyllama-1.1b|decode_32k|multi"]["n_devices"] == 512
+    # both meshes' records carry the port mesh's collective bytes
+    for key in res:
+        assert res[key]["per_device"]["collective_bytes"] > 0
     assert dryrun.main(["--arch", "tinyllama-1.1b", "--shape", "decode_32k",
                         "--out", str(out)]) == 0       # cached: skipped
     # JAX's cells(): every shape, long_500k only where supports_long

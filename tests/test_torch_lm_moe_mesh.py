@@ -462,8 +462,8 @@ def test_dryrun_counts_moe_and_length_sharded_collectives():
     """deepseek's decode cell on a (2, 2) meta mesh (its latent length
     over ``model``) and tinyllama's on (1, 4) (2 KV heads on 4: the
     length over ``model``) run sequence-parallel and get collective
-    bytes, the softmax partials among them, and no mesh gap; a moe train
-    cell names item 7g."""
+    bytes, the softmax partials among them, and no mesh gap; so does a
+    moe train cell (item 7g is done)."""
     dec = dataclasses.replace(SHAPES["decode_32k"], seq_len=1024,
                               global_batch=8)
     for arch, dims in ((MOE[1], (2, 2)), ("tinyllama-1.1b", (1, 4))):
@@ -485,8 +485,8 @@ def test_dryrun_counts_moe_and_length_sharded_collectives():
     rec = dryrun.run_cell(MOE[0], "train_4k", False,
                           cfg=reduced(get_config(MOE[0])), shape=train,
                           mesh=meta)
-    assert "7g" in rec["mesh_gap"]
-    assert rec["per_device"]["collective_bytes"] is None
+    assert "mesh_gap" not in rec
+    assert rec["per_device"]["collective_bytes"] > 0
 
 
 def test_moe_apply_takes_the_jax_sharding_hooks():

@@ -498,8 +498,9 @@ def test_gaps_raise_naming_7f_ii():
     """Items 7f-ii and 7f-iii are done: every family serves on a mesh
     (moe, and the ssm / hybrid / encdec families: prefill, init_cache,
     decode_step, loss in value), and a decode cache whose spec shards its
-    length builds and runs.  What is left raises naming its item: a train
-    step on a mesh of any family but dense (7g)."""
+    length builds and runs.  Item 7g is done too: every family's train
+    step runs on the mesh (their parity:
+    ``tests/test_torch_lm_mesh_train*.py``)."""
     mesh = mesh_from_devices(CPU4, model=2)
     batch = {"tokens": torch.zeros((4, 8), dtype=torch.int32),
              "targets": torch.zeros((4, 8), dtype=torch.int32)}
@@ -519,8 +520,9 @@ def test_gaps_raise_naming_7f_ii():
         assert all(isinstance(t, ShardedTensor) for t in ttree.leaves(cache))
         nxt, _ = other.decode_step(cache, batch["tokens"][:, :1], 0)
         assert tuple(tok.shape) == tuple(nxt.shape) == (4,)
-        with pytest.raises(NotImplementedError, match="7g"):
-            make_train_step(other, TrainHParams())
+        state, m = make_train_step(other, TrainHParams(warmup=0))(
+            init_train_state(other.params), inputs)
+        assert int(state.step) == 1 and np.isfinite(float(m["loss"]))
     # 2 KV heads on a 4-way model axis stay replicated, so a cache of
     # 1,024 positions shards its length over ``model``: it now builds
     dense = LM(reduced(get_config("tinyllama-1.1b")), tp=4,

@@ -58,7 +58,8 @@ from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import mesh_from_devices
 from repro_torch.models.model import LM
 from repro_torch.models.sharded import units
-from repro_torch.train.step import TrainHParams, make_train_step
+from repro_torch.train.step import (TrainHParams, init_train_state,
+                                    make_train_step)
 
 # one xdist worker per core runs these files beside the JAX suite
 torch.set_num_threads(2)
@@ -398,12 +399,18 @@ def test_serve_launcher_runs_ssm_on_a_host4_cpu_mesh(arch):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_train_step_on_a_mesh_names_7g(arch):
-    """Training the ssm / hybrid families on a mesh is item 7g."""
+    """Item 7g is done: a train step of the ssm / hybrid families runs on
+    a (2, 2) mesh (its parity: ``tests/test_torch_lm_mesh_train_ssm.py``)."""
     lm = LM(reduced(get_config(arch)), tp=2,
             mesh=mesh_from_devices(CPU4, model=2), dtype=torch.float32,
-            trainable=True)
-    with pytest.raises(NotImplementedError, match="7g"):
-        make_train_step(lm, TrainHParams())
+            trainable=True).init(torch.Generator().manual_seed(0))
+    step = make_train_step(lm, TrainHParams(peak_lr=1e-3, warmup=0))
+    rng = np.random.default_rng(3)
+    batch = {k: rng.integers(0, lm.cfg.vocab_size, (4, 8), np.int32)
+             for k in ("tokens", "targets")}
+    state, m = step(init_train_state(lm.params), batch)
+    assert int(state.step) == 1 and np.isfinite(float(m["loss"]))
+    assert float(m["grad_norm"]) > 0
 
 
 def test_dryrun_counts_the_mamba_exchanges():

@@ -492,7 +492,13 @@ def test_port_imports_no_jax_and_no_repro():
             "repro_torch.distributed.fault_tolerance, "
             "repro_torch.launch.train, repro_torch.launch.mesh, "
             "repro_torch.launch.dryrun, repro_torch.roofline, "
-            "repro_torch.roofline.analysis, repro_torch.models.sharded\n"
+            "repro_torch.roofline.analysis, repro_torch.models.sharded, "
+            "repro_torch.configs.base, repro_torch.core.popcount, "
+            "repro_torch.engine.backends, repro_torch.engine.base, "
+            "repro_torch.engine.sparse, repro_torch.kernels.clause_eval, "
+            "repro_torch.kernels.ell_gather, repro_torch.kernels.phase_clocks, "
+            "repro_torch.kernels.ref, repro_torch.kernels.swar_fused, "
+            "repro_torch.serve.loadgen\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.') or m == 'ml_dtypes' or "
