@@ -699,11 +699,20 @@ LM_MESH_TRAIN_TOL = {"deepseek-v2-236b": 1e-3, "seamless-m4t-large-v2": 0.1}
 LM_MESH_TRAIN_WITNESS = ("seamless-m4t-large-v2",)
 LM_MESH_WITNESS_RATIO = 10.0
 LM_MESH_WITNESS_DRAWS = 4
-# the kernels' launch counters the LM phases zero and read (K1-K6)
-COUNTED = ("swar_fused_votes", "clause_votes", "train_deltas_keyed",
+# the kernel libraries whose launches the LM phases count (K1-K6)
+COUNTED = ("swar_fused_votes", "clause_votes", "train_deltas",
            "popcount_words", "pdl_race", "binary_matmul")
 LM_MESH_TRAIN_LAUNCH = ("llama4-scout-17b-a16e", "mamba2-130m",
                         "zamba2-2.7b")
+
+
+def launch_counts(names, since: dict | None = None) -> dict:
+    """Hand-written launches of each kernel library in ``names`` so far
+    in this process (``kernels.ops.launches``), less the counts
+    ``since``."""
+    from repro_torch.kernels.ops import launches
+    now = {n: launches(n) for n in names}
+    return now if since is None else {n: now[n] - since[n] for n in names}
 
 
 def smi(query: str) -> str:
@@ -863,7 +872,7 @@ def cascade_passes(server) -> dict:
     return total
 
 
-async def serve(torch, rt, backend, ta: np.ndarray, *, label=None,
+async def serve(torch, backend, ta: np.ndarray, *, label=None,
                 policy_kw=None, routing=None, make_lits=random_rows,
                 exact_sums=True) -> dict:
     """Phases 4 and 10: one TMServer run on cuda (``backend=None``:
@@ -904,14 +913,13 @@ async def serve(torch, rt, backend, ta: np.ndarray, *, label=None,
         t0 = time.perf_counter()
         await server.warmup()
         warm = time.perf_counter() - t0
-        rt["clause_votes"].launches = 0
-        rt["swar_fused_votes"].launches = 0
+        launch0 = launch_counts(("clause_votes", "swar_fused_votes"))
         passes0 = cascade_passes(server)
         t0 = time.perf_counter()
         await asyncio.gather(*[client(c) for c in range(N_CLIENTS)])
         wall = time.perf_counter() - t0
-        launches = {"clause_votes": rt["clause_votes"].launches,
-                    "swar_fused_votes": rt["swar_fused_votes"].launches}
+        launches = launch_counts(("clause_votes", "swar_fused_votes"),
+                                 launch0)
         passes = {k: n - passes0[k]
                   for k, n in cascade_passes(server).items()}
         stats = server.stats()
@@ -1216,7 +1224,7 @@ def profile_launches(torch, rt) -> dict:
     counts = {}
     for name, fn in (
             ("swar_fused_votes", lambda: rt["swar_fused_votes"](*k1)),
-            ("train_deltas_keyed",
+            ("train_deltas",
              lambda: rt["train_deltas_keyed"](*k2, **kw))):
         acts = device_activity(torch, fn)[0]
         # None, not 0, where the profiler saw nothing of the card
@@ -1309,16 +1317,14 @@ async def serve_and_learn(torch, rt, ta: np.ndarray, *, backend,
         t0 = time.perf_counter()
         await server.warmup(train_batches=(LABEL_BATCH,))
         warm = time.perf_counter() - t0
-        for name in ("clause_votes", "swar_fused_votes",
-                     "train_deltas_keyed"):
-            rt[name].launches = 0
+        launch0 = launch_counts(("clause_votes", "swar_fused_votes",
+                                 "train_deltas"))
         t0 = time.perf_counter()
         versions, *_ = await asyncio.gather(
             feeder(), *[client(c) for c in range(N_CLIENTS)])
         wall = time.perf_counter() - t0
-        launches = {name: rt[name].launches for name in
-                    ("clause_votes", "swar_fused_votes",
-                     "train_deltas_keyed")}
+        launches = launch_counts(("clause_votes", "swar_fused_votes",
+                                  "train_deltas"), launch0)
         stats = server.stats()
     if versions != list(range(1, N_UPDATES + 1)):
         raise AssertionError(f"learn: update versions {versions}")
@@ -1412,7 +1418,7 @@ async def lifecycle(torch, rt, ta: np.ndarray, directory: str) -> dict:
     feed, labels = label_feed(rt, cfg)
     half = N_UPDATES // 2
     published, answered, update_s = [], [], []
-    names = ("clause_votes", "swar_fused_votes", "train_deltas_keyed")
+    names = ("clause_votes", "swar_fused_votes", "train_deltas")
     launches = collections.Counter()
     batches = 0
 
@@ -1435,8 +1441,7 @@ async def lifecycle(torch, rt, ta: np.ndarray, directory: str) -> dict:
 
     async def traffic(srv, lo: int, hi: int) -> list:
         nonlocal batches
-        for name in names:
-            rt[name].launches = 0
+        launch0 = launch_counts(names)
         n0 = srv.stats()["batches"]
 
         async def feeder() -> list:
@@ -1450,7 +1455,7 @@ async def lifecycle(torch, rt, ta: np.ndarray, directory: str) -> dict:
         versions, *_ = await asyncio.gather(
             feeder(), *[client(srv, c, PER_CLIENT // 2)
                         for c in range(N_CLIENTS)])
-        launches.update({name: rt[name].launches for name in names})
+        launches.update(launch_counts(names, launch0))
         batches += srv.stats()["batches"] - n0
         return versions
 
@@ -1476,12 +1481,11 @@ async def lifecycle(torch, rt, ta: np.ndarray, directory: str) -> dict:
         if 12 in srv.history_versions:
             raise AssertionError(f"lifecycle: the ring {srv.history_versions}"
                                  f" still holds version 12")
-        for name in names:
-            rt[name].launches = 0
+        launch0 = launch_counts(names)
         n0 = srv.stats()["batches"]
         rolled = srv.rollback(12)
         await asyncio.gather(*[client(srv, c, 4) for c in range(N_CLIENTS)])
-        launches.update({name: rt[name].launches for name in names})
+        launches.update(launch_counts(names, launch0))
         stats = srv.stats()
         batches += stats["batches"] - n0
     wall = time.perf_counter() - t0
@@ -1521,7 +1525,7 @@ async def lifecycle(torch, rt, ta: np.ndarray, directory: str) -> dict:
             manifest["extra"]["train_backend"] != "fused":
         raise AssertionError(f"lifecycle: manifest {manifest}")
     want_launches = {"clause_votes": batches, "swar_fused_votes": N_UPDATES,
-                     "train_deltas_keyed": N_UPDATES}
+                     "train_deltas": N_UPDATES}
     if dict(launches) != want_launches:
         raise AssertionError(f"lifecycle: launches {dict(launches)}, "
                              f"expected {want_launches}")
@@ -1577,16 +1581,16 @@ async def shed_tier(torch, rt, ta: np.ndarray) -> dict:
         return onehot[rng.integers(0, C, int(rng.integers(1, 17)))]
 
     runs = {
-        "shed": await serve(torch, rt, "mxu_fused", ta, label="shed tier",
+        "shed": await serve(torch, "mxu_fused", ta, label="shed tier",
                             policy_kw=tier, exact_sums=False),
-        "indicator": await serve(torch, rt, "mxu_fused", ind_ta,
+        "indicator": await serve(torch, "mxu_fused", ind_ta,
                                  label="shed indicator", policy_kw=tier,
                                  make_lits=onehot_rows, exact_sums=False),
-        "routed": await serve(torch, rt, None, ta, label="routed cascade",
+        "routed": await serve(torch, None, ta, label="routed cascade",
                               routing=routed),
         # the exact-sums completion pass runs only on rows that settle
         "routed indicator": await serve(
-            torch, rt, None, ind_ta, label="routed indicator",
+            torch, None, ind_ta, label="routed indicator",
             routing=routed, make_lits=onehot_rows),
     }
     for name, run in runs.items():
@@ -1662,7 +1666,7 @@ def fleet_learning(rt, models) -> dict:
     return out
 
 
-async def fleet_arm(torch, rt, models, learning, *, pack: bool,
+async def fleet_arm(torch, models, learning, *, pack: bool,
                     cache_entries=None) -> dict:
     """Phase 11, one arm: a cuda TMFleet (``pack`` or the solo control)
     under FLEET_CLIENTS closed-loop clients of 1-16-row requests, each
@@ -1729,13 +1733,12 @@ async def fleet_arm(torch, rt, models, learning, *, pack: bool,
                                      f"v{srv.state_version}")
             published[(name, v)] = srv.state.ta
 
-    counters = ("clause_votes", "swar_fused_votes", "train_deltas_keyed")
+    counters = ("clause_votes", "swar_fused_votes", "train_deltas")
     async with fleet:
         t0 = time.perf_counter()
         await fleet.warmup(train_batches=(LABEL_BATCH,))
         warm = time.perf_counter() - t0
-        for k in counters:
-            rt[k].launches = 0
+        launch0 = launch_counts(counters)
         cache0 = engine_cache_info()
         busy[0] = 0.0
         t0 = time.perf_counter()
@@ -1743,7 +1746,7 @@ async def fleet_arm(torch, rt, models, learning, *, pack: bool,
                              *[client(c) for c in range(FLEET_CLIENTS)])
         wall = time.perf_counter() - t0
         busy_s = busy[0]
-        launches = {k: rt[k].launches for k in counters}
+        launches = launch_counts(counters, launch0)
         stats = fleet.stats()
         cache = {k: v - cache0[k] for k, v in stats["engine_cache"].items()
                  if k in ("hits", "misses", "evictions", "superseded")}
@@ -1800,7 +1803,7 @@ async def fleet_arm(torch, rt, models, learning, *, pack: bool,
                  if sv["rows"])
     updates = sum(m["updates"] for m in stats["models"].values())
     want = {"clause_votes": batches, "swar_fused_votes": updates,
-            "train_deltas_keyed": updates}
+            "train_deltas": updates}
     n = len(answered)
     if n != FLEET_CLIENTS * FLEET_PER_CLIENT or \
             len(published) != len(learning) * FLEET_UPDATES or \
@@ -1835,9 +1838,9 @@ def fleet_phase(torch, rt) -> dict:
           f"learning; CPU replay of {len(learning) * FLEET_UPDATES} updates "
           f"in {time.perf_counter() - t0:.1f}s", flush=True)
     try:
-        arms = [asyncio.run(fleet_arm(torch, rt, models, learning,
+        arms = [asyncio.run(fleet_arm(torch, models, learning,
                                       pack=True)),
-                asyncio.run(fleet_arm(torch, rt, models, learning,
+                asyncio.run(fleet_arm(torch, models, learning,
                                       pack=False,
                                       cache_entries=FLEET_SOLO_CACHE))]
     finally:
@@ -1848,7 +1851,7 @@ def fleet_phase(torch, rt) -> dict:
         hot = sorted(st["models"].items(), key=lambda kv: -kv[1]["requests"])
         print(f"fleet {a['arm']:6s}: {a['requests']} responses == CPU oracle "
               f"at their pinned versions ({a['versions']} model versions); "
-              f"{a['launches']['train_deltas_keyed']} updates == CPU "
+              f"{a['launches']['train_deltas']} updates == CPU "
               f"reference replay; K3 {k3} launches = {a['batches']} served "
               f"batches ({k3 * 1000 / a['requests']:.1f} per 1,000 "
               f"requests)  rows/batch={a['rows'] / a['batches']:.3f}  "
@@ -1886,7 +1889,7 @@ def mesh_feed(rt, cfg) -> tuple:
     return feed, labels
 
 
-async def mesh_run(torch, rt, cfg, ta: np.ndarray, mesh, feed, labels,
+async def mesh_run(torch, cfg, ta: np.ndarray, mesh, feed, labels,
                    lo: int, hi: int, *, per_client: int,
                    directory: str | None = None,
                    restore_onto=None) -> dict:
@@ -1902,7 +1905,7 @@ async def mesh_run(torch, rt, cfg, ta: np.ndarray, mesh, feed, labels,
     from repro_torch.serve import ServePolicy, TMServer
 
     published, answered, update_s = [], [], []
-    names = ("clause_votes", "swar_fused_votes", "train_deltas_keyed")
+    names = ("clause_votes", "swar_fused_votes", "train_deltas")
     server = TMServer(
         cfg, state_from_numpy(ta),
         ServePolicy(max_batch=SERVE_BATCH, max_wait_us=500,
@@ -1951,20 +1954,19 @@ async def mesh_run(torch, rt, cfg, ta: np.ndarray, mesh, feed, labels,
     async with server:
         await server.warmup(train_batches=tuple(
             sorted({len(feed[i]) for i in range(lo, hi)})))
-        for name in names:
-            rt[name].launches = 0
+        launch0 = launch_counts(names)
         t0 = time.perf_counter()
         versions, *_ = await asyncio.gather(
             feeder(), *[client(c) for c in range(N_CLIENTS)])
         wall = time.perf_counter() - t0
-        launches = {name: rt[name].launches for name in names}
+        launches = launch_counts(names, launch0)
         stats = server.stats()
     if versions != list(range(lo + 1, hi + 1)) or stats["errors"]:
         raise AssertionError(f"mesh: versions {versions}, "
                              f"{stats['errors']} errors")
     want = {"clause_votes": stats["batches"] * shards,
             "swar_fused_votes": (hi - lo) * shards,
-            "train_deltas_keyed": (hi - lo) * shards}
+            "train_deltas": (hi - lo) * shards}
     if launches != want:
         raise AssertionError(f"mesh D={shards}: launches {launches}, "
                              f"expected {want}")
@@ -1992,11 +1994,11 @@ def mesh_phase(torch, rt, ta: np.ndarray, learn: dict, card: str) -> dict:
     one = data_mesh(1)
     four = data_mesh(4, devices=[torch.device("cuda", 0)] * 4)
     t0 = time.perf_counter()
-    whole = asyncio.run(mesh_run(torch, rt, cfg, ta, one, feed, labels, 0,
+    whole = asyncio.run(mesh_run(torch, cfg, ta, one, feed, labels, 0,
                                  n, per_client=MESH_PER_CLIENT))
     with tempfile.TemporaryDirectory() as tmp:
         killed = asyncio.run(mesh_run(
-            torch, rt, cfg, ta, four, feed, labels, 0, MESH_KILL,
+            torch, cfg, ta, four, feed, labels, 0, MESH_KILL,
             per_client=MESH_PER_CLIENT // 2, directory=tmp))
         from repro_torch import checkpoint as ckpt
         extra = ckpt.read_manifest_extra(tmp, ckpt.latest_step(tmp))
@@ -2006,7 +2008,7 @@ def mesh_phase(torch, rt, ta: np.ndarray, learn: dict, card: str) -> dict:
             raise AssertionError(f"mesh: snapshot step "
                                  f"{ckpt.latest_step(tmp)} extra {extra}")
         resumed = asyncio.run(mesh_run(
-            torch, rt, cfg, ta, four, feed, labels, MESH_KILL, n,
+            torch, cfg, ta, four, feed, labels, MESH_KILL, n,
             per_client=MESH_PER_CLIENT // 2, directory=tmp,
             restore_onto=one))
     wall = time.perf_counter() - t0
@@ -2350,13 +2352,11 @@ def time_domain_popcount(torch, rt, state) -> dict:
     reference = td.race(pdl, delays)
     torch.cuda.synchronize()
 
-    rt["popcount_words"].launches = 0
-    rt["pdl_race"].launches = 0
+    launch0 = launch_counts(("popcount_words", "pdl_race"))
     low_count = rt["popcount_words"](words).reshape(K5_ROWS, C)
     win, lat, meta = rt["pdl_race"](low_sel, elem, dev.skew, pdl.t_res)
     torch.cuda.synchronize()
-    launches = {"popcount_words": rt["popcount_words"].launches,
-                "pdl_race": rt["pdl_race"].launches}
+    launches = launch_counts(("popcount_words", "pdl_race"), launch0)
 
     if not torch.equal(low_count, ideal.class_sums + M // 2):
         raise AssertionError("popcount_words low-net counts differ from the "
@@ -2396,15 +2396,15 @@ def time_domain_popcount(torch, rt, state) -> dict:
     return {"launches": launches}
 
 
-def bnn_phase(torch, rt) -> dict:
+def bnn_phase(torch) -> dict:
     """Phase 8: the BNN entry point on cuda; K6's counter zeroed before,
     read after."""
     from repro_torch.launch.bnn_popcount import run
-    rt["binary_matmul"].launches = 0
+    launch0 = launch_counts(("binary_matmul",))
     t0 = time.perf_counter()
     out = run(device="cuda")
     torch.cuda.synchronize()
-    launches = {"binary_matmul": rt["binary_matmul"].launches}
+    launches = launch_counts(("binary_matmul",), launch0)
     print(f"bnn: {time.perf_counter() - t0:.2f}s  losses={out['losses']}  "
           f"test_acc={out['test_acc']}  time-domain agreement "
           f"{out['agreement']:.3f} accuracy {out['td_acc']:.3f}  "
@@ -3124,17 +3124,17 @@ def lm_oversize(torch, arch: str) -> str:
     return msg
 
 
-def lm_phase(torch, rt, card: str) -> dict:
+def lm_phase(torch, card: str) -> dict:
     """Phase 13: the LM zoo's families served at full width on cuda.
     It reaches none of the port's CUDA kernels: their counters are zeroed
     before and must read 0 after."""
-    for k in COUNTED:
-        rt[k].launches = 0
+    launch0 = launch_counts(COUNTED)
     t0 = time.perf_counter()
     oversize = lm_oversize(torch, LM_OVERSIZE)
     print(f"lm {LM_OVERSIZE} --full: {oversize}", flush=True)
     rows = [lm_serve_arch(torch, arch, card) for arch in LM_ARCHS]
-    launched = {k: rt[k].launches for k in COUNTED if rt[k].launches}
+    launched = {k: v for k, v in launch_counts(COUNTED, launch0).items()
+                if v}
     if launched:
         raise AssertionError(f"the LM path launched TM kernels: {launched}")
     wall = time.perf_counter() - t0
@@ -3434,16 +3434,16 @@ def train_check_recovery(torch) -> dict:
     return row
 
 
-def train_phase(torch, rt, card: str) -> dict:
+def train_phase(torch, card: str) -> dict:
     """Phase 14: LM training on cuda.  It reaches none of the port's CUDA
     kernels: their counters are zeroed before and must read 0 after."""
-    for k in COUNTED:
-        rt[k].launches = 0
+    launch0 = launch_counts(COUNTED)
     t0 = time.perf_counter()
     row = train_timed(torch, card)
     row["gate1"] = train_check_f32(torch)
     row["gate3"] = train_check_recovery(torch)
-    launched = {k: rt[k].launches for k in COUNTED if rt[k].launches}
+    launched = {k: v for k, v in launch_counts(COUNTED, launch0).items()
+                if v}
     if launched:
         raise AssertionError(f"the LM training path launched TM kernels: "
                              f"{launched}")
@@ -3631,7 +3631,7 @@ def mesh_train_check(torch, mesh) -> dict:
     return row
 
 
-def lm_mesh_phase(torch, rt, card: str) -> dict:
+def lm_mesh_phase(torch, card: str) -> dict:
     """Phase 15: the LM mesh (LM_MESH's comment).  Its counters of K1–K6
     are zeroed before and must read 0 after."""
     from repro_torch import tree as ttree
@@ -3646,8 +3646,7 @@ def lm_mesh_phase(torch, rt, card: str) -> dict:
     from repro_torch.models.model import LM
     from repro_torch.train.step import (TrainHParams, init_train_state,
                                         make_train_step)
-    for k in COUNTED:
-        rt[k].launches = 0
+    launch0 = launch_counts(COUNTED)
     t0 = time.perf_counter()
     res = run(LM_MESH_ARCH, batch=LM_BATCH, prompt_len=LM_PROMPT,
               max_new=LM_NEW, full=True, device="cuda", mesh=LM_MESH)
@@ -3743,7 +3742,8 @@ def lm_mesh_phase(torch, rt, card: str) -> dict:
           f"gradients and moments per member; launch.train --mesh "
           f"{LM_MESH} at reduced width: losses {small['losses']}",
           flush=True)
-    launched = {k: rt[k].launches for k in COUNTED if rt[k].launches}
+    launched = {k: v for k, v in launch_counts(COUNTED, launch0).items()
+                if v}
     if launched:
         raise AssertionError(f"the LM mesh path launched TM kernels: "
                              f"{launched}")
@@ -3910,15 +3910,14 @@ def moe_mesh_lockstep(torch, lm, prompts, cache_len: int) -> dict:
             "unsharded_decode_p99_ms": nearest_rank(t_flat, 0.99) * 1e3}
 
 
-def lm_moe_mesh_phase(torch, rt, card: str) -> dict:
+def lm_moe_mesh_phase(torch, card: str) -> dict:
     """Phase 15b: the moe family on the LM mesh (LM_MOE_MESH's comment).
     Its counters of K1–K6 are zeroed before and must read 0 after."""
     from repro_torch.configs import ShapeSpec, get_config
     from repro_torch.distributed.sharding import Mesh
     from repro_torch.launch import dryrun
     from repro_torch.launch.serve import run
-    for k in COUNTED:
-        rt[k].launches = 0
+    launch0 = launch_counts(COUNTED)
     t0 = time.perf_counter()
     rows = {}
     for arch, layers in LM_MOE_MESH_LAYERS.items():
@@ -3983,7 +3982,8 @@ def lm_moe_mesh_phase(torch, rt, card: str) -> dict:
               f"{row['unsharded_decode_p50_ms']:.2f}/"
               f"{row['unsharded_decode_p99_ms']:.2f} ms unsharded",
               flush=True)
-    launched = {k: rt[k].launches for k in COUNTED if rt[k].launches}
+    launched = {k: v for k, v in launch_counts(COUNTED, launch0).items()
+                if v}
     if launched:
         raise AssertionError(f"the LM moe mesh path launched TM kernels: "
                              f"{launched}")
@@ -4141,7 +4141,7 @@ def ssm_mesh_prefill(torch, lm, flat, prompts, gate: bool) -> dict:
             "prefill_worst_gap_over_tol": float((gap / tol).max())}
 
 
-def lm_ssm_mesh_phase(torch, rt, card: str) -> dict:
+def lm_ssm_mesh_phase(torch, card: str) -> dict:
     """Phase 15c: the ssm, hybrid and encdec families on the LM mesh
     (LM_SSM_MESH's comment).  Its counters of K1–K6 are zeroed before
     and must read 0 after."""
@@ -4150,8 +4150,7 @@ def lm_ssm_mesh_phase(torch, rt, card: str) -> dict:
     from repro_torch.launch import dryrun
     from repro_torch.launch.serve import run
     from repro_torch.models.model import LM
-    for k in COUNTED:
-        rt[k].launches = 0
+    launch0 = launch_counts(COUNTED)
     t0 = time.perf_counter()
     rows = {}
     cache_len = LM_MOE_MESH_PROMPT + LM_MOE_MESH_NEW
@@ -4229,7 +4228,8 @@ def lm_ssm_mesh_phase(torch, rt, card: str) -> dict:
               f"sharded, {row['unsharded_decode_p50_ms']:.2f}/"
               f"{row['unsharded_decode_p99_ms']:.2f} ms unsharded",
               flush=True)
-    launched = {k: rt[k].launches for k in COUNTED if rt[k].launches}
+    launched = {k: v for k, v in launch_counts(COUNTED, launch0).items()
+                if v}
     if launched:
         raise AssertionError(f"the LM ssm mesh path launched TM kernels: "
                              f"{launched}")
@@ -4596,13 +4596,12 @@ def train_timed_arch(torch, arch: str, card: str) -> dict:
     return row
 
 
-def train_moe_phase(torch, rt, card: str) -> dict:
+def train_moe_phase(torch, card: str) -> dict:
     """Phase 14b: the moe and encdec families training (LM_TRAIN_MOE's
     comment).  K1–K6's counters are zeroed before and must read 0
     after."""
     from repro_torch.models.model import LM
-    for k in COUNTED:
-        rt[k].launches = 0
+    launch0 = launch_counts(COUNTED)
     t0 = time.perf_counter()
     rows = {arch: train_timed_arch(torch, arch, card)
             for arch in LM_TRAIN_MOE}
@@ -4620,7 +4619,8 @@ def train_moe_phase(torch, rt, card: str) -> dict:
                                          f32_batch(cfg), gate_control=True)
         print(f"train gate 1, {cfg.name} float32 card vs CPU: "
               f"{train_step_line(gate1[arch])}", flush=True)
-    launched = {k: rt[k].launches for k in COUNTED if rt[k].launches}
+    launched = {k: v for k, v in launch_counts(COUNTED, launch0).items()
+                if v}
     if launched:
         raise AssertionError(f"the moe / encdec training path launched TM "
                              f"kernels: {launched}")
@@ -4747,14 +4747,13 @@ def mesh_train_arch(torch, mesh, arch: str) -> dict:
     return row
 
 
-def lm_mesh_train_phase(torch, rt, card: str) -> dict:
+def lm_mesh_train_phase(torch, card: str) -> dict:
     """Phase 15d: the non-dense families training on the LM mesh
     (LM_MESH_TRAIN's comment).  K1–K6's counters are zeroed before and
     must read 0 after."""
     from repro_torch.launch import train as train_launch
     from repro_torch.launch.mesh import mesh_from_flag
-    for k in COUNTED:
-        rt[k].launches = 0
+    launch0 = launch_counts(COUNTED)
     t0 = time.perf_counter()
     mesh = mesh_from_flag(LM_MESH, "cuda")
     where = mesh_members(torch, mesh)
@@ -4800,7 +4799,8 @@ def lm_mesh_train_phase(torch, rt, card: str) -> dict:
         launcher[arch] = got["losses"]
     print(f"lm mesh train launch.train --mesh {LM_MESH} at reduced width, "
           f"{card}: losses {launcher}", flush=True)
-    launched = {k: rt[k].launches for k in COUNTED if rt[k].launches}
+    launched = {k: v for k, v in launch_counts(COUNTED, launch0).items()
+                if v}
     if launched:
         raise AssertionError(f"the LM mesh training path launched TM "
                              f"kernels: {launched}")
@@ -4887,7 +4887,7 @@ def main() -> int:
     check_tensor_cores(libs)
 
     kernels = check_kernels(torch, rt)
-    kernels["train_deltas_keyed"] = check_train_deltas(torch, rt)
+    kernels["train_deltas"] = check_train_deltas(torch, rt)
     per_call = profile_launches(torch, rt)
     check_class_tiles(torch, rt)
     fleet_shape = check_fleet_shape(torch, rt)
@@ -4898,7 +4898,7 @@ def main() -> int:
           f"{smi('clocks.sm,power.draw,temperature.gpu')}", flush=True)
 
     ta = make_ta(np.random.default_rng(SEED), DENSITY)
-    runs = {backend: asyncio.run(serve(torch, rt, backend, ta))
+    runs = {backend: asyncio.run(serve(torch, backend, ta))
             for backend in ("mxu_fused", "swar_fused")}
     path_of = {"clause_votes": "mxu_fused", "swar_fused_votes": "swar_fused"}
     for name, backend in path_of.items():
@@ -4909,7 +4909,7 @@ def main() -> int:
                                  f"batches but launched {name} {n} times")
     # default routing: the trained-density state goes to sparse_csr, the
     # ELL gather in plain tensor code (no kernel of its own)
-    default = asyncio.run(serve(torch, rt, None, ta))
+    default = asyncio.run(serve(torch, None, ta))
     if default["routes"] != {"sparse_csr"} or any(
             default["launches"].values()):
         raise AssertionError(f"default routing: routes "
@@ -4917,7 +4917,7 @@ def main() -> int:
                              f"{default['launches']}")
     learn = asyncio.run(serve_and_learn(
         torch, rt, ta, backend="mxu_fused", train_backend="fused",
-        expect=lambda st: {"train_deltas_keyed": N_UPDATES,
+        expect=lambda st: {"train_deltas": N_UPDATES,
                            "swar_fused_votes": N_UPDATES,
                            "clause_votes": st["batches"]}))
     # default routing: a trained-density state routes every bucket to
@@ -4925,28 +4925,28 @@ def main() -> int:
     # the sparse train engine's deltas go through K2 alone
     sparse = asyncio.run(serve_and_learn(
         torch, rt, ta, backend=None, train_backend="sparse",
-        expect=lambda st: {"train_deltas_keyed": N_UPDATES,
+        expect=lambda st: {"train_deltas": N_UPDATES,
                            "swar_fused_votes": 0, "clause_votes": 0}))
     if sparse["routes"] != {"sparse_csr"} or \
             sparse["stats"]["sparse_layout"] is None:
         raise AssertionError(f"default routing chose {sparse['routes']}, "
                              f"layout {sparse['stats']['sparse_layout']}")
-    asyncio.run(serve(torch, rt, "time_domain",
+    asyncio.run(serve(torch, "time_domain",
                       learn["state"].ta.cpu().numpy()))
     slice_run = time_domain_popcount(torch, rt, learn["state"])
-    bnn = bnn_phase(torch, rt)
+    bnn = bnn_phase(torch)
     with tempfile.TemporaryDirectory() as tmp:
         life = asyncio.run(lifecycle(torch, rt, ta, tmp))
     shed = asyncio.run(shed_tier(torch, rt, learn["state"].ta.cpu().numpy()))
     fleet = fleet_phase(torch, rt)
     mesh = mesh_phase(torch, rt, ta, learn, card)
-    lm_phase(torch, rt, card)
-    train_phase(torch, rt, card)
-    train_moe_phase(torch, rt, card)
-    lm_mesh_phase(torch, rt, card)
-    lm_moe_mesh_phase(torch, rt, card)
-    lm_ssm_mesh_phase(torch, rt, card)
-    lm_mesh_train_phase(torch, rt, card)
+    lm_phase(torch, card)
+    train_phase(torch, card)
+    train_moe_phase(torch, card)
+    lm_mesh_phase(torch, card)
+    lm_moe_mesh_phase(torch, card)
+    lm_ssm_mesh_phase(torch, card)
+    lm_mesh_train_phase(torch, card)
 
     meta = {
         "swar_fused_votes": ("src/repro_torch/csrc/swar_fused.cu",
@@ -4955,7 +4955,7 @@ def main() -> int:
         "clause_votes": ("src/repro_torch/csrc/clause_votes.cu",
                          "src/repro/kernels/clause_eval.py:64",
                          "clause_votes_pallas"),
-        "train_deltas_keyed": ("src/repro_torch/csrc/train_deltas.cu",
+        "train_deltas": ("src/repro_torch/csrc/train_deltas.cu",
                                "src/repro/kernels/train_fused.py:171",
                                "train_deltas_pallas"),
         "popcount_words": ("src/repro_torch/csrc/popcount_words.cu",
@@ -4969,12 +4969,12 @@ def main() -> int:
     }
     launches = {name: runs[backend]["launches"][name]
                 for name, backend in path_of.items()}
-    launches["train_deltas_keyed"] = learn["launches"]["train_deltas_keyed"]
+    launches["train_deltas"] = learn["launches"]["train_deltas"]
     launches.update(slice_run["launches"])
     launches.update(bnn["launches"])
     shape_of = {"swar_fused_votes": f"B={SERVE_BATCH}",
                 "clause_votes": f"B={SERVE_BATCH}",
-                "train_deltas_keyed": f"B={LABEL_BATCH}",
+                "train_deltas": f"B={LABEL_BATCH}",
                 "popcount_words": "{}x{}".format(*K4_SHAPES[-1]),
                 "pdl_race": "B={} C={} M={}".format(*K5_SHAPES[-1]),
                 "binary_matmul": "{}x{}x{}".format(*K6_MAIN)}

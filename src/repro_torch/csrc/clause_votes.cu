@@ -32,8 +32,16 @@
 // independent of order.  The (B, CM) clause matrix never reaches device
 // memory.  Clauses past CM, rows past B and bytes past L are masked: a
 // padded clause never fires.
+//
+// Phase clocks (phase_clocks.cuh; empty in the libraries the port loads):
+// mark 0 at entry, 1 once the first chunk is staged (in mma_tile), 2
+// after the violation tiles and the depth reduction, 3 after the fire
+// masks, 4 after thread 0's first vote fold, before its atomic, 5 after
+// its last atomic.  The output has no store of its own: the launcher
+// zeroes it, the atomics fill it.
 
 #include "mma_s8.cuh"
+#include "phase_clocks.cuh"
 
 using namespace mma_s8;
 
@@ -57,10 +65,12 @@ __global__ void __launch_bounds__(GROUP * KSPLIT)
 clause_votes_kernel(VotesOp op, const int8_t* __restrict__ vote_matrix,
                     int32_t* __restrict__ out, int C, int n_chunks) {
   extern __shared__ __align__(128) uint8_t smem[];
+  PHASE(0);
   op.row0 = blockIdx.x * BM;
   op.cm0 = blockIdx.y * BN;
   Acc acc;
   mma_tile<KSPLIT, true>(op, smem, n_chunks, acc);
+  PHASE(2);
 
   // fired[r]: bit j set iff clause cm0 + j fires on row row0 + r
   uint32_t* fired = reinterpret_cast<uint32_t*>(smem + RED_BYTES);  // [BM][2]
@@ -87,6 +97,7 @@ clause_votes_kernel(VotesOp op, const int8_t* __restrict__ vote_matrix,
       }
   }
   __syncthreads();
+  PHASE(3);
 
   for (int p = t; p < BM * C; p += GROUP * KSPLIT) {
     const int r = p / C, c = p % C, row = op.row0 + r;
@@ -95,8 +106,10 @@ clause_votes_kernel(VotesOp op, const int8_t* __restrict__ vote_matrix,
     int32_t s = 0;
     for (; m; m &= m - 1)
       s += vote_matrix[static_cast<size_t>(op.cm0 + __ffsll(m) - 1) * C + c];
+    if (p == t) PHASE(4);
     if (s != 0) atomicAdd(&out[static_cast<size_t>(row) * C + c], s);
   }
+  PHASE(5);
 }
 
 }  // namespace

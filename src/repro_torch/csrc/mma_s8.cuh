@@ -37,6 +37,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "phase_clocks.cuh"
+
 namespace mma_s8 {
 
 constexpr int BM = 64, BN = 64;        // block tile
@@ -204,6 +206,7 @@ __device__ __forceinline__ void mma_tile(Op& op, uint8_t* smem, int n_chunks,
   }
   cp_async_wait_all();
   group_sync(kg);
+  PHASE(1);  // the first chunk staged (phase_clocks.cuh)
   int i = 0;
   for (int c = kg; c < n_chunks; c += KSPLIT, ++i) {
     uint8_t* cur = stages + (i & 1) * STAGE;

@@ -1,8 +1,9 @@
 // Phase clocks: a probe of where a block's time goes, compiled in only
 // with -DREPRO_PHASE_CLOCKS (python -m repro_torch.kernels.phase_clocks
-// builds K1 and K2 that way into a build directory of its own; the
-// libraries the port loads never have it).  PHASE(i) stores, for thread
-// 0 of each block, the SM clock (clock64) and the global timer (ns) at
+// builds K1, K2, K3 and K5 that way into a build directory of its own;
+// the libraries the port loads never have it).  PHASE(i) stores, for
+// thread 0 of each of the first kBlocks blocks (by linear index over the
+// grid's x and y), the SM clock (clock64) and the global timer (ns) at
 // mark i; phase_clocks_read copies both tables to the host.  Without the
 // macro PHASE(i) is empty.
 
@@ -21,12 +22,12 @@ __device__ unsigned long long ns[kBlocks * kMarks];
 
 #define PHASE(i)                                                           \
   do {                                                                     \
-    if (threadIdx.x == 0 && blockIdx.x < phase_clocks::kBlocks) {          \
+    const unsigned pc_block = blockIdx.y * gridDim.x + blockIdx.x;         \
+    if (threadIdx.x == 0 && pc_block < phase_clocks::kBlocks) {            \
       unsigned long long t_ns;                                             \
       asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t_ns));             \
-      phase_clocks::clk[blockIdx.x * phase_clocks::kMarks + (i)] =         \
-          clock64();                                                       \
-      phase_clocks::ns[blockIdx.x * phase_clocks::kMarks + (i)] = t_ns;    \
+      phase_clocks::clk[pc_block * phase_clocks::kMarks + (i)] = clock64(); \
+      phase_clocks::ns[pc_block * phase_clocks::kMarks + (i)] = t_ns;      \
     }                                                                      \
   } while (0)
 

@@ -39,6 +39,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.core import prng
 from repro_torch.core.popcount import (argmax_tournament, int_matmul,
                                        pack_bits, popcount_adder_tree,
@@ -70,7 +71,10 @@ def _clause_bits(inc: torch.Tensor, literals: torch.Tensor) -> torch.Tensor:
 
 
 def _result(sums: torch.Tensor) -> EngineResult:
-    return EngineResult(argmax_tournament(sums), sums, {})
+    sp = tracing.begin("tm.argmax")
+    prediction = argmax_tournament(sums)
+    tracing.end(sp)
+    return EngineResult(prediction, sums, {})
 
 
 @register_backend("oracle")
@@ -83,6 +87,7 @@ class OracleEngine:
         self._inc = include_mask(cfg, state)                     # (C, M, L)
         self._pol = clause_polarity(cfg.n_clauses, self.device)  # (M,) ±1
 
+    @tracing.traced("engine.infer", backend="oracle")
     def infer(self, literals) -> EngineResult:
         """(B, 2F) {0,1} literals → :class:`EngineResult` (bit-exact)."""
         clauses = _clause_bits(self._inc, as_literals(literals, self.device))
@@ -95,6 +100,7 @@ class AdderTreeEngine(OracleEngine):
     ``ceil(log2 M)`` each — the critical path the paper's time-domain
     design removes."""
 
+    @tracing.traced("engine.infer", backend="adder_tree")
     def infer(self, literals) -> EngineResult:
         """(B, 2F) {0,1} literals → :class:`EngineResult` (bit-exact)."""
         clauses = _clause_bits(self._inc, as_literals(literals, self.device))
@@ -139,6 +145,7 @@ class SwarPackedEngine:
         self._pos_mask = pack_bits((pol > 0).to(torch.int8))     # (Wm,)
         self._neg_mask = pack_bits((pol < 0).to(torch.int8))
 
+    @tracing.traced("engine.infer", backend="swar_packed")
     def infer(self, literals) -> EngineResult:
         """(B, 2F) {0,1} literals → :class:`EngineResult` (bit-exact)."""
         _, sums = swar_clauses_votes(
@@ -164,6 +171,7 @@ class SwarFusedEngine:
         self._vm = make_vote_matrix(cfg.n_classes, cfg.n_clauses,
                                     self.device)
 
+    @tracing.traced("engine.infer", backend="swar_fused")
     def infer(self, literals) -> EngineResult:
         """(B, 2F) {0,1} literals → :class:`EngineResult` (bit-exact)."""
         lits = as_literals(literals, self.device)
@@ -206,6 +214,7 @@ class SparseCSREngine:
         self.ell = ell
         self._pol = clause_polarity(cfg.n_clauses, self.device)
 
+    @tracing.traced("engine.infer", backend="sparse_csr")
     def infer(self, literals) -> EngineResult:
         """(B, 2F) {0,1} literals → :class:`EngineResult` (bit-exact)."""
         _, sums = ell_clause_votes(
@@ -228,6 +237,7 @@ class MXUFusedEngine:
         self._vm = make_vote_matrix(cfg.n_classes, cfg.n_clauses,
                                     self.device)
 
+    @tracing.traced("engine.infer", backend="mxu_fused")
     def infer(self, literals) -> EngineResult:
         """(B, 2F) {0,1} literals → :class:`EngineResult` (bit-exact)."""
         return _result(clause_votes(as_literals(literals, self.device),
@@ -275,19 +285,29 @@ class TimeDomainEngine:
         self._pol = clause_polarity(cfg.n_clauses, self.device)  # (M,) ±1
         self._n_neg = cfg.n_clauses // 2     # odd-index (opposing) clauses
 
+    @tracing.traced("engine.infer", backend="time_domain")
     def infer(self, literals) -> EngineResult:
         """(B, 2F) {0,1} literals → :class:`EngineResult`; ``aux``
         carries per-sample ``latency_ps`` (float32) and ``metastable``
         (bool)."""
-        clauses = _clause_bits(self._inc, as_literals(literals, self.device))
+        lits = as_literals(literals, self.device)
+        sp = tracing.begin("td.clause_bits")
+        clauses = _clause_bits(self._inc, lits)
+        tracing.end(sp)
+        sp = tracing.begin("td.low_count")
         low_count = low_select(clauses, self._pol).sum(-1, dtype=torch.int32)
         sums = low_count - self._n_neg     # low_count = votes + n_neg
+        tracing.end(sp)
+        sp = tracing.begin("td.delays")
         if self.pdl_device is None:
             delays = ideal_delays(self.pdl, low_count, self.cfg.n_clauses)
         else:
             delays = pdl_delays(self.pdl, self.pdl_device, clauses,
                                 self._pol, key=self.noise_key)
+        tracing.end(sp)
+        sp = tracing.begin("td.race")
         res = race(self.pdl, delays)
+        tracing.end(sp)
         return EngineResult(res.winner, sums,
                             {"latency_ps": res.latency,
                              "metastable": res.metastable})

@@ -39,6 +39,7 @@ from __future__ import annotations
 
 import math
 import threading
+import time
 import weakref
 from collections import OrderedDict, deque
 from typing import Callable, NamedTuple, Protocol, runtime_checkable
@@ -46,6 +47,7 @@ from typing import Callable, NamedTuple, Protocol, runtime_checkable
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.core.tm import TMConfig, TMState
 
 __all__ = ["EngineResult", "VoteEngine", "Registry", "KeyedEngineCache",
@@ -459,25 +461,39 @@ def get_engine(name: str, cfg: TMConfig, state: TMState, *,
             return hit
     # build outside the lock: two threads missing on one key both build and
     # the second insert wins — benign, the engines are equivalent
-    engine = _VOTE_REGISTRY.build(name, cfg, state, **opts)
-    nbytes = None
-    if shard_batch:
-        from .sharding import ShardedEngine
-        mesh = shard_batch if not isinstance(shard_batch, bool) else None
-        engine = ShardedEngine(engine, mesh=mesh)
-        # one copy of the layout per distinct device
-        nbytes = state_nbytes(state) * len(engine.replicas)
+    t0 = time.perf_counter()
+    engine, nbytes = _build_engine(name, cfg, state, shard_batch, opts)
+    tracing.count("engine.build_s", time.perf_counter() - t0)
     if key is not None:
         _ENGINE_CACHE.insert(key, state, engine, nbytes)
     return engine
 
 
+@tracing.traced("engine.build")
+def _build_engine(name, cfg, state, shard_batch, opts):
+    """The named backend's engine on ``state``, wrapped for
+    ``shard_batch`` → (engine, bytes the cache charges or None)."""
+    engine = _VOTE_REGISTRY.build(name, cfg, state, **opts)
+    if not shard_batch:
+        return engine, None
+    from .sharding import ShardedEngine
+    mesh = shard_batch if not isinstance(shard_batch, bool) else None
+    engine = ShardedEngine(engine, mesh=mesh)
+    # one copy of the layout per distinct device
+    return engine, state_nbytes(state) * len(engine.replicas)
+
+
+@tracing.traced("engine.literals")
 def as_literals(literals, device: torch.device) -> torch.Tensor:
     """Request literals (tensor or numpy, any int dtype) → contiguous int8
-    tensor on ``device`` (a host array is copied to the device)."""
+    tensor on ``device`` (a host array is copied to the device, counted
+    in ``engine.h2d_bytes``)."""
     t = literals if isinstance(literals, torch.Tensor) else \
         torch.as_tensor(np.asarray(literals))
-    return t.to(device=device, dtype=torch.int8).contiguous()
+    out = t.to(device=device, dtype=torch.int8).contiguous()
+    if out is not t and t.is_cpu and not out.is_cpu:
+        tracing.count("engine.h2d_bytes", out.nbytes)
+    return out
 
 
 def pad_batch(literals, bucket: int):
@@ -493,13 +509,18 @@ def pad_batch(literals, bucket: int):
         raise ValueError(f"batch of {b} rows does not fit bucket {bucket}")
     if b == bucket:
         return literals
+    sp = tracing.begin("engine.pad")
     if isinstance(literals, np.ndarray):
         pad = np.zeros((bucket - b,) + literals.shape[1:], literals.dtype)
-        return np.concatenate([literals, pad], axis=0)
-    pad = literals.new_zeros((bucket - b,) + tuple(literals.shape[1:]))
-    return torch.cat([literals, pad], dim=0)
+        out = np.concatenate([literals, pad], axis=0)
+    else:
+        pad = literals.new_zeros((bucket - b,) + tuple(literals.shape[1:]))
+        out = torch.cat([literals, pad], dim=0)
+    tracing.end(sp)
+    return out
 
 
+@tracing.traced("engine.infer_padded")
 def infer_padded(engine: VoteEngine, literals, bucket: int) -> EngineResult:
     """``engine.infer`` at the bucket shape; results sliced to real rows.
 
@@ -507,7 +528,8 @@ def infer_padded(engine: VoteEngine, literals, bucket: int) -> EngineResult:
     result comes back as numpy arrays.  Prediction and class sums (both
     int32) cross in one ``.cpu()`` copy of their concatenation — the
     call's one device synchronisation for every ported backend, none of
-    which returns ``aux``.  A tensor input gets tensors on the engine's
+    which returns ``aux``.  Bytes copied back from a card count in
+    ``engine.d2h_bytes``.  A tensor input gets tensors on the engine's
     device.
     """
     b = literals.shape[0]
@@ -515,9 +537,11 @@ def infer_padded(engine: VoteEngine, literals, bucket: int) -> EngineResult:
     if isinstance(literals, np.ndarray):
         both = torch.cat([res.prediction[:b, None].to(res.class_sums.dtype),
                           res.class_sums[:b]], dim=1).cpu().numpy()
-        return EngineResult(
-            both[:, 0].astype(np.int32), both[:, 1:],
-            {k: v[:b].cpu().numpy() for k, v in res.aux.items()})
+        aux = {k: v[:b].cpu().numpy() for k, v in res.aux.items()}
+        if not res.class_sums.is_cpu:
+            tracing.count("engine.d2h_bytes", both.nbytes + sum(
+                a.nbytes for a in aux.values()))
+        return EngineResult(both[:, 0].astype(np.int32), both[:, 1:], aux)
     if b == bucket:
         return res
     return EngineResult(res.prediction[:b], res.class_sums[:b],

@@ -36,7 +36,7 @@ def binary_matmul(x_pm1: torch.Tensor, w_pm1: torch.Tensor) -> torch.Tensor:
     """(M, K) int8 ±1 × (K, N) int8 ±1 → (M, N) int32, exact.
 
     CPU tensors: the plain version.  CUDA tensors: kernel K6, counted in
-    ``binary_matmul.launches``."""
+    ``kernel.launches.binary_matmul``."""
     for name, t in (("x_pm1", x_pm1), ("w_pm1", w_pm1)):
         if t.dtype != torch.int8 or t.dim() != 2:
             raise ValueError(f"{name} must be a 2-D int8 tensor, got "
@@ -61,8 +61,4 @@ def binary_matmul(x_pm1: torch.Tensor, w_pm1: torch.Tensor) -> torch.Tensor:
     if m == 0 or n == 0:
         return out
     launch("binary_matmul", (x_pm1, w_pm1, out), (m, n, k))
-    binary_matmul.launches += 1
     return out
-
-
-binary_matmul.launches = 0

@@ -27,6 +27,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import tracing
+
 from .ref import ref_clause_votes
 
 __all__ = ["clause_votes", "clause_votes_plain", "make_vote_matrix"]
@@ -61,13 +63,14 @@ def _check(literals, include, vote_matrix):
             f"{tuple(vote_matrix.shape)}")
 
 
+@tracing.traced("kernel.clause_votes")
 def clause_votes(literals: torch.Tensor, include: torch.Tensor,
                  vote_matrix: torch.Tensor) -> torch.Tensor:
     """literals (B, L) {0,1} int8; include (CM, L) {0,1} int8;
     vote_matrix (CM, C) int8 → votes (B, C) int32.
 
     CPU tensors: the plain version.  CUDA tensors: kernel K3, counted in
-    ``clause_votes.launches``."""
+    ``kernel.launches.clause_votes``."""
     _check(literals, include, vote_matrix)
     if literals.device.type == "cpu":
         return clause_votes_plain(literals, include, vote_matrix)
@@ -85,8 +88,4 @@ def clause_votes(literals: torch.Tensor, include: torch.Tensor,
         return out
     launch("clause_votes", (literals, include, vote_matrix, out),
            (b, cm, lit, c))
-    clause_votes.launches += 1
     return out
-
-
-clause_votes.launches = 0

@@ -16,7 +16,12 @@
   and the load: the serving worker thread may build while other code
   builds too.  A variant build (extra ``nvcc`` flags, such as the phase
   clocks probe's ``-DREPRO_PHASE_CLOCKS``) goes the same way into a
-  subdirectory of its own.
+  subdirectory of its own.  The tracer (:mod:`repro_torch.tracing`)
+  counts builds and loads with their seconds (``kernel.builds``,
+  ``kernel.build_s``, ``kernel.loads``, ``kernel.load_s``) and records
+  them as spans ``kernel.build`` and ``kernel.load``.
+- :func:`launch` is the one road of every hand-written launch, each
+  counted in ``kernel.launches.<name>`` (:func:`launches` reads it).
 - :func:`device_ms`: the per-call device time of a launch, from CUDA
   events (``chip_smoke.py`` and the phase clocks probe time with it).
 - :func:`tm_fused_votes` / :func:`tm_fused_predict`: fused TM inference
@@ -37,17 +42,20 @@ import shutil
 import statistics
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.core.popcount import argmax_tournament
 
 from .clause_eval import clause_votes, make_vote_matrix
 
 __all__ = ["on_cuda", "resolve_device", "load_library", "build_kernels",
-           "launch", "device_ms", "KERNEL_SOURCES", "KERNEL_ARGTYPES",
-           "tm_fused_votes", "tm_fused_predict", "make_vote_matrix"]
+           "launch", "launches", "device_ms", "KERNEL_SOURCES",
+           "KERNEL_ARGTYPES", "tm_fused_votes", "tm_fused_predict",
+           "make_vote_matrix"]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -74,6 +82,8 @@ KERNEL_ARGTYPES = {
 
 _lock = threading.RLock()      # load_library holds it around build_kernels
 _libs: dict[tuple, ctypes.CDLL] = {}    # by (name, extra_flags, subdir)
+# the tracer's launch counter of each library
+_LAUNCHES = {name: f"kernel.launches.{name}" for name in KERNEL_SOURCES}
 
 
 def on_cuda() -> bool:
@@ -152,8 +162,12 @@ def build_kernels(extra_flags: tuple = (), subdir: str = ""
     ``extra_flags`` are added to ``NVCC_FLAGS``, and those builds go to
     ``subdir`` of the build directory."""
     with _lock:
+        t0 = time.perf_counter()
         jobs = {name: _start_build(name, extra_flags, subdir)
                 for name in KERNEL_SOURCES}
+        built = [name for name, job in jobs.items() if job is not None]
+        sp = tracing.begin("kernel.build", {"libraries": built}) \
+            if built else None
         try:
             for name, job in jobs.items():
                 if job is not None:
@@ -163,6 +177,10 @@ def build_kernels(extra_flags: tuple = (), subdir: str = ""
                 if job is not None and job[0].poll() is None:
                     job[0].kill()
                     job[0].wait()
+            tracing.end(sp)
+        if built:
+            tracing.count("kernel.builds", len(built))
+            tracing.count("kernel.build_s", time.perf_counter() - t0)
         return {name: _lib_path(name, extra_flags, subdir)
                 for name in KERNEL_SOURCES}
 
@@ -181,7 +199,15 @@ def load_library(name: str, extra_flags: tuple = (), subdir: str = ""
         lib = _libs.get(key)
         if lib is not None:
             return lib
-        lib = ctypes.CDLL(str(build_kernels(extra_flags, subdir)[name]))
+        path = build_kernels(extra_flags, subdir)[name]
+        t0 = time.perf_counter()
+        sp = tracing.begin("kernel.load", {"library": name})
+        try:
+            lib = ctypes.CDLL(str(path))
+        finally:
+            tracing.end(sp)
+        tracing.count("kernel.loads")
+        tracing.count("kernel.load_s", time.perf_counter() - t0)
         fn = getattr(lib, name)
         fn.argtypes = [*KERNEL_ARGTYPES[name], _I, _P]
         fn.restype = _I
@@ -197,7 +223,8 @@ def launch(name: str, tensors: tuple[torch.Tensor, ...], ints: tuple
     """Call kernel ``name``'s C entry on ``tensors``' pointers and the
     scalars ``ints`` (Python ints, or floats where its signature takes
     a ``float``), on the current stream of their device; raise on a
-    refused launch (``cudaGetLastError`` is checked right after it)."""
+    refused launch (``cudaGetLastError`` is checked right after it).
+    Every launch counts in the tracer's ``kernel.launches.<name>``."""
     argtypes = KERNEL_ARGTYPES[name]
     n_ptr = argtypes.count(_P)
     if len(tensors) != n_ptr or len(ints) != len(argtypes) - n_ptr:
@@ -214,6 +241,13 @@ def launch(name: str, tensors: tuple[torch.Tensor, ...], ints: tuple
         msg = getattr(lib, f"{name}_error")(rc).decode()
         raise RuntimeError(f"CUDA kernel {name} failed to launch: "
                            f"error {rc} ({msg})")
+    tracing.count(_LAUNCHES[name])
+
+
+def launches(name: str) -> int:
+    """Launches of kernel library ``name`` so far in this process (the
+    tracer's ``kernel.launches.<name>``; the plain versions count none)."""
+    return tracing.counters().get(_LAUNCHES[name], 0)
 
 
 def device_ms(fn, reps: int = 50) -> float:

@@ -90,7 +90,7 @@ def pdl_race(low_sel: torch.Tensor, elem_delays: torch.Tensor,
     float32, metastable (B,) bool).
 
     CPU tensors: the plain version.  CUDA tensors: kernel K5, counted in
-    ``pdl_race.launches``."""
+    ``kernel.launches.pdl_race``."""
     _check(low_sel, elem_delays, skew)
     if low_sel.device.type == "cpu":
         return pdl_race_plain(low_sel, elem_delays, skew, t_res)
@@ -111,8 +111,4 @@ def pdl_race(low_sel: torch.Tensor, elem_delays: torch.Tensor,
         return win, lat, meta
     launch("pdl_race", (low_sel, elem_delays, skew, win, lat, meta),
            (b, c, m, float(t_res)))
-    pdl_race.launches += 1
     return win, lat, meta
-
-
-pdl_race.launches = 0

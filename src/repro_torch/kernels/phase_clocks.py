@@ -1,16 +1,19 @@
-"""Where a block's time goes in kernels K1, K2 and K5, on the card.
+"""Where a block's time goes in kernels K1, K2, K3 and K5, on the card.
 
     python -m repro_torch.kernels.phase_clocks [--out FILE]
 
 ``ncu`` and ``nsys`` may be missing where the card is, and CUDA events
-time a launch only as a whole.  This probe builds ``csrc/swar_fused.cu``,
-``csrc/train_deltas.cu`` and ``csrc/pdl_race.cu`` with
-``-DREPRO_PHASE_CLOCKS`` (``csrc/phase_clocks.cuh``) into
+time a launch only as a whole.  This probe builds the kernel libraries
+with ``-DREPRO_PHASE_CLOCKS`` (``csrc/phase_clocks.cuh``) into
 ``build/repro_torch/phase_clocks/`` — never the libraries the port loads
-— and runs each kernel at the shapes ``chip_smoke.py`` times: K1 at B in
-(1, 64, 4096) at tm-mnist-50 widths, K2 at B in (32, 64, 512) on a
+— and runs K1, K2 and K5 at the shapes ``chip_smoke.py`` times: K1 at B
+in (1, 64, 4096) at tm-mnist-50 widths, K2 at B in (32, 64, 512) on a
 ``fused`` step's inputs, K5 at B in (1, 1024) with C = 10, M = 100 (its
-marks time each block's first row, on warp 0).  For each it
+marks time each block's first row, on warp 0); and K3 at the bulk
+benchmark's call: 65,536 rows at tm-mnist-50 widths on a state of 0.2 %
+include density whose clause counts are quantiles of Binomial(784,
+0.004), as the benchmark draws it (its 8,192 blocks fill the probe's
+tables; its marks are thread 0's, in group 0).  For each it
 prints the median per-call device time (CUDA events) and, for one call,
 the median and maximum over blocks of the SM clocks each phase took
 (between the ``PHASE`` marks of the source), the clock rate, the span
@@ -32,7 +35,8 @@ import torch
 
 from . import ops
 
-__all__ = ["K1_PHASES", "K2_PHASES", "K5_PHASES", "summarize", "main"]
+__all__ = ["K1_PHASES", "K2_PHASES", "K3_PHASES", "K5_PHASES",
+           "include_counts", "summarize", "main"]
 
 # what each kernel does between PHASE(i) and PHASE(i + 1)
 K1_PHASES = ("stage rows, clauses and vote rows", "first tile's logic ops",
@@ -40,6 +44,10 @@ K1_PHASES = ("stage rows, clauses and vote rows", "first tile's logic ops",
              "sum and store")
 K2_PHASES = ("stage scalars and bit tiles", "clause pass, cluster barrier",
              "list items", "deltas (all chunks)", "store")
+K3_PHASES = ("stage the first chunk (cp.async)",
+             "mma.sync violation tiles, depth reduction",
+             "fire masks (== 0 test, shuffles)", "first vote fold",
+             "atomics, later vote folds")
 K5_PHASES = ("stage tables, first row's loads", "first row into shared",
              "first row's class sums", "arbiter shuffles, store",
              "later rows")
@@ -153,6 +161,46 @@ def _k2_cases(seed: int):
                 uniform_threshold(1 / 7)))
 
 
+def include_counts(n_clauses: int, n_literals: int, density: float
+                   ) -> list[int]:
+    """Included literals of each of ``n_clauses`` clauses: the quantiles
+    of Binomial(``n_literals / 2``, ``2 · density``) at ``(r + ½) /
+    n_clauses`` (a clause holds ``x`` or ``¬x`` of a feature, never
+    both)."""
+    n, p = n_literals // 2, 2 * density
+    counts, cdf, k = [], 0.0, 0
+    pmf = (1 - p) ** n
+    for r in range(n_clauses):
+        q = (r + 0.5) / n_clauses
+        while cdf + pmf < q and k < n:
+            cdf += pmf
+            pmf *= (n - k) / (k + 1) * p / (1 - p)
+            k += 1
+        counts.append(k)
+    return counts
+
+
+def _k3_cases(seed: int):
+    from .clause_eval import make_vote_matrix
+    c, m, f, b = 10, 50, 784, 65536
+    rng = np.random.default_rng(seed)
+    counts = np.array(include_counts(c * m, 2 * f, 0.002))
+    # the counts dealt in ascending order over the classes in turn
+    counts = counts.reshape(m, c).T.reshape(-1)
+    rank = rng.random((c * m, f)).argsort(-1).argsort(-1)
+    chosen = rank < counts[:, None]
+    negated = rng.integers(0, 2, (c * m, f)).astype(bool)
+    inc = np.concatenate([chosen & ~negated, chosen & negated], -1)
+    inc = torch.as_tensor(inc.astype(np.int8), device="cuda")
+    vm = make_vote_matrix(c, m, "cuda")
+    x = torch.as_tensor(rng.integers(0, 2, (b, f), dtype=np.int8),
+                        device="cuda")
+    lits = torch.cat([x, 1 - x], dim=-1)
+    out = torch.empty((b, c), dtype=torch.int32, device="cuda")
+    yield f"B={b} (tm-mnist-50.bulk)", (lits, inc, vm, out), \
+        (b, c * m, 2 * f, c)
+
+
 def _k5_cases(seed: int):
     c, m = 10, 100
     rng = np.random.default_rng(seed)
@@ -185,6 +233,7 @@ def main(argv=None) -> int:
     for name, phases, cases in (
             ("swar_fused_votes", K1_PHASES, _k1_cases(0)),
             ("train_deltas", K2_PHASES, _k2_cases(1)),
+            ("clause_votes", K3_PHASES, _k3_cases(3)),
             ("pdl_race", K5_PHASES, _k5_cases(2))):
         lib = _load(name)
         for label, tensors, scalars in cases:

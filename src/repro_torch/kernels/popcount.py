@@ -36,7 +36,7 @@ def popcount_words(words: torch.Tensor) -> torch.Tensor:
     """(R, W) int32 bit-packed rows → (R,) int32 Hamming weights.
 
     CPU tensors: the plain version.  CUDA tensors: kernel K4, counted in
-    ``popcount_words.launches``."""
+    ``kernel.launches.popcount_words``."""
     if words.dtype != torch.int32 or words.dim() != 2:
         raise ValueError(f"words must be a 2-D int32 tensor, got "
                          f"{tuple(words.shape)} {words.dtype}")
@@ -53,8 +53,4 @@ def popcount_words(words: torch.Tensor) -> torch.Tensor:
     if r == 0:
         return out
     launch("popcount_words", (words, out), (r, w))
-    popcount_words.launches += 1
     return out
-
-
-popcount_words.launches = 0

@@ -67,7 +67,7 @@ def swar_fused_votes(not_words: torch.Tensor, inc_words: torch.Tensor,
     (B, C) int32.
 
     CPU tensors: the plain version.  CUDA tensors: kernel K1, counted in
-    ``swar_fused_votes.launches``."""
+    ``kernel.launches.swar_fused_votes``."""
     _check(not_words, inc_words, vote_matrix)
     if not_words.device.type == "cpu":
         return swar_fused_votes_plain(not_words, inc_words, vote_matrix)
@@ -85,8 +85,4 @@ def swar_fused_votes(not_words: torch.Tensor, inc_words: torch.Tensor,
         return out
     launch("swar_fused_votes", (not_words, inc_words, vote_matrix, out),
            (b, cm, wl, c))
-    swar_fused_votes.launches += 1
     return out
-
-
-swar_fused_votes.launches = 0

@@ -183,7 +183,7 @@ def train_deltas_keyed(literals, keys1, keys2, include, m1_t, m2_t, m1_n,
     draw and the gathered include rows.
 
     CPU tensors: the plain version.  CUDA tensors: kernel K2, counted in
-    ``train_deltas_keyed.launches``."""
+    ``kernel.launches.train_deltas``."""
     masks = (m1_t, m2_t, m1_n, m2_n)
     _check(literals, keys1, keys2, include, masks, y, y_neg, n_classes)
     if literals.device.type == "cpu":
@@ -210,8 +210,4 @@ def train_deltas_keyed(literals, keys1, keys2, include, m1_t, m2_t, m1_n,
     launch("train_deltas", (*tensors, out),
            (b, c, m, l, y.element_size(), uniform_threshold(p_inc),
             uniform_threshold(p_dec)))
-    train_deltas_keyed.launches += 1
     return out
-
-
-train_deltas_keyed.launches = 0

@@ -21,8 +21,9 @@ from repro_torch.core import prng
 from repro_torch.core.popcount import pack_bits
 from repro_torch.core.tm import TMConfig
 from repro_torch.distributed import data_mesh
+from repro_torch import tracing
 from repro_torch.engine import (available_backends, get_engine,
-                                get_train_engine)
+                                get_train_engine, infer_padded)
 from repro_torch.engine.cascade import subsample_mask
 from repro_torch.kernels.clause_eval import (clause_votes,
                                              clause_votes_plain,
@@ -35,6 +36,7 @@ from repro_torch.kernels.binary_matmul import (binary_matmul,
                                                binary_matmul_plain)
 from repro_torch.kernels.pdl_race import pdl_race, pdl_race_plain
 from repro_torch.kernels.popcount import popcount_words, popcount_words_plain
+from repro_torch.kernels.ops import launches
 from repro_torch.serve import ServePolicy, TMFleet, TMServer
 
 # one xdist worker per core runs these files beside the JAX suite:
@@ -115,13 +117,13 @@ def test_kernels_bitwise_vs_plain(cuda, case):
     b, c, m, lit, density = case
     lits, inc = _inputs(cuda, b, c, m, lit, density, seed=b + c + m + lit)
     vm = make_vote_matrix(c, m, cuda)
-    n3, n1 = clause_votes.launches, swar_fused_votes.launches
+    n3, n1 = launches("clause_votes"), launches("swar_fused_votes")
     got3 = clause_votes(lits, inc, vm)
     not_words, inc_words = pack_bits(1 - lits), pack_bits(inc)
     got1 = swar_fused_votes(not_words, inc_words, vm)
     torch.cuda.synchronize()
-    assert clause_votes.launches == n3 + 1
-    assert swar_fused_votes.launches == n1 + 1
+    assert launches("clause_votes") == n3 + 1
+    assert launches("swar_fused_votes") == n1 + 1
     want = clause_votes_plain(lits, inc, vm)
     assert torch.equal(got3, want)
     assert torch.equal(got1, swar_fused_votes_plain(not_words, inc_words, vm))
@@ -130,12 +132,12 @@ def test_kernels_bitwise_vs_plain(cuda, case):
     # operands one byte off 16-byte alignment: K3's byte loads
     got3 = clause_votes(_shifted(lits), _shifted(inc), vm)
     torch.cuda.synchronize()
-    assert clause_votes.launches == n3 + 2
+    assert launches("clause_votes") == n3 + 2
     assert torch.equal(got3, want)
     # words 4 bytes off 16-byte alignment: K1 stages with 4-byte loads
     got1 = swar_fused_votes(_shifted(not_words), _shifted(inc_words), vm)
     torch.cuda.synchronize()
-    assert swar_fused_votes.launches == n1 + 2
+    assert launches("swar_fused_votes") == n1 + 2
     assert torch.equal(got1, want)
 
 
@@ -150,10 +152,10 @@ def test_swar_fused_kernel_many_classes(cuda, case):
     lits, inc = _inputs(cuda, b, c, m, lit, density, seed=b + c)
     vm = make_vote_matrix(c, m, cuda)
     not_words, inc_words = pack_bits(1 - lits), pack_bits(inc)
-    n = swar_fused_votes.launches
+    n = launches("swar_fused_votes")
     got = swar_fused_votes(not_words, inc_words, vm)
     torch.cuda.synchronize()
-    assert swar_fused_votes.launches == n + 1
+    assert launches("swar_fused_votes") == n + 1
     want = swar_fused_votes_plain(not_words, inc_words, vm)
     assert torch.equal(got, want)
     assert bool(want.any())
@@ -180,10 +182,10 @@ def test_swar_fused_kernel_past_its_old_shared_memory_limit(cuda, case):
     vm = torch.randint(-3, 4, (c * m, c), generator=g,
                        dtype=torch.int8).to(cuda)
     not_words, inc_words = pack_bits(1 - lits), pack_bits(inc)
-    n = swar_fused_votes.launches
+    n = launches("swar_fused_votes")
     got = swar_fused_votes(not_words, inc_words, vm)
     torch.cuda.synchronize()
-    assert swar_fused_votes.launches == n + 1
+    assert launches("swar_fused_votes") == n + 1
     want = swar_fused_votes_plain(not_words, inc_words, vm)
     assert torch.equal(got, want)
     assert bool(want.any())
@@ -258,6 +260,52 @@ def test_server_on_cuda(cuda):
         np.testing.assert_array_equal(res.class_sums, want.class_sums)
 
 
+def test_spans_under_the_benchmarks_cuda_only_profiler(cuda):
+    """A profiler of the card's activity alone (the benchmark's) sets
+    torch's flag in its recorded step, not in its warm-up, so the
+    program records one ``engine.infer_padded`` span a call there; on
+    the profiler's clock every runtime call that launches, copies or
+    sets memory lies inside a call's span, and K3 counts one launch a
+    call."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    rng = np.random.default_rng(29)
+    cfg = TMConfig(10, 50, 784)
+    st = state_from_numpy(np.where(rng.random((10, 50, 1568)) < 0.002,
+                                   129, 128))
+    eng = get_engine("mxu_fused", cfg, st)
+    lits = torch.as_tensor(rng.integers(0, 2, (512, 1568), dtype=np.int8),
+                           device=cuda)
+    infer_padded(eng, lits, 512)
+    torch.cuda.synchronize()
+    kept = []
+    prof = profile(activities=[ProfilerActivity.CUDA],
+                   schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                   on_trace_ready=kept.append)
+    prof.start()
+    infer_padded(eng, lits, 512)          # warm-up: not recorded
+    prof.step()
+    n = launches("clause_votes")
+    for _ in range(3):
+        infer_padded(eng, lits, 512)
+    torch.cuda.synchronize()
+    prof.step()
+    prof.stop()
+    assert launches("clause_votes") == n + 3
+    calls = [s for s in tracing.spans() if s.name == "engine.infer_padded"]
+    assert len(calls) == 3
+    start = kept[0].profiler.kineto_results.trace_start_ns()
+    wins = [(tracing.to_profiler_us(s.start_ns, start),
+             tracing.to_profiler_us(s.end_ns, start)) for s in calls]
+    runtime = [e.time_range for e in kept[0].events()
+               if e.device_type == torch.autograd.DeviceType.CPU
+               and e.name.startswith(("cudaLaunchKernel", "cudaMemsetAsync",
+                                      "cudaMemcpyAsync"))]
+    assert len(runtime) >= 3 * 2
+    for tr in runtime:
+        assert any(a - 20.0 <= tr.start and tr.end <= b + 20.0
+                   for a, b in wins), (tr.start, tr.end, wins)
+
+
 def _k2_inputs(dev, b, c, m, lit, density, seed, masks="masks"):
     """K2's arguments; ``masks``: "masks" (each on with probability 1/2),
     "off" (all off: a zero update) or "all" (all on)."""
@@ -307,10 +355,10 @@ def test_train_deltas_kernel_bitwise_vs_plain(cuda, case):
                       masks=masks)
     for p_inc in (1.0, 6 / 7):
         kw = dict(n_classes=c, p_inc=p_inc, p_dec=1 / 7)
-        n = train_deltas_keyed.launches
+        n = launches("train_deltas")
         got = train_deltas_keyed(*args, **kw)
         torch.cuda.synchronize()
-        assert train_deltas_keyed.launches == n + 1
+        assert launches("train_deltas") == n + 1
         want = train_deltas_keyed_plain(*args, **kw)
         assert got.dtype == torch.int32 and got.shape == (c, m, lit)
         assert torch.equal(got, want)
@@ -332,10 +380,10 @@ def test_train_deltas_kernel_past_its_old_class_limit(cuda, case):
     args = _k2_inputs(cuda, b, c, m, lit, density, seed=b + m,
                       masks=masks)
     kw = dict(n_classes=c, p_inc=6 / 7, p_dec=1 / 7)
-    n = train_deltas_keyed.launches
+    n = launches("train_deltas")
     got = train_deltas_keyed(*args, **kw)
     torch.cuda.synchronize()
-    assert train_deltas_keyed.launches == n + 1
+    assert launches("train_deltas") == n + 1
     want = train_deltas_keyed_plain(*args, **kw)
     assert got.shape == (c, m, lit)
     assert torch.equal(got, want)
@@ -350,10 +398,10 @@ def test_train_deltas_kernel_reads_int64_labels(cuda):
     want = train_deltas_keyed_plain(*args, **kw)
     y64, yn64 = args[8].to(torch.int64), args[9].to(torch.int64)
     for y, yn in ((y64, yn64), (y64, args[9]), (args[8], yn64)):
-        n = train_deltas_keyed.launches
+        n = launches("train_deltas")
         got = train_deltas_keyed(*args[:8], y, yn, **kw)
         torch.cuda.synchronize()
-        assert train_deltas_keyed.launches == n + 1
+        assert launches("train_deltas") == n + 1
         assert torch.equal(got, want)
 
 
@@ -391,7 +439,7 @@ def test_sparse_on_cuda_equals_reference_on_cpu(cuda):
         get_train_engine("reference", cfg)
     sparse_cpu = get_train_engine("sparse", cfg, cache=False)
     chain = prng.key(4)
-    n = train_deltas_keyed.launches
+    n = launches("train_deltas")
     for _ in range(5):
         lits = rng.integers(0, 2, (32, 1568), dtype=np.int8)
         y = rng.integers(0, 10, (32,), dtype=np.int32)
@@ -402,7 +450,7 @@ def test_sparse_on_cuda_equals_reference_on_cpu(cuda):
         assert gpu.ta.device.type == "cuda"
         assert torch.equal(gpu.ta.cpu(), cpu.ta)
         assert torch.equal(cpu_sp.ta, cpu.ta)
-    assert train_deltas_keyed.launches == n + 5
+    assert launches("train_deltas") == n + 5
     assert sparse._ell.layout.indices.device.type == "cuda"
     assert sparse.layout_stats() == sparse_cpu.layout_stats()
     assert not np.array_equal(cpu.ta.numpy(), ta)
@@ -423,15 +471,15 @@ def test_learning_server_on_cuda(cuda):
                                         backend="mxu_fused"),
                             train_backend="fused", train_seed=4) as srv:
             await srv.warmup(train_batches=(16,))
-            n = train_deltas_keyed.launches
+            n = launches("train_deltas")
             versions = []
             for lits, y in batches:
                 versions.append(await srv.submit_labeled(lits, y))
             res = await asyncio.gather(*[srv.submit(r) for r in reqs])
-            return versions, res, srv.state, train_deltas_keyed.launches - n
+            return versions, res, srv.state, launches("train_deltas") - n
 
-    versions, res, state, launches = asyncio.run(go())
-    assert versions == [1, 2, 3] and launches == 3
+    versions, res, state, k2 = asyncio.run(go())
+    assert versions == [1, 2, 3] and k2 == 3
     chain, want = prng.key(4), state_from_numpy(ta, device="cpu")
     ref = get_train_engine("reference", cfg)
     for lits, y in batches:
@@ -456,10 +504,10 @@ def test_popcount_kernel_bitwise_vs_plain(cuda, r, w):
         words[1] = -1                      # all ones
         words[2] = 0
     words = words.to(cuda)
-    n = popcount_words.launches
+    n = launches("popcount_words")
     got = popcount_words(words)
     torch.cuda.synchronize()
-    assert popcount_words.launches == n + 1
+    assert launches("popcount_words") == n + 1
     want = popcount_words_plain(words)
     assert got.dtype == torch.int32 and torch.equal(got, want)
     assert torch.equal(want.cpu(), popcount_words_plain(words.cpu()))
@@ -489,17 +537,17 @@ def test_binary_matmul_kernel_bitwise_vs_plain(cuda, m, k, n):
     x = (torch.randint(0, 2, (m, k), generator=g) * 2 - 1).to(torch.int8)
     w = (torch.randint(0, 2, (k, n), generator=g) * 2 - 1).to(torch.int8)
     x, w = x.to(cuda), w.to(cuda)
-    launches = binary_matmul.launches
+    before = launches("binary_matmul")
     got = binary_matmul(x, w)
     torch.cuda.synchronize()
-    assert binary_matmul.launches == launches + 1
+    assert launches("binary_matmul") == before + 1
     want = binary_matmul_plain(x, w)
     assert got.dtype == torch.int32 and torch.equal(got, want)
     assert torch.equal(want.cpu(), binary_matmul_plain(x.cpu(), w.cpu()))
     # operands one byte off 16-byte alignment: K6's byte loads
     got = binary_matmul(_shifted(x), _shifted(w))
     torch.cuda.synchronize()
-    assert binary_matmul.launches == launches + 2
+    assert launches("binary_matmul") == before + 2
     assert torch.equal(got, want)
 
 
@@ -514,10 +562,10 @@ def test_binary_matmul_kernel_any_int8(cuda, m, k, n):
     w = torch.randint(-128, 128, (k, n), generator=g).to(torch.int8)
     x[0] = -128
     w[:, 0] = -128
-    launches = binary_matmul.launches
+    before = launches("binary_matmul")
     got = binary_matmul(x.to(cuda), w.to(cuda))
     torch.cuda.synchronize()
-    assert binary_matmul.launches == launches + 1
+    assert launches("binary_matmul") == before + 1
     want = x.to(torch.int32) @ w.to(torch.int32)
     assert int(want[0, 0]) == 2**14 * k
     assert torch.equal(got.cpu(), want)
@@ -550,10 +598,10 @@ def _race_args(dev, b, c, m, seed, integer):
                                    (3, 100, 200), (5000, 4, 6)])
 def test_pdl_race_kernel_bitwise_on_integer_delays(cuda, b, c, m):
     args = _race_args(cuda, b, c, m, b + c + m, integer=True)
-    n = pdl_race.launches
+    n = launches("pdl_race")
     got = pdl_race(*args, 10.0)
     torch.cuda.synchronize()
-    assert pdl_race.launches == n + 1
+    assert launches("pdl_race") == n + 1
     want = pdl_race_plain(*args, 10.0)
     assert [t.dtype for t in got] == [torch.int32, torch.float32, torch.bool]
     for g_, w_ in zip(got, want):
@@ -627,9 +675,9 @@ def test_time_domain_engine_on_cuda_matches_cpu(cuda):
 
 def test_bnn_launcher_on_cuda(cuda):
     from repro_torch.launch.bnn_popcount import run
-    n = binary_matmul.launches
+    n = launches("binary_matmul")
     out = run(device="cuda")
-    assert binary_matmul.launches == n + 1
+    assert launches("binary_matmul") == n + 1
     assert out["h_shape"] == (120, 128)
 
 
@@ -665,7 +713,7 @@ def test_cascade_on_cuda_equals_cpu(cuda, fraction, exact_sums):
     want = get_engine("cascade", cfg, state_from_numpy(ta, device="cpu"),
                       **opts).infer(lits)
     eng = get_engine("cascade", cfg, state_from_numpy(ta), **opts)
-    k1, k3 = swar_fused_votes.launches, clause_votes.launches
+    k1, k3 = launches("swar_fused_votes"), launches("clause_votes")
     got = eng.infer(lits)
     torch.cuda.synchronize()
     assert got.prediction.device.type == "cuda"
@@ -674,9 +722,9 @@ def test_cascade_on_cuda_equals_cpu(cuda, fraction, exact_sums):
                  (got.aux["escalated"], want.aux["escalated"])):
         assert torch.equal(a.cpu(), b)
     assert eng._s1[0].shape[0] == c * int(subsample_mask(m, fraction).sum())
-    assert swar_fused_votes.launches - k1 == \
+    assert launches("swar_fused_votes") - k1 == \
         eng.passes["stage1"] + eng.passes["completion"]
-    assert clause_votes.launches - k3 == eng.passes["escalation"]
+    assert launches("clause_votes") - k3 == eng.passes["escalation"]
     oracle = get_engine("oracle", cfg, state_from_numpy(ta, device="cpu")) \
         .infer(lits)
     assert torch.equal(got.prediction.cpu(), oracle.prediction)
@@ -737,9 +785,9 @@ def test_cpu_snapshot_restores_onto_cuda(cuda, tmp_path):
             return srv.state
 
     asyncio.run(cpu_run())
-    k2 = train_deltas_keyed.launches
+    k2 = launches("train_deltas")
     state = asyncio.run(cuda_run())
-    assert train_deltas_keyed.launches - k2 == 2
+    assert launches("train_deltas") - k2 == 2
     chain, want = prng.key(6), state_from_numpy(ta, device="cpu")
     ref = get_train_engine("reference", cfg)
     for lits, y in batches:
@@ -776,8 +824,8 @@ def test_packed_fleet_on_cuda_equals_cpu_oracle(cuda):
         async with fleet:
             assert fleet.device.type == "cuda"
             await fleet.warmup(train_batches=(16,))
-            n3, n1 = clause_votes.launches, swar_fused_votes.launches
-            n2 = train_deltas_keyed.launches
+            n3, n1 = launches("clause_votes"), launches("swar_fused_votes")
+            n2 = launches("train_deltas")
             published = []
             for b in batches:
                 await fleet.submit_labeled("a", *b)
@@ -789,12 +837,12 @@ def test_packed_fleet_on_cuda_equals_cpu_oracle(cuda):
                          for g in fleet._groups) + sum(
                 m["server"]["batches"] for m in stats["models"].values()
                 if not m["packed"])
-            launches = (clause_votes.launches - n3,
-                        swar_fused_votes.launches - n1,
-                        train_deltas_keyed.launches - n2)
-        return out, published, stats, served, launches
+            counted = (launches("clause_votes") - n3,
+                       launches("swar_fused_votes") - n1,
+                       launches("train_deltas") - n2)
+        return out, published, stats, served, counted
 
-    out, published, stats, served, launches = asyncio.run(go())
+    out, published, stats, served, counted = asyncio.run(go())
     assert stats["n_groups"] == 2 and not stats["models"]["f"]["packed"]
     chain, ref = prng.key(3), state_from_numpy(tas["a"], device="cpu")
     eng = get_train_engine("reference", cfgs["a"])
@@ -808,7 +856,7 @@ def test_packed_fleet_on_cuda_equals_cpu_oracle(cuda):
         want = get_engine("oracle", cfgs[name], states[name]).infer(lits)
         np.testing.assert_array_equal(res.prediction, want.prediction)
         np.testing.assert_array_equal(res.class_sums, want.class_sums)
-    assert launches == (served, 2, 2)
+    assert counted == (served, 2, 2)
 
 
 # --- the mesh: data-parallel serving and training on the card ---------
@@ -834,7 +882,7 @@ def test_sharded_on_cuda_equals_fused(cuda, d):
     fused, ref = get_train_engine("fused", cfg), \
         get_train_engine("reference", cfg)
     chain = prng.key(6)
-    n1, n2 = swar_fused_votes.launches, train_deltas_keyed.launches
+    n1, n2 = launches("swar_fused_votes"), launches("train_deltas")
     for b in (32, 32, 32, 32, 37):
         lits = rng.integers(0, 2, (b, 1568), dtype=np.int8)
         y = rng.integers(0, 10, (b,), dtype=np.int32)
@@ -846,8 +894,8 @@ def test_sharded_on_cuda_equals_fused(cuda, d):
         assert torch.equal(sh.ta, fu.ta)
         assert torch.equal(sh.ta.cpu(), cpu.ta)
     # the fused engine launched K1 and K2 once a step too
-    assert swar_fused_votes.launches - n1 == 5 * d + 5
-    assert train_deltas_keyed.launches - n2 == 5 * d + 5
+    assert launches("swar_fused_votes") - n1 == 5 * d + 5
+    assert launches("train_deltas") - n2 == 5 * d + 5
 
 
 @pytest.mark.parametrize("d", [1, 4])
@@ -863,13 +911,14 @@ def test_sharded_engine_on_cuda(cuda, backend, d):
     plain = get_engine(backend, cfg, st)
     sharded = get_engine(backend, cfg, st,
                          shard_batch=_card_mesh(cuda, d))
-    kernel = clause_votes if backend == "mxu_fused" else swar_fused_votes
+    kernel = "clause_votes" if backend == "mxu_fused" else \
+        "swar_fused_votes"
     for b in (64, 37):
         lits = rng.integers(0, 2, (b, 1568), dtype=np.int8)
         want = plain.infer(lits)
-        n = kernel.launches
+        n = launches(kernel)
         got = sharded.infer(lits)
-        assert kernel.launches - n == d
+        assert launches(kernel) - n == d
         assert got.class_sums.device.type == "cuda"
         assert torch.equal(got.prediction, want.prediction)
         assert torch.equal(got.class_sums, want.class_sums)

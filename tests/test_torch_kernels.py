@@ -8,6 +8,8 @@ all-include extremes; batch sizes are ragged against every tile.
 """
 
 import ctypes
+import itertools
+import math
 import re
 import shutil
 
@@ -53,10 +55,10 @@ def test_k3_plain_matches_pallas_and_ref(case):
     pallas = jce.clause_votes_pallas(jnp.asarray(lits), jnp.asarray(inc), jvm,
                                      interpret=True)
     jax_ref = jref.ref_clause_votes(jnp.asarray(lits), jnp.asarray(inc), jvm)
-    before = clause_votes.launches
+    before = ops.launches("clause_votes")
     got = clause_votes(torch.from_numpy(lits), torch.from_numpy(inc),
                        make_vote_matrix(c, m))
-    assert clause_votes.launches == before      # CPU: plain version only
+    assert ops.launches("clause_votes") == before   # CPU: plain version
     assert got.dtype == torch.int32 and got.shape == (b, c)
     np.testing.assert_array_equal(got.numpy(), np.asarray(pallas))
     np.testing.assert_array_equal(got.numpy(), np.asarray(jax_ref))
@@ -74,9 +76,9 @@ def test_k1_plain_matches_pallas_and_ref(case):
     tinc = pack_bits(torch.from_numpy(inc))
     np.testing.assert_array_equal(tnot.numpy().view(np.uint32),
                                   np.asarray(jnot))
-    before = swar_fused_votes.launches
+    before = ops.launches("swar_fused_votes")
     got = swar_fused_votes(tnot, tinc, make_vote_matrix(c, m))
-    assert swar_fused_votes.launches == before  # CPU: plain version only
+    assert ops.launches("swar_fused_votes") == before   # CPU: plain
     np.testing.assert_array_equal(got.numpy(), np.asarray(pallas))
     np.testing.assert_array_equal(
         got.numpy(),
@@ -288,6 +290,22 @@ def test_c_argtypes_parser():
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 
 
+def test_phase_clocks_k3_include_counts_are_binomial_quantiles():
+    """The probe's K3 state: clause r includes the (r + 1/2) / n
+    quantile of Binomial(L / 2, 2 * density) literals, against the
+    binomial's CDF summed term by term."""
+    from repro_torch.kernels.phase_clocks import include_counts
+    for n, lits, density in ((500, 1568, 0.002), (1000, 1568, 0.002),
+                             (7, 40, 0.1), (64, 200, 0.05)):
+        k_max, p = lits // 2, 2 * density
+        cdf = list(itertools.accumulate(
+            math.comb(k_max, k) * p ** k * (1 - p) ** (k_max - k)
+            for k in range(k_max + 1)))
+        want = [next(k for k, c in enumerate(cdf)
+                     if c >= (r + 0.5) / n) for r in range(n)]
+        assert include_counts(n, lits, density) == want
+
+
 def test_phase_clocks_summarize():
     """The probe's summary: per-phase median and max clocks over the
     blocks that reached every mark, the clock rate, the span and the
@@ -307,17 +325,24 @@ def test_phase_clocks_summarize():
 
 
 @pytest.mark.parametrize("name", ["swar_fused_votes", "train_deltas",
-                                  "pdl_race"])
+                                  "clause_votes", "pdl_race"])
 def test_phase_marks_match_the_probe(name):
     """Each probed source marks PHASE(0) .. PHASE(n) in order, one mark
     per boundary of the probe's phase names, and takes the marks from the
-    header that compiles them out unless REPRO_PHASE_CLOCKS is set."""
+    header that compiles them out unless REPRO_PHASE_CLOCKS is set.  K3's
+    mark 1 sits in the tile it shares with K6 (``mma_s8.cuh``), after
+    the first chunk is staged."""
     from repro_torch.kernels import phase_clocks
     phases = {"swar_fused_votes": phase_clocks.K1_PHASES,
               "train_deltas": phase_clocks.K2_PHASES,
+              "clause_votes": phase_clocks.K3_PHASES,
               "pdl_race": phase_clocks.K5_PHASES}[name]
     text = (ops._CSRC / ops.KERNEL_SOURCES[name]).read_text()
     marks = [int(i) for i in re.findall(r"PHASE\((\d+)\)", text)]
+    if name == "clause_votes":
+        tile = (ops._CSRC / "mma_s8.cuh").read_text()
+        assert re.findall(r"PHASE\((\d+)\)", tile) == ["1"]
+        marks.insert(1, 1)
     assert marks == list(range(len(phases) + 1))
     assert '#include "phase_clocks.cuh"' in text
     header = (ops._CSRC / "phase_clocks.cuh").read_text()

@@ -24,6 +24,7 @@ from repro.kernels.popcount import popcount_words_pallas
 from repro_torch.kernels import ref
 from repro_torch.kernels.binary_matmul import (binary_matmul,
                                                binary_matmul_plain)
+from repro_torch.kernels.ops import launches
 from repro_torch.kernels.pdl_race import pdl_race, pdl_race_plain
 from repro_torch.kernels.popcount import popcount_words, popcount_words_plain
 
@@ -200,15 +201,15 @@ def test_ref_pdl_race_matches_jax_oracle():
 # --- the wrappers ------------------------------------------------------
 
 def test_wrappers_validate_and_launch_nothing_on_cpu():
-    before = (popcount_words.launches, pdl_race.launches,
-              binary_matmul.launches)
+    before = (launches("popcount_words"), launches("pdl_race"),
+              launches("binary_matmul"))
     popcount_words(torch.zeros((2, 3), dtype=torch.int32))
     binary_matmul(torch.ones((2, 3), dtype=torch.int8),
                   torch.ones((3, 4), dtype=torch.int8))
     pdl_race(torch.zeros((2, 3, 4), dtype=torch.int8),
              torch.ones((3, 4, 2)), torch.zeros(3), 1.0)
-    assert (popcount_words.launches, pdl_race.launches,
-            binary_matmul.launches) == before
+    assert (launches("popcount_words"), launches("pdl_race"),
+            launches("binary_matmul")) == before
     assert popcount_words_plain is ref.ref_popcount_words
     assert binary_matmul_plain is ref.ref_binary_matmul
     with pytest.raises(ValueError, match="int32"):

@@ -484,6 +484,7 @@ def test_port_imports_no_jax_and_no_repro():
             "repro_torch.configs.starcoder2_7b, "
             "repro_torch.configs.tinyllama_1_1b, "
             "repro_torch.configs.zamba2_2_7b, repro_torch.tree, "
+            "repro_torch.tracing, "
             "repro_torch.models.mamba2, repro_torch.models.mla, "
             "repro_torch.optim, "
             "repro_torch.optim.adamw, repro_torch.optim.schedule, "

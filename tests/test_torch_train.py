@@ -28,6 +28,7 @@ from repro_torch.engine import (DEFAULT_TRAIN_BACKEND,
                                 get_train_engine, import_key_cursor,
                                 train_engine_cache_info, train_engine_opts)
 from repro_torch.kernels import train_fused as tfused
+from repro_torch.kernels.ops import launches
 
 # one xdist worker per core runs these files beside the JAX suite:
 # torch's default of one intra-op thread per core oversubscribes the CPU
@@ -251,10 +252,10 @@ def test_train_deltas_keyed_equals_train_deltas(masks_on):
     yn = (y + torch.from_numpy(rng.integers(1, c, (b,)))) % c
     y[0], yn[0], y[1], yn[1] = 1, 2, 3, 1
     kw = dict(n_classes=c, p_inc=6 / 7, p_dec=1 / 7)
-    n = tfused.train_deltas_keyed.launches
+    n = launches("train_deltas")
     got = tfused.train_deltas_keyed(x, keys[0], keys[1], include, *masks, y,
                                     yn, **kw)
-    assert tfused.train_deltas_keyed.launches == n   # CPU: plain version
+    assert launches("train_deltas") == n   # CPU: plain version
     want = tfused.train_deltas(x, prng.bits(keys[0], (m, L)),
                                prng.bits(keys[1], (m, L)), include[y],
                                include[yn], *masks, y, yn, **kw)
