@@ -95,8 +95,9 @@ package.  Phases, each on its own lines:
    and K1 = K3 = 0; ``stats()["sparse_layout"]`` and the per-bucket
    service times are printed;
 6. the paper's time-domain race behind ``TMServer``: phase 4's traffic
-   with ``backend="time_domain"`` (the ideal PDL race, plain tensor
-   code) on the state phase 5 learned (the random state of phase 4 fires
+   with ``backend="time_domain"`` (the ideal PDL race: the low-net
+   count from K3, the delays and the race in plain tensor code) on the
+   state phase 5 learned (the random state of phase 4 fires
    no clause, so every row would tie); every response must equal the
    CPU oracle and every ``latency_ps`` and ``metastable`` the port's CPU
    ``time_domain`` engine, on at least two distinct latencies;

@@ -21,7 +21,11 @@
                         clause_votes`): clause matrix never in device
                         memory.  tm-mnist-50's default backend.
 ``time_domain``         the paper's PDL race: chain delays affine in the
-                        vote count, arbiter-tree argmin (``race``).
+                        low-net count, arbiter-tree argmin (``race``).
+                        The ideal device counts low-net clauses on K3
+                        (votes + M//2); a physical ``PDLDevice`` keeps
+                        the per-clause route, whose delays need each
+                        clause's bit.
 ======================  ====================================================
 
 Every backend precomputes its clause layout on the state's device at
@@ -252,20 +256,27 @@ class TimeDomainEngine:
     delay is the affine ``M·d_high − Δ·low_count`` of the integer
     low-net count, so equal vote sums race to an exact tie and the
     arbiter's predetermined guess (lowest index) matches the oracle
-    argmax bit for bit.  XLA contracts that expression into one fused
-    multiply-add, so the port rounds it once too (``ideal_delays``) and
-    its delays equal the JAX package's bit for bit.  Pass
-    ``device=PDLDevice(...)`` to simulate a physical chip through
-    per-element delays (and ``noise_key=`` for per-event jitter): then
-    oracle agreement is physics, not arithmetic.
+    argmax bit for bit.  Clause m takes the low net iff (m even and it
+    fires) or (m odd and it does not), so ``low_count = votes + M//2``:
+    the ideal device counts it with one launch of kernel K3
+    (:func:`~repro_torch.kernels.clause_eval.clause_votes`, its plain
+    version on the CPU), and no clause bit reaches device memory.  XLA
+    contracts the delay expression into one fused multiply-add, so the
+    port rounds it once too (``ideal_delays``) and its delays equal the
+    JAX package's bit for bit.  Pass ``device=PDLDevice(...)`` to
+    simulate a physical chip through per-element delays (and
+    ``noise_key=`` for per-event jitter): each element's delay depends
+    on its own clause's bit, so that route keeps the (B, C, M) clause
+    bits (``_clause_bits``, ``pdl_delays``), and oracle agreement is
+    physics, not arithmetic.
 
     ``aux``: per-sample ``latency_ps`` (float32, the winning arrival —
     data-dependent, paper §IV-A) and ``metastable`` (bool, any arbiter
-    gap < ``t_res``).  The engine runs plain tensor code, as the JAX
-    backend runs jnp outside any Pallas kernel.  ``noise_key`` is a
-    threefry key (the port's, or a JAX key's raw data); the engine keeps
-    the simulated chip as ``pdl_device``, since ``device`` is the torch
-    device here as in every port engine.
+    gap < ``t_res``).  The delays and the race are plain tensor code, as
+    the JAX backend runs them in jnp outside any Pallas kernel.
+    ``noise_key`` is a threefry key (the port's, or a JAX key's raw
+    data); the engine keeps the simulated chip as ``pdl_device``, since
+    ``device`` is the torch device here as in every port engine.
     """
 
     def __init__(self, cfg: TMConfig, state: TMState, *,
@@ -281,8 +292,15 @@ class TimeDomainEngine:
             device.skew.to(self.device, torch.float32))
         self.noise_key = None if noise_key is None else \
             prng.wrap_key_data(noise_key).to(self.device)
-        self._inc = include_mask(cfg, state)                     # (C, M, L)
-        self._pol = clause_polarity(cfg.n_clauses, self.device)  # (M,) ±1
+        inc = include_mask(cfg, state)                           # (C, M, L)
+        if self.pdl_device is None:
+            self._inc = inc.reshape(cfg.n_classes * cfg.n_clauses,
+                                    cfg.n_literals).contiguous()  # (CM, L)
+            self._vm = make_vote_matrix(cfg.n_classes, cfg.n_clauses,
+                                        self.device)
+        else:
+            self._inc = inc
+            self._pol = clause_polarity(cfg.n_clauses, self.device)
         self._n_neg = cfg.n_clauses // 2     # odd-index (opposing) clauses
 
     @tracing.traced("engine.infer", backend="time_domain")
@@ -291,20 +309,27 @@ class TimeDomainEngine:
         carries per-sample ``latency_ps`` (float32) and ``metastable``
         (bool)."""
         lits = as_literals(literals, self.device)
-        sp = tracing.begin("td.clause_bits")
-        clauses = _clause_bits(self._inc, lits)
-        tracing.end(sp)
-        sp = tracing.begin("td.low_count")
-        low_count = low_select(clauses, self._pol).sum(-1, dtype=torch.int32)
-        sums = low_count - self._n_neg     # low_count = votes + n_neg
-        tracing.end(sp)
-        sp = tracing.begin("td.delays")
         if self.pdl_device is None:
+            sp = tracing.begin("td.low_count")
+            sums = clause_votes(lits, self._inc, self._vm)
+            low_count = sums + self._n_neg    # low_count = votes + M//2
+            tracing.end(sp)
+            sp = tracing.begin("td.delays")
             delays = ideal_delays(self.pdl, low_count, self.cfg.n_clauses)
+            tracing.end(sp)
         else:
+            sp = tracing.begin("td.clause_bits")
+            clauses = _clause_bits(self._inc, lits)
+            tracing.end(sp)
+            sp = tracing.begin("td.low_count")
+            low_count = low_select(clauses, self._pol).sum(-1,
+                                                           dtype=torch.int32)
+            sums = low_count - self._n_neg    # low_count = votes + M//2
+            tracing.end(sp)
+            sp = tracing.begin("td.delays")
             delays = pdl_delays(self.pdl, self.pdl_device, clauses,
                                 self._pol, key=self.noise_key)
-        tracing.end(sp)
+            tracing.end(sp)
         sp = tracing.begin("td.race")
         res = race(self.pdl, delays)
         tracing.end(sp)

@@ -6,8 +6,10 @@
     votes[b,c]  = Σ_cm clause[b,cm] · vote_matrix[cm,c]
 
 Replaces the Pallas kernel ``repro/kernels/clause_eval.py:
-clause_votes_pallas`` (body ``_clause_votes_kernel``), the
-``mxu_fused`` backend and tm-mnist-50's default.  On a CUDA tensor
+clause_votes_pallas`` (body ``_clause_votes_kernel``).  Two engines run
+it: the ``mxu_fused`` backend (tm-mnist-50's default), and the
+``time_domain`` backend on its ideal device, whose low-net count is the
+votes plus M//2 (tm-mnist-100's default).  On a CUDA tensor
 :func:`clause_votes` launches the hand-written kernel in
 ``csrc/clause_votes.cu`` (the violation counts on the int8 tensor cores
 through ``mma.sync`` m16n8k32, each 64 × 64 clause tile folded straight

@@ -19,11 +19,14 @@ from repro_torch import checkpoint as ckpt
 from repro_torch.convert import state_from_numpy
 from repro_torch.core import prng
 from repro_torch.core.popcount import pack_bits
-from repro_torch.core.tm import TMConfig
+from repro_torch.core.time_domain import (PDLConfig, ideal_delays,
+                                          low_select, make_device, race)
+from repro_torch.core.tm import TMConfig, clause_polarity, include_mask
 from repro_torch.distributed import data_mesh
 from repro_torch import tracing
 from repro_torch.engine import (available_backends, get_engine,
                                 get_train_engine, infer_padded)
+from repro_torch.engine.backends import _clause_bits
 from repro_torch.engine.cascade import subsample_mask
 from repro_torch.kernels.clause_eval import (clause_votes,
                                              clause_votes_plain,
@@ -671,6 +674,64 @@ def test_time_domain_engine_on_cuda_matches_cpu(cuda):
     assert torch.equal(got.class_sums.cpu(), want.class_sums)
     for k in ("latency_ps", "metastable"):
         assert torch.equal(got.aux[k].cpu(), want.aux[k])
+
+
+def _mnist_like(c, m, f, density, b, seed):
+    """(C, M, 2F) states and (B, 2F) ``[x, ¬x]`` literals drawn as the
+    benchmark draws them: each clause includes Binomial(F, 2·density)
+    features, each as x or as ¬x, so about a fifth of the clauses fire
+    on a random row at tm-mnist-100's 0.2 %."""
+    rng = np.random.default_rng(seed)
+    counts = rng.binomial(f, 2 * density, c * m)
+    chosen = rng.random((c * m, f)).argsort(-1).argsort(-1) < counts[:, None]
+    neg = rng.integers(0, 2, (c * m, f)).astype(bool)
+    inc = np.concatenate([chosen & ~neg, chosen & neg], -1)
+    ta = np.where(inc, 129, 128).reshape(c, m, 2 * f)
+    x = rng.integers(0, 2, (b, f), dtype=np.int8)
+    return ta, np.concatenate([x, 1 - x], -1)
+
+
+# tm-mnist-100's widths either side of K3's 64-row tile and at a bulk
+# size; odd M with C·M = 21, short of one 64-clause tile
+@pytest.mark.parametrize("c,m,f,density,b", [
+    (10, 100, 784, 0.002, 1), (10, 100, 784, 0.002, 63),
+    (10, 100, 784, 0.002, 65), (10, 100, 784, 0.002, 4096),
+    (3, 7, 40, 0.025, 65)], ids=lambda v: str(v))
+def test_time_domain_ideal_engine_counts_on_k3(cuda, c, m, f, density, b):
+    """The ideal device's low-net count from one K3 launch, bitwise to the
+    CPU engine and to the per-clause route (clause bits, ``low_select``,
+    ``ideal_delays``, ``race``) on the card; the physical device keeps
+    that route and launches no K3."""
+    ta, lits = _mnist_like(c, m, f, density, b, seed=b + c + m)
+    cfg = TMConfig(c, m, f)
+    eng = get_engine("time_domain", cfg, state_from_numpy(ta))
+    n = launches("clause_votes")
+    got = eng.infer(lits)
+    torch.cuda.synchronize()
+    assert launches("clause_votes") == n + 1
+    want = get_engine("time_domain", cfg,
+                      state_from_numpy(ta, device="cpu")).infer(lits)
+    bits = _clause_bits(include_mask(cfg, state_from_numpy(ta)),
+                        torch.from_numpy(lits).to(cuda))
+    low = low_select(bits, clause_polarity(m, cuda)).sum(-1,
+                                                          dtype=torch.int32)
+    res = race(eng.pdl, ideal_delays(eng.pdl, low, m))
+    per_clause = (res.winner, low - m // 2, res.latency, res.metastable)
+    for g_, w_, p_ in zip((got.prediction, got.class_sums,
+                           got.aux["latency_ps"], got.aux["metastable"]),
+                          (want.prediction, want.class_sums,
+                           want.aux["latency_ps"], want.aux["metastable"]),
+                          per_clause):
+        assert g_.device.type == cuda.type
+        assert torch.equal(g_.cpu(), w_)
+        assert torch.equal(g_, p_)
+    pdl = PDLConfig(sigma_elem=2.0, sigma_noise=0.0)
+    phys = get_engine("time_domain", cfg, state_from_numpy(ta), pdl=pdl,
+                      device=make_device(pdl, c, m, prng.key(1)))
+    n = launches("clause_votes")
+    phys.infer(lits)
+    torch.cuda.synchronize()
+    assert launches("clause_votes") == n
 
 
 def test_bnn_launcher_on_cuda(cuda):

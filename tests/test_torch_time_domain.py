@@ -14,7 +14,8 @@ Tolerances, with their reasons:
   bitwise.
 - ``time_domain`` engine, ideal device: prediction, class sums,
   ``latency_ps`` and ``metastable`` bitwise (the port rounds XLA's fused
-  multiply-add once too).  Device path: ``latency_ps`` rtol 1e-6,
+  multiply-add once too); the identity behind its K3 route, low-net
+  count == votes + M//2, exact.  Device path: ``latency_ps`` rtol 1e-6,
   prediction and ``metastable`` exact on these seeds, where no arbiter
   gap lies within float rounding of a tie or of ``t_res``.
 
@@ -40,8 +41,11 @@ from repro.serve import TMServer as JServer
 from repro_torch.convert import device_from_numpy, state_from_numpy
 from repro_torch.core import prng
 from repro_torch.core import time_domain as td
-from repro_torch.core.tm import TMConfig, clause_polarity
+from repro_torch.core.tm import TMConfig, clause_polarity, include_mask
 from repro_torch.engine import get_engine, infer_padded
+from repro_torch.engine.backends import _clause_bits
+from repro_torch.kernels.clause_eval import (clause_votes_plain,
+                                             make_vote_matrix)
 from repro_torch.serve import ServePolicy, TMServer
 
 # one xdist worker per core runs these files beside the JAX suite:
@@ -228,6 +232,28 @@ def test_time_domain_engine_ideal_bitwise(shape):
     oracle = get_engine("oracle", TMConfig(c, m, f),
                         state_from_numpy(ta, device="cpu")).infer(lits)
     np.testing.assert_array_equal(got.prediction, oracle.prediction)
+
+
+@pytest.mark.parametrize("shape", [(4, 10, 16), (3, 8, 10), (10, 50, 64),
+                                   (2, 7, 5), (10, 101, 32)],
+                         ids=lambda s: "C{}M{}F{}".format(*s))
+def test_low_count_is_votes_plus_half_m(shape):
+    """The identity the ideal engine's K3 route rests on: clause m takes
+    the low net iff (m even and it fires) or (m odd and it does not), so
+    the per-clause low-net count equals K3's votes + M//2, odd M too."""
+    c, m, f = shape
+    ta, lits = _random_tm(c, m, f, density=2.0 / (2 * f), seed=sum(shape),
+                          batch=33)
+    cfg = TMConfig(c, m, f)
+    inc = include_mask(cfg, state_from_numpy(ta, device="cpu"))
+    lits = torch.from_numpy(lits)
+    bits = _clause_bits(inc, lits)
+    assert 0 < int(bits.sum()) < bits.numel()     # some fire, some do not
+    low = td.low_select(bits, clause_polarity(m)).sum(-1, dtype=torch.int32)
+    votes = clause_votes_plain(lits, inc.reshape(c * m, 2 * f),
+                               make_vote_matrix(c, m))
+    assert votes.dtype == torch.int32
+    assert torch.equal(low, votes + m // 2)
 
 
 @pytest.mark.parametrize("noise", [False, True])

@@ -15,6 +15,8 @@ import torch
 from torch.profiler import ProfilerActivity, profile, schedule
 
 from repro_torch import tracing
+from repro_torch.core import prng
+from repro_torch.core.time_domain import PDLConfig, make_device
 from repro_torch.core.tm import TMConfig, TMState
 from repro_torch.engine import clear_engine_cache, get_engine, infer_padded
 from repro_torch.kernels import ops
@@ -22,11 +24,16 @@ from repro_torch.kernels import ops
 torch.set_num_threads(2)
 
 CFG = TMConfig(n_classes=3, n_clauses=4, n_features=8)
-BACKENDS = ["mxu_fused", "time_domain"]
+BACKENDS = ["mxu_fused", "time_domain", "time_domain+pdl_device"]
+# the span tree under ``engine.infer``: a name, or (name, its children)
 STAGES = {"mxu_fused": ["engine.literals", "kernel.clause_votes",
                         "tm.argmax"],
-          "time_domain": ["engine.literals", "td.clause_bits",
-                          "td.low_count", "td.delays", "td.race"]}
+          "time_domain": ["engine.literals",
+                          ("td.low_count", ["kernel.clause_votes"]),
+                          "td.delays", "td.race"],
+          "time_domain+pdl_device": ["engine.literals", "td.clause_bits",
+                                     "td.low_count", "td.delays",
+                                     "td.race"]}
 
 
 @pytest.fixture(autouse=True)
@@ -39,9 +46,26 @@ def fresh_tracer():
 
 
 def _engine(backend: str):
+    """The named backend's engine; ``time_domain+pdl_device`` is the
+    time-domain engine on a simulated physical device."""
     g = torch.Generator().manual_seed(3)
     ta = torch.randint(120, 140, (3, 4, 16), generator=g, dtype=torch.int32)
+    if backend == "time_domain+pdl_device":
+        pdl = PDLConfig(sigma_elem=2.0, sigma_noise=0.0)
+        dev = make_device(pdl, CFG.n_classes, CFG.n_clauses, prng.key(1))
+        return get_engine("time_domain", CFG, TMState(ta=ta), pdl=pdl,
+                          device=dev)
     return get_engine(backend, CFG, TMState(ta=ta))
+
+
+def _subtree(spans, i):
+    """The spans whose parent is ``spans[i]``, in STAGES' form."""
+    out = []
+    for j, s in enumerate(spans):
+        if s.parent == i:
+            sub = _subtree(spans, j)
+            out.append((s.name, sub) if sub else s.name)
+    return out
 
 
 def _rows(b: int) -> torch.Tensor:
@@ -137,10 +161,8 @@ def test_one_call_is_one_tree_with_one_call_id(backend):
         assert [s.name for s in kids] == (["engine.pad"] if n == 0 else []) \
             + ["engine.infer"]
         infer = kids[-1]
-        assert infer.attrs == {"backend": backend}
-        i_infer = idx[spans.index(infer)]
-        assert [s.name for s in spans if s.parent == i_infer] == \
-            STAGES[backend]
+        assert infer.attrs == {"backend": backend.split("+")[0]}
+        assert _subtree(got, idx[spans.index(infer)]) == STAGES[backend]
         for s in spans[1:]:
             p = got[s.parent]
             assert p.start_ns <= s.start_ns and s.end_ns <= p.end_ns
