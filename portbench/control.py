@@ -1,13 +1,9 @@
 """The controls of the benchmark's comparisons: the plain reference put in
 the program's place and computed in the precision below the one the
 configuration states, fed through the same comparison a run makes.  A
-control has to come out as not correct.
-
-- ``mxu_fused`` cells: the clause-violation counts and the class sums
-  held in 4-bit two's complement (int4 below the stated int8 operands),
-  so class sums past ±7 wrap;
-- the time-domain race: the chain delays computed in bfloat16 (below the
-  stated float32).
+control has to come out as not correct.  Each traffic entry's
+``control`` hook computes its control (``portbench/entries/<entry>.py``
+says which precision it takes, and where).
 
     python3 portbench/control.py --workload <cell> --seeds 1,2,3
 
@@ -23,29 +19,11 @@ import time
 
 
 def control(cell, seed: int, device) -> dict:
-    """The control's compared numbers for one seed of ``cell``: one
-    call's rows (chunk 0 of the cell's pool) computed by the control."""
-    from portbench import harness, inputs
-    from portbench.entries import bulk
-    from portbench.reference import tm as ref
-    cfg_j, tr = cell.config, cell.traffic
-    gen = inputs.generator(seed, device)
-    ta = inputs.tm_state(cfg_j, gen)
-    pool = inputs.literal_rows(gen, (tr["pool_chunks"], tr["rows_per_call"]),
-                               cfg_j["n_features"])
-    lits = pool[0]
-    if "pdl" in cfg_j:
-        got = ref.infer_race(ta, lits, cfg_j["n_states"], cfg_j["pdl"],
-                             precision="bfloat16")
-        keys, aux = ("prediction", "class_sums", "latency_ps",
-                     "metastable"), bulk.AUX
-    else:
-        got = ref.infer(ta, lits, cfg_j["n_states"], precision="int4")
-        keys, aux = ("prediction", "class_sums"), ()
-    buf = {k: v.cpu() for k, v in zip(keys, got)}
-    run = harness.Run(cell=cell, seed=seed, seconds=0.0, trace=False,
-                      device=device, t0=0.0)
-    return bulk.check(run, ta, [lits], [(0, buf)], aux)
+    """The control's compared numbers for one seed of ``cell``, each
+    ``(value, limit)``, by the hook of the cell's traffic entry."""
+    from portbench import spec
+    return spec.entry_module(cell.traffic["entry"], cell.root).control(
+        cell, seed, device)
 
 
 def main(argv=None) -> int:

@@ -17,16 +17,23 @@ Traffic parameters (``portbench/traffic/<name>.json``):
 - ``trace_seconds``: the last part of the window a traced run records
   (:mod:`portbench.devtrace`).
 
-A call's rows count once its results are in host memory.  The rate, the
-calls' spans and the step's share of the peak are read over the untraced
-part of the window, from the first call to the last result: the whole
-window of a ``--trace 0`` run.  A ``--trace 1`` run then waits for the
+A row is one classified row: its prediction and class sums (and the
+race's ``latency_ps`` and ``metastable``) back in host memory; a call's
+rows count once its results are there.  The rate, the calls' spans and
+the step's share of the peak are read over the untraced part of the
+window, from the first call to the last result: the whole window of a
+``--trace 0`` run.  A ``--trace 1`` run then waits for the
 card, starts the profiler and records ``trace_seconds`` more.
+
+The hooks of :data:`portbench.spec.ENTRY_HOOKS` besides :func:`run`:
+:func:`small_cell`, :func:`check_config`, :func:`check_run` and
+:func:`control`.
 """
 
 from __future__ import annotations
 
 import collections
+import dataclasses
 import time
 
 import torch
@@ -42,6 +49,31 @@ LIMITS = {"pred_mismatch": 0, "sums_mismatch": 0, "latency_mismatch": 0,
           "metastable_mismatch": 0}
 # a run whose sample holds no call compared nothing: ``sample_missing`` 1
 AUX = ("latency_ps", "metastable")
+# the traffic at the sizes of the CPU tests: whole runs, and the control
+SMALL = {"run": dict(rows_per_call=96, pool_chunks=2, check_calls=4,
+                     check_stride=1, trace_seconds=0.1),
+         "control": dict(rows_per_call=4096, pool_chunks=1)}
+
+
+def tm_config(config: dict):
+    """The program's ``TMConfig`` for a configuration file."""
+    from repro_torch.core.tm import TMConfig
+    return TMConfig(n_classes=config["n_classes"],
+                    n_clauses=config["n_clauses"],
+                    n_features=config["n_features"],
+                    n_states=config["n_states"], T=config["T"],
+                    s=config["s"])
+
+
+def engine_opts(config: dict) -> dict:
+    """Constructor options of the configuration's inference backend."""
+    if "pdl" not in config:
+        return {}
+    from repro_torch.core.time_domain import PDLConfig
+    p = config["pdl"]
+    return {"pdl": PDLConfig(d_low=p["d_low"], d_high=p["d_high"],
+                             sigma_elem=0.0, sigma_noise=0.0,
+                             t_res=p["t_res"])}
 
 
 def _host_buffers(res, aux: tuple, pinned: bool) -> dict:
@@ -92,8 +124,8 @@ def run(run: harness.Run) -> None:
     pool = inputs.literal_rows(gen, (n_chunks, rows), cfg_j["n_features"])
     chunks = [pool[i] for i in range(n_chunks)]
     run.mark("inputs")
-    engine = get_engine(cfg_j["backend"], harness.tm_config(cfg_j),
-                        TMState(ta=ta.clone()), **harness.engine_opts(cfg_j))
+    engine = get_engine(cfg_j["backend"], tm_config(cfg_j),
+                        TMState(ta=ta.clone()), **engine_opts(cfg_j))
 
     run.mark("engine")
     # warm-up: the one shape, as many calls as may be in flight
@@ -211,3 +243,61 @@ def check(run: harness.Run, ta: torch.Tensor, chunks: list, kept: list,
     out = {k: (v, LIMITS[k]) for k, v in counts.items()}
     out["sample_missing"] = (int(checked == 0), 0)
     return out
+
+
+def small_cell(cell, use: str = "run"):
+    """The cell with its traffic at the CPU tests' size (:data:`SMALL`);
+    the configuration, a few MB of state, stays as it is."""
+    return dataclasses.replace(cell, traffic={**cell.traffic,
+                                              **SMALL[use]})
+
+
+def check_config(config: dict) -> None:
+    """The configuration file holds the port's preset of its name."""
+    from repro_torch.configs import get_config
+    preset = get_config(config["preset"])
+    assert (config["n_classes"], config["n_clauses"], config["n_features"],
+            config["T"], config["s"], config["backend"]) == (
+        preset.n_heads, preset.d_ff, preset.d_model,
+        int(preset.rope_theta), preset.norm_eps, preset.backend)
+
+
+def check_run(run: harness.Run, traced: bool) -> None:
+    """A sound run compares every chunk of the pool; a traced one counts
+    only the rows of the untraced part."""
+    tr = run.cell.traffic
+    if traced:
+        assert run.rows < run.attempted * tr["rows_per_call"]
+    else:
+        assert run.info["chunks_checked"] == tr["pool_chunks"]
+
+
+def control(cell, seed: int, device) -> dict:
+    """The control's compared numbers for one seed of ``cell``: one call's
+    rows (chunk 0 of the cell's pool) computed by the plain reference one
+    precision down, through :func:`check`.
+
+    - ``mxu_fused`` cells: the clause-violation counts and the class sums
+      held in 4-bit two's complement (int4 below the stated int8
+      operands), so class sums past ±7 wrap;
+    - the time-domain race: the chain delays computed in bfloat16 (below
+      the stated float32).
+    """
+    cfg_j, tr = cell.config, cell.traffic
+    gen = inputs.generator(seed, device)
+    ta = inputs.tm_state(cfg_j, gen)
+    pool = inputs.literal_rows(gen, (tr["pool_chunks"], tr["rows_per_call"]),
+                               cfg_j["n_features"])
+    lits = pool[0]
+    if "pdl" in cfg_j:
+        got = ref.infer_race(ta, lits, cfg_j["n_states"], cfg_j["pdl"],
+                             precision="bfloat16")
+        keys, aux = ("prediction", "class_sums", "latency_ps",
+                     "metastable"), AUX
+    else:
+        got = ref.infer(ta, lits, cfg_j["n_states"], precision="int4")
+        keys, aux = ("prediction", "class_sums"), ()
+    buf = {k: v.cpu() for k, v in zip(keys, got)}
+    run = harness.Run(cell=cell, seed=seed, seconds=0.0, trace=False,
+                      device=device, t0=0.0)
+    return check(run, ta, [lits], [(0, buf)], aux)

@@ -49,7 +49,9 @@ class Run:
     setup_s: float | None = None
     # the untraced part of the window (the whole window with --trace 0):
     window_s: float | None = None     # first timed call to last result
-    rows: int = 0                     # rows whose results came back
+    # result rows back in host memory; the entry's docstring says what a
+    # row is
+    rows: int = 0
     attempted: int = 0
     failed: int = 0
     spans: dict = dataclasses.field(default_factory=dict)  # name -> [s]
@@ -97,27 +99,6 @@ def seed_offset(seed: int, stride: int) -> int:
     return int(np.random.default_rng(int(seed)).integers(stride))
 
 
-def tm_config(config: dict):
-    """The program's ``TMConfig`` for a configuration file."""
-    from repro_torch.core.tm import TMConfig
-    return TMConfig(n_classes=config["n_classes"],
-                    n_clauses=config["n_clauses"],
-                    n_features=config["n_features"],
-                    n_states=config["n_states"], T=config["T"],
-                    s=config["s"])
-
-
-def engine_opts(config: dict) -> dict:
-    """Constructor options of the configuration's inference backend."""
-    if "pdl" not in config:
-        return {}
-    from repro_torch.core.time_domain import PDLConfig
-    p = config["pdl"]
-    return {"pdl": PDLConfig(d_low=p["d_low"], d_high=p["d_high"],
-                             sigma_elem=0.0, sigma_noise=0.0,
-                             t_res=p["t_res"])}
-
-
 def median_ms(values) -> float | None:
     return statistics.median(values) * 1e3 if values else None
 
@@ -128,7 +109,7 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool, *,
     run = Run(cell=cell, seed=seed, seconds=seconds, trace=trace,
               device=device, t0=time.perf_counter() if t0 is None else t0)
     run.mark("start")
-    spec.entry_module(cell.traffic["entry"]).run(run)
+    spec.entry_module(cell.traffic["entry"], cell.root).run(run)
     return run
 
 

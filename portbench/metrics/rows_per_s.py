@@ -1,6 +1,8 @@
-"""Rows classified per second: every row whose prediction and class sums
-came back to host memory, over the window from the first call to the
-last result (host clock)."""
+"""Result rows per second: every result row back in host memory, as the
+cell's entry defines a row (bulk: a classified row, its prediction and
+class sums; a decode entry: one sequence's next-token logits row, one
+generated token), over the window from the first call to the last result
+(host clock)."""
 
 
 def read(run):

@@ -7,18 +7,22 @@ found by name under ``portbench/``:
 - a configuration: ``configs/<config>.json``, the file ``BENCHMARK.json``
   gives for it;
 - a traffic mix: ``traffic/<traffic>.json``, parameters read by the
-  module its ``entry`` names (``entries/<entry>.py``);
+  module its ``entry`` names (``entries/<entry>.py``), and
+  ``trace_seconds``, the last part of the window a ``--trace 1`` run
+  records;
+- an entry: ``entries/<entry>.py``, which runs the traffic and provides
+  every hook of :data:`ENTRY_HOOKS`;
 - a metric: ``metrics/<metric name>.py``, whose ``read(run)`` returns the
   number or ``None`` where the run has nothing to read.
 
-So a new cell, configuration, traffic mix or metric is new files and a
-new entry in ``BENCHMARK.json``; no existing file changes.
+So a new cell, configuration, traffic mix, entry or metric is new files
+and a new entry in ``BENCHMARK.json``; no existing file changes.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import importlib
+import functools
 import importlib.util
 import json
 import re
@@ -26,6 +30,11 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 NAME = re.compile(r"[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}")
+
+# What every entry module provides (portbench/README.md says what each
+# does): the benchmark's run calls ``run``; the CPU tests
+# (``portbench/tests/cellcheck.py``) and ``control.py`` call the others.
+ENTRY_HOOKS = ("run", "small_cell", "check_config", "check_run", "control")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,6 +111,25 @@ def metric_reader(name: str, root: Path = ROOT):
                  .replace("-", "_")).read
 
 
-def entry_module(name: str):
-    """The module ``portbench/entries/<name>.py`` that runs a traffic entry."""
-    return importlib.import_module(f"portbench.entries.{check_name(name)}")
+def entry_module(name: str, root: Path = ROOT):
+    """The module ``portbench/entries/<name>.py`` of the benchmark at
+    ``root`` that runs a traffic entry, loaded once a process."""
+    return _entry(check_name(name), Path(root).resolve())
+
+
+@functools.cache
+def _entry(name: str, root: Path):
+    return _load(root / "portbench" / "entries" / f"{name}.py",
+                 f"portbench_entry_{name}")
+
+
+def check_entry(name: str, root: Path = ROOT):
+    """The entry module ``name`` at ``root``, or ``TypeError`` naming the
+    entry and each hook of :data:`ENTRY_HOOKS` it lacks."""
+    mod = entry_module(name, root)
+    missing = [h for h in ENTRY_HOOKS if not callable(getattr(mod, h, None))]
+    if missing:
+        raise TypeError(f"entry {name!r} (portbench/entries/{name}.py) lacks "
+                        f"the hooks {', '.join(missing)} (portbench/README.md"
+                        ", 'Adding a cell')")
+    return mod

@@ -1,17 +1,17 @@
 """The controls of the comparisons come out as not correct: the reference
 computed in the precision below the stated one and fed through the same
-comparison a run makes (``portbench/control.py``).  On the CPU at small
-sizes; on the card (``-m cuda``) at each cell's own sizes on three seeds.
+comparison a run makes (``portbench/control.py``, by the hook of each
+cell's entry).  On the CPU at the size the entry's ``small_cell`` gives;
+on the card (``-m cuda``) at each cell's own sizes on three seeds.
 """
 
 from __future__ import annotations
-
-import dataclasses
 
 import pytest
 import torch
 
 from portbench import control, spec
+from portbench.tests import cellcheck
 
 torch.set_num_threads(2)
 
@@ -23,19 +23,10 @@ def _failed(compared: dict) -> bool:
     return any(v > lim for v, lim in compared.values())
 
 
-def _small(name: str):
-    cell = spec.find_cell(name, bench=BENCH)
-    return dataclasses.replace(
-        cell, traffic={**cell.traffic, "rows_per_call": 4096,
-                       "pool_chunks": 1})
-
-
 @pytest.mark.parametrize("name", CELLS)
 @pytest.mark.parametrize("seed", [1, 2**31 + 9])
 def test_the_control_fails_on_the_cpu(name, seed):
-    got = control.control(_small(name), seed, torch.device("cpu"))
-    assert _failed(got), got
-    assert not got["sample_missing"][0]
+    cellcheck.control_fails(spec.find_cell(name, bench=BENCH), seed)
 
 
 @pytest.fixture

@@ -1,71 +1,50 @@
-"""Whole runs of every cell on the CPU, at sizes a test can hold: a sound
-run comes out correct with its metrics, and a run whose timed path is
-broken underneath comes out not correct, once for each fault the cell
-can have (half of the batch's answers left out, an answer altered where
-it is produced)."""
+"""Whole runs of every cell on the CPU, at the size its entry's
+``small_cell`` gives: a sound run comes out correct with its metrics
+(:mod:`cellcheck`, through the entry's hooks), and a run of a bulk cell
+whose timed path is broken underneath comes out not correct, once for
+each fault the cell can have (half of the batch's answers left out, an
+answer altered where it is produced)."""
 
 from __future__ import annotations
-
-import dataclasses
 
 import pytest
 import torch
 
 from portbench import harness, spec
+from portbench.entries import bulk
+from portbench.tests import cellcheck
 from repro_torch.engine import EngineResult, clear_engine_cache
 from repro_torch.engine.backends import MXUFusedEngine, TimeDomainEngine
 
 torch.set_num_threads(2)
 
-CPU = torch.device("cpu")
-SECONDS = 0.25
-BULK = dict(rows_per_call=96, pool_chunks=2, check_calls=4, check_stride=1,
-            trace_seconds=0.1)
+CPU = cellcheck.CPU
+SECONDS = cellcheck.SECONDS
+SEED = 2**31 + 3
 BENCH = spec.load_benchmark()
-
-
-def small_cell(name: str):
-    cell = spec.find_cell(name, bench=BENCH)
-    return dataclasses.replace(cell, traffic={**cell.traffic, **BULK})
-
-
-def run(name: str, trace: bool = False, seed: int = 2**31 + 3):
-    clear_engine_cache()
-    return harness.run_cell(small_cell(name), seed, SECONDS, trace,
-                            device=CPU)
-
-
 CELLS = [w["name"] for w in BENCH["workloads"]]
+
+
+@pytest.fixture(autouse=True)
+def _no_cached_engines():
+    """Each run builds its engines anew, whatever an earlier test left."""
+    clear_engine_cache()
+
+
+def run(name: str):
+    """A bulk cell's run at the bulk entry's small size."""
+    cell = bulk.small_cell(spec.find_cell(name, bench=BENCH))
+    return harness.run_cell(cell, SEED, SECONDS, False, device=CPU)
 
 
 @pytest.mark.parametrize("name", CELLS)
 def test_a_sound_run_is_correct_and_reports_its_metrics(name):
-    r = run(name)
-    assert r.correct and r.attempted > 0 and r.failed == 0, r.compared
-    assert r.setup_s > 0 and r.window_s >= SECONDS
-    # every chunk of the pool is compared
-    assert r.info["chunks_checked"] == BULK["pool_chunks"]
-    got = harness.metrics(r)
-    assert set(got) == {m["name"] for m in r.cell.end_to_end}
-    assert all(v["value"] > 0 for v in got.values())
-    line = harness.result_line(r, {"platform": "cpu"})
-    assert list(line)[-1] == "compared"
+    cellcheck.sound_run(spec.find_cell(name, bench=BENCH), SEED)
 
 
 @pytest.mark.parametrize("name", CELLS)
 def test_a_traced_run_reports_per_layer_metrics(name):
-    r = run(name, trace=True)
-    assert r.correct and r.trace_summary is not None
-    # the rate is read over the untraced part, before the profiler starts
-    assert SECONDS - BULK["trace_seconds"] <= r.window_s < SECONDS
-    assert r.rows < r.attempted * BULK["rows_per_call"]
-    got = harness.metrics(r)
-    # on the CPU no device operation is traced: the roofline stays silent
-    assert "k3_roofline" not in got
-    want = {m["name"] for m in r.cell.per_layer} - {"k3_roofline"}
-    assert set(got) == want
-    line = harness.result_line(r, {"platform": "cpu"})
-    assert set(line["breakdown"]) == {"device_ops", "idle_gaps"}
+    cellcheck.traced_run(spec.find_cell(name, bench=BENCH), SEED)
 
 
 def _drop_half(infer):

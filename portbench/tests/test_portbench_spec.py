@@ -1,11 +1,13 @@
-"""The benchmark's files: every cell, configuration, traffic mix and metric
-is found by name; ``BENCHMARK.json`` keeps to its contract; a new cell is
-files alone; nothing the harness loads imports JAX or the JAX package."""
+"""The benchmark's files: every cell, configuration, traffic mix, entry and
+metric is found by name; ``BENCHMARK.json`` keeps to its contract; a new
+cell, of the bulk kind or of a new one, is files alone; nothing the
+harness loads imports JAX or the JAX package."""
 
 from __future__ import annotations
 
 import ast
 import dataclasses
+import hashlib
 import json
 import os
 import re
@@ -19,6 +21,7 @@ import torch
 
 from portbench import harness, spec
 from portbench.devtrace import summarize
+from portbench.tests import cellcheck
 
 torch.set_num_threads(2)
 
@@ -33,20 +36,35 @@ def _bench() -> dict:
     return spec.load_benchmark(ROOT)
 
 
+def _cells(root: Path = ROOT) -> list[str]:
+    return [w["name"] for w in spec.load_benchmark(root)["workloads"]]
+
+
 def test_every_cell_is_found_from_files():
-    bench = _bench()
-    for w in bench["workloads"]:
-        cell = spec.find_cell(w["name"])
-        assert cell.config_name == w["config"]
-        assert spec.entry_module(cell.traffic["entry"]).run
-        for m in (*cell.end_to_end, *cell.per_layer):
-            assert callable(spec.metric_reader(m["name"]))
+    for name in _cells():
+        cellcheck.found_from_files(name, ROOT)
     with pytest.raises(KeyError):
         spec.find_cell("no-such.cell")
 
 
+def test_every_entry_keeps_the_contract():
+    """Every entry a traffic file names provides every hook the generic
+    checks call, and every cell's traffic keeps to it."""
+    entries = {json.loads(p.read_text())["entry"]
+               for p in (BENCH / "traffic").glob("*.json")}
+    assert entries
+    for name in sorted(entries):
+        spec.check_entry(name)
+    for name in _cells():
+        cellcheck.keeps_the_contract(spec.find_cell(name))
+
+
 def test_benchmark_keeps_to_its_contract():
-    bench = _bench()
+    _keeps_to_its_contract(ROOT)
+
+
+def _keeps_to_its_contract(root: Path) -> None:
+    bench = spec.load_benchmark(root)
     assert set(bench) == {"command", "paths", "run_seconds", "configs",
                           "workloads", "end_to_end", "per_layer"}
     assert bench["paths"] == ["portbench"]
@@ -64,7 +82,7 @@ def test_benchmark_keeps_to_its_contract():
         assert c["name"] in used
         assert c["file"].startswith("portbench/")
         assert 1 <= len(c["source"]) <= 200 and "\n" not in c["source"]
-        assert json.loads((ROOT / c["file"]).read_text())["reduced"] == \
+        assert json.loads((root / c["file"]).read_text())["reduced"] == \
             c["reduced"]
     pairs = set()
     for w in bench["workloads"]:
@@ -97,21 +115,22 @@ def test_benchmark_keeps_to_its_contract():
         assert UNIT.fullmatch(m["unit"]) and m["better"] in ("lower",
                                                              "higher")
     for w in bench["workloads"]:
-        cell = spec.find_cell(w["name"])
+        cell = spec.find_cell(w["name"], root)
         reported = {m["name"] for m in cell.end_to_end}
         assert "setup_s" in reported and len(reported) >= 2
         assert cell.per_layer
 
 
 def test_config_files_hold_the_ports_presets():
-    from repro_torch.configs import get_config
-    for c in _bench()["configs"]:
-        conf = json.loads((ROOT / c["file"]).read_text())
-        preset = get_config(conf["preset"])
-        assert (conf["n_classes"], conf["n_clauses"], conf["n_features"],
-                conf["T"], conf["s"], conf["backend"]) == (
-            preset.n_heads, preset.d_ff, preset.d_model,
-            int(preset.rope_theta), preset.norm_eps, preset.backend)
+    """Each configuration file states what the entry of each cell that
+    runs it gives the program (bulk: the port's preset of its name)."""
+    bench = _bench()
+    for c in bench["configs"]:
+        users = [w["name"] for w in bench["workloads"]
+                 if w["config"] == c["name"]]
+        assert users, c["name"]
+        for name in users:
+            cellcheck.config_matches(spec.find_cell(name))
 
 
 def test_files_under_the_benchmark_use_name_characters():
@@ -140,24 +159,13 @@ def test_harness_sources_import_no_jax_and_the_reference_no_program():
 
 
 def test_a_run_loads_no_jax_module():
-    """What the harness and the port's paths it drives load, in a fresh
-    process: no module whose top-level name is a JAX one, compared whole
-    (``repro_torch`` is not ``repro``)."""
-    code = (
-        "import sys; sys.path[0:0] = [%r, %r]\n"
-        "import portbench.harness, portbench.control, portbench.devtrace\n"
-        "import portbench.entries.bulk\n"
-        "from portbench import spec\n"
-        "for m in spec.load_benchmark()['per_layer'] + "
-        "spec.load_benchmark()['end_to_end']:\n"
-        "    spec.metric_reader(m['name'])\n"
-        "import repro_torch.engine, repro_torch.serve, repro_torch.core.tm\n"
-        "from portbench.harness import forbidden_modules\n"
-        "print(forbidden_modules())\n" % (str(ROOT), str(ROOT / "src")))
-    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                         text=True, timeout=120, cwd=ROOT)
-    assert out.returncode == 0, out.stderr
-    assert out.stdout.strip().splitlines()[-1] == "[]"
+    """What the harness, every entry module a traffic file names, every
+    metric reader and the port's paths they drive load, in a fresh
+    process, with a short CPU run of every cell: no module whose
+    top-level name is a JAX one, compared whole (``repro_torch`` is not
+    ``repro``)."""
+    cellcheck.loads_no_jax(ROOT, _cells(), also=(
+        "repro_torch.engine", "repro_torch.serve", "repro_torch.core.tm"))
 
 
 def test_no_card_means_no_result(monkeypatch, capsys):
@@ -212,6 +220,168 @@ def test_a_new_cell_config_and_metric_are_files_alone(tmp_path):
             assert got["calls.bulk"]["value"] == run.attempted > 0
         else:
             assert set(got) == {"rows_per_s", "setup_s"}
+
+
+# An entry of a new kind, with no model: seeded float64 rows times a
+# seeded matrix, compared with numpy's product; its control multiplies in
+# float32.  Written into a copy of the benchmark by the test below.
+TOY_ENTRY = '''"""A toy entry: seeded float64 rows times a seeded matrix.
+A row is one row of a call's product, back in host memory."""
+
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+from portbench.devtrace import TracedWindow
+
+LIMIT = 1e-9
+
+
+def _inputs(cell, seed, device):
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(seed))
+    n, rows = cell.config["width"], cell.traffic["rows_per_call"]
+    x = torch.randn((rows, n), generator=gen, dtype=torch.float64,
+                    device=device)
+    w = torch.randn((n, n), generator=gen, dtype=torch.float64,
+                    device=device)
+    return x, w
+
+
+def _compare(x, w, y):
+    want = x.cpu().numpy() @ w.cpu().numpy()
+    err = float(np.abs(y.numpy() - want).max() / np.abs(want).max())
+    return {"row_error": (err, LIMIT),
+            "sample_missing": (int(y.shape[0] == 0), 0)}
+
+
+def run(run):
+    x, w = _inputs(run.cell, run.seed, run.device)
+    y = (x @ w).cpu()
+    tr = run.cell.traffic
+    tw = TracedWindow(run.trace, chips=run.cell.chips)
+    t_start = time.perf_counter()
+    run.setup_s = t_start - run.t0
+    stop = t_start + run.seconds - (tr["trace_seconds"] if run.trace else 0)
+    spans = []
+    while time.perf_counter() < stop:
+        t = time.perf_counter()
+        y = (x @ w).cpu()
+        spans.append(time.perf_counter() - t)
+    run.window_s = time.perf_counter() - t_start
+    run.rows = len(spans) * x.shape[0]
+    calls = len(spans)
+    if run.trace:
+        tw.begin()
+        stop = time.perf_counter() + tr["trace_seconds"]
+        while time.perf_counter() < stop:
+            y = (x @ w).cpu()
+            calls += 1
+        tw.finish()
+    run.trace_summary = tw.summary
+    run.attempted = calls
+    run.spans["call"] = spans
+    run.info["calls"] = calls
+    run.compared = _compare(x, w, y)
+
+
+def small_cell(cell, use="run"):
+    return dataclasses.replace(
+        cell, config={**cell.config, "width": 16},
+        traffic={**cell.traffic, "rows_per_call": 32, "trace_seconds": 0.1})
+
+
+def check_config(config):
+    assert config["dtype"] == "float64" and config["width"] > 0
+
+
+def check_run(run, traced):
+    assert run.info["calls"] == run.attempted >= len(run.spans["call"])
+
+
+def control(cell, seed, device):
+    x, w = _inputs(cell, seed, device)
+    return _compare(x, w, (x.float() @ w.float()).double().cpu())
+'''
+TM_KEYS = {"preset", "n_classes", "n_clauses", "n_features", "n_states",
+           "T", "s", "backend", "pdl", "include_density"}
+
+
+def _digests(root: Path) -> dict:
+    return {str(p.relative_to(root)): hashlib.sha256(p.read_bytes())
+            .hexdigest() for p in root.rglob("*")
+            if p.is_file() and "__pycache__" not in p.parts}
+
+
+def _add_toy_cell(root: Path, missing: str | None, stem: str = "toy"
+                  ) -> str:
+    """Add a cell of a new kind to the benchmark at ``root`` as new files
+    and new ``BENCHMARK.json`` entries alone, its entry ``<stem>`` without
+    the hook ``missing`` where given; return the cell's name."""
+    bench = spec.load_benchmark(root)
+    config, traffic = f"{stem}-256", f"{stem}-calls"
+    name, metric = f"{config}.{traffic}", f"calls.{stem}"
+    source = TOY_ENTRY + (f"\n\ndel {missing}\n" if missing else "")
+    (root / f"portbench/entries/{stem}.py").write_text(source)
+    (root / f"portbench/configs/{config}.json").write_text(json.dumps(
+        {"width": 256, "dtype": "float64", "reduced": []}))
+    (root / f"portbench/traffic/{traffic}.json").write_text(json.dumps(
+        {"entry": stem, "rows_per_call": 64, "trace_seconds": 0.5}))
+    (root / f"portbench/metrics/{metric}.py").write_text(
+        "def read(run):\n    return run.info.get('calls')\n")
+    bench["configs"].append({"name": config, "source": "a test",
+                             "file": f"portbench/configs/{config}.json",
+                             "reduced": [], "why": "a test"})
+    bench["workloads"].append({"name": name, "config": config,
+                               "traffic": traffic, "chips": 1,
+                               "why": "a test"})
+    for m in bench["end_to_end"]:
+        if m["name"] == "rows_per_s":
+            m["workloads"].append(name)
+    bench["per_layer"].append({"name": metric, "unit": "calls",
+                               "better": "higher", "source": "host_clock",
+                               "layer": "a test", "moves": "rows_per_s",
+                               "workloads": [name]})
+    (root / "BENCHMARK.json").write_text(json.dumps(bench, indent=2))
+    return name
+
+
+@pytest.mark.parametrize("missing", [None, *spec.ENTRY_HOOKS])
+def test_a_cell_of_a_new_kind_is_files_alone(tmp_path, missing):
+    """Copy the benchmark's files, then add a cell whose configuration
+    holds no TM key and whose traffic names a new entry, as new files and
+    new BENCHMARK.json entries: the cell goes through every check an
+    accepted cell goes through, and no file that was there changes but
+    BENCHMARK.json.  An entry that lacks a hook fails the contract,
+    which names the entry and the hook."""
+    shutil.copytree(BENCH, tmp_path / "portbench",
+                    ignore=shutil.ignore_patterns("__pycache__", "tests"))
+    shutil.copy(ROOT / "BENCHMARK.json", tmp_path / "BENCHMARK.json")
+    before = _digests(tmp_path)
+    name = _add_toy_cell(tmp_path, missing)
+    if missing:
+        with pytest.raises(TypeError,
+                           match=f"entry 'toy'.* lacks the hooks {missing} "):
+            cellcheck.keeps_the_contract(spec.find_cell(name, tmp_path))
+        return
+    cell = cellcheck.found_from_files(name, tmp_path)
+    assert not TM_KEYS & set(cell.config)
+    assert cell.name in _cells(tmp_path)
+    _keeps_to_its_contract(tmp_path)
+    cellcheck.keeps_the_contract(cell)
+    cellcheck.config_matches(cell)
+    r = cellcheck.sound_run(cell, 2**31 + 7)
+    assert r.cell.config["width"] == 16      # the entry shrank it
+    traced = cellcheck.traced_run(cell, 2**31 + 7)
+    assert harness.metrics(traced)["calls.toy"]["value"] == traced.attempted
+    got = cellcheck.control_fails(cell, 11)
+    assert got["row_error"][0] > 10 * got["row_error"][1]
+    cellcheck.loads_no_jax(tmp_path, [name])
+    after = _digests(tmp_path)
+    changed = {k for k in before if after.get(k) != before[k]}
+    assert changed == {"BENCHMARK.json"}
 
 
 def _small_copy(tmp_path: Path) -> Path:
